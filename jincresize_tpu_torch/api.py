@@ -1,0 +1,468 @@
+"""Public API: JincResize with the reference's 16-parameter surface, on torch.
+
+Port of ``jincresize_tpu/api.py``: the same ``JincConfig`` fields and
+defaults, the same validation messages, the same ``_ChromaLocation``
+handling and the four ``jinc*_resize`` aliases. Operators are built by the
+shared NumPy host layer (``jincresize_tpu.operator``) and carried to an
+explicit torch ``device``.
+
+Engines (``JincResizer.engines`` records the one each plane ran):
+
+* ``'fused'`` -- ``apply_conv.ConvApplier``: the hand-written interior and
+  strip kernels on CUDA tensors (their plain forms on CPU tensors);
+* ``'xla'`` -- ``apply_xla``: the general gather-MAC in plain torch;
+* ``'numpy'`` -- the shared host golden (``golden.apply_plane_numpy``).
+
+``impl='auto'`` picks ``fused`` when the plan is periodic and inside the
+kernel's envelope, else ``xla``; ``'conv'`` and ``'pallas'`` run ``fused`` or
+raise; ``'seg'``, ``'gather'`` and ``'sharded'`` raise NotImplementedError
+until their engines are ported. ``ChainResizer`` and the CLI are not ported.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from jincresize_tpu.clip import Clip, Frame, VideoFormat
+from jincresize_tpu.filters import build_lut
+from jincresize_tpu.geometry import chroma_crop
+from jincresize_tpu.golden import apply_plane_numpy
+from jincresize_tpu.operator import PlaneOperator, build_plane_operator, radius_for_tap
+from jincresize_tpu.phase import plan_phases
+
+from . import apply_xla
+from .apply_conv import ConvApplier
+from .kernels import fused as fused_k
+
+
+class JincError(ValueError):
+    """Construction-time validation error (reference: avs_new_value_error)."""
+
+
+@dataclass(frozen=True)
+class JincConfig:
+    """All JincResize parameters with reference defaults.
+
+    A copy of ``jincresize_tpu.api.JincConfig`` (whose module imports jax);
+    see there for each field's meaning.
+    """
+
+    target_width: int
+    target_height: int
+    src_left: float = 0.0
+    src_top: float = 0.0
+    src_width: float | None = None  # <=0: crop from the right
+    src_height: float | None = None  # <=0: crop from the bottom
+    quant_x: int = 256
+    quant_y: int = 256
+    tap: int = 3
+    blur: float = 0.0  # 0 means unset -> 1.0
+    cplace: str | None = None  # None: resolve from frame props, else mpeg2
+    threads: int = 0
+    opt: int = -1
+    initial_capacity: int | None = None
+    initial_factor: float = 1.5
+    impl: str = "auto"  # 'auto'|'conv'|'seg'|'gather'|'xla'|'pallas'|'numpy'|'sharded'
+    float_clamp: bool | None = None  # None: clamp float sources unless opt == 0
+    precision: str = "fp32"  # 'fp32' | 'bf16'
+    pos_precision: str = "f32"  # 'f32' (reference walk) | 'f64' (drift-free)
+    operator_cache: bool = True
+
+
+# ROADMAP "still to port" items named by the engines that are not ported.
+_NOT_PORTED = {
+    "seg": "impl='seg' (segment-periodic engine, ROADMAP still to port #4)",
+    "gather": "impl='gather' (gather engine, ROADMAP still to port #3)",
+    "sharded": "impl='sharded' (multi-device engine, ROADMAP still to port #5)",
+}
+
+
+def _resolve_cplace(cfg: JincConfig, fmt: VideoFormat, frame0: Frame | None) -> str:
+    cplace = cfg.cplace
+    if cplace:
+        cplace = cplace.lower()
+        if cplace not in ("mpeg2", "mpeg1", "topleft"):
+            raise JincError("JincResize: cplace must be MPEG2, MPEG1 or topleft.")
+    else:
+        # Frame-prop fallback.
+        loc = None if frame0 is None else frame0.props.get("_ChromaLocation")
+        if loc is None:
+            cplace = "mpeg2"
+        elif loc == 0:
+            cplace = "mpeg2"
+        elif loc == 1:
+            cplace = "mpeg1"
+        elif loc == 2:
+            cplace = "topleft"
+        else:
+            raise JincError("JincResize: invalid _ChromaLocation")
+    if cplace == "topleft" and not fmt.is_420:
+        raise JincError(
+            "JincResize: topleft must be used only for 4:2:0 chroma subsampling."
+        )
+    return cplace
+
+
+def _validate(cfg: JincConfig) -> None:
+    """Reference argument validation with identical messages."""
+    if not 1 <= cfg.tap <= 16:
+        raise JincError("JincResize: tap must be between 1..16.")
+    if not 1 <= cfg.quant_x <= 256:
+        raise JincError("JincResize: quant_x must be between 1..256.")
+    if not 1 <= cfg.quant_y <= 256:
+        raise JincError("JincResize: quant_y must be between 1..256.")
+    if cfg.opt > 3:
+        raise JincError("JincResize: opt higher than 3 is not allowed.")
+    if cfg.threads not in (0, 1):
+        raise JincError("JincResize: threads must be either 0 or 1.")
+    if cfg.initial_factor < 1.0:
+        raise JincError(
+            "JincResize: initial_factor must be eqaul to or greater than 1.0."
+        )
+    if cfg.initial_capacity is not None and cfg.initial_capacity <= 0:
+        raise JincError("JincResize: initial_capacity must be greater than 0.")
+    if cfg.impl not in (
+        "auto",
+        "conv",
+        "seg",
+        "gather",
+        "xla",
+        "pallas",
+        "numpy",
+        "sharded",
+    ):
+        raise JincError(f"JincResize: unknown impl {cfg.impl!r}.")
+    if cfg.precision not in ("fp32", "bf16"):
+        raise JincError(f"JincResize: unknown precision {cfg.precision!r}.")
+    if cfg.pos_precision not in ("f32", "f64"):
+        raise JincError(
+            f"JincResize: unknown pos_precision {cfg.pos_precision!r}."
+        )
+
+
+def _select_engine(op: PlaneOperator, impl: str, precision: str, device):
+    """Pick the execution engine for one plane operator.
+
+    Returns (applier_or_None, engine_name): ``'fused'`` (a ConvApplier) or
+    ``'xla'`` (no applier). Every accepted ``impl`` runs what it names or
+    raises.
+    """
+    if impl in _NOT_PORTED:
+        raise NotImplementedError(f"JincResize: {_NOT_PORTED[impl]} is not ported yet.")
+    plan = plan_phases(op)
+    fused_ok = plan is not None and fused_k.is_supported(op, plan)
+    if fused_ok and impl in ("auto", "conv", "pallas"):
+        app = ConvApplier(op, plan=plan, precision=precision, device=device)
+        return app, "fused"
+    if impl == "conv" and plan is None:
+        raise JincError(
+            "JincResize: impl='conv' requires periodic geometry "
+            "(use impl='auto' for automatic fallback)."
+        )
+    if impl in ("conv", "pallas"):
+        raise NotImplementedError(
+            f"JincResize: impl={impl!r} -- geometry is outside the fused kernel "
+            "envelope, and the deep-tap interior (ROADMAP still to port #1), "
+            "segment-periodic and gather engines are not ported yet "
+            "(use impl='auto' for automatic fallback)."
+        )
+    return None, "xla"
+
+
+class JincResizer:
+    """Constructed filter instance: operators built once, frames are calls.
+
+    ``device`` is where the device engines run; ``'cuda'`` without a visible
+    GPU raises instead of running on the CPU.
+    """
+
+    def __init__(
+        self,
+        fmt: VideoFormat,
+        width: int,
+        height: int,
+        cfg: JincConfig,
+        frame0: Frame | None = None,
+        device="cuda",
+    ):
+        _validate(cfg)
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "JincResize: device='cuda' requested but no CUDA device is visible."
+            )
+        self.fmt = fmt
+        self.src_width = width
+        self.src_height = height
+        self.cfg = cfg
+        self.cplace = _resolve_cplace(cfg, fmt, frame0)
+
+        # Crop semantics including negative src_width/height = right/bottom crop.
+        crop_left = cfg.src_left
+        crop_width = float(width) if cfg.src_width is None else float(cfg.src_width)
+        if crop_width <= 0.0:
+            crop_width = width - crop_left + crop_width
+        crop_top = cfg.src_top
+        crop_height = float(height) if cfg.src_height is None else float(cfg.src_height)
+        if crop_height <= 0.0:
+            crop_height = height - crop_top + crop_height
+
+        blur = cfg.blur if cfg.blur else 1.0
+        tw, th = cfg.target_width, cfg.target_height
+        radius = radius_for_tap(cfg.tap)
+        lut = build_lut(radius, blur)
+        self.peak = fmt.peak
+        pos_precision = None if cfg.pos_precision == "f32" else cfg.pos_precision
+
+        def _build(**geometry):
+            if cfg.operator_cache:
+                from jincresize_tpu.cache import cached_build
+
+                return cached_build(
+                    lambda **g: build_plane_operator(lut=lut, **g), **geometry
+                )
+            return build_plane_operator(lut=lut, **geometry)
+
+        # Luma/444/RGB operator (also used for alpha planes).
+        self.op_luma: PlaneOperator = _build(
+            src_width=width,
+            src_height=height,
+            dst_width=tw,
+            dst_height=th,
+            radius=radius,
+            crop_left=crop_left,
+            crop_top=crop_top,
+            crop_width=crop_width,
+            crop_height=crop_height,
+            quantize_x=cfg.quant_x,
+            quantize_y=cfg.quant_y,
+            blur=blur,
+            pos_precision=pos_precision,
+        )
+        # Subsampled chroma operator with the chroma-siting shift.
+        self.op_chroma: PlaneOperator | None = None
+        if fmt.family == "YUV" and fmt.is_subsampled:
+            cl, ct, cw, ch = chroma_crop(
+                self.cplace,
+                width,
+                height,
+                tw,
+                th,
+                crop_left,
+                crop_top,
+                crop_width,
+                crop_height,
+                fmt.sub_w,
+                fmt.sub_h,
+            )
+            self.op_chroma = _build(
+                src_width=width >> fmt.sub_w,
+                src_height=height >> fmt.sub_h,
+                dst_width=tw >> fmt.sub_w,
+                dst_height=th >> fmt.sub_h,
+                radius=radius,
+                crop_left=cl,
+                crop_top=ct,
+                crop_width=cw,
+                crop_height=ch,
+                quantize_x=cfg.quant_x,
+                quantize_y=cfg.quant_y,
+                blur=blur,
+                pos_precision=pos_precision,
+            )
+        self._init_engines()
+
+        # Float-source clamp per plane (SIMD semantics unless opt==0).
+        clamp = cfg.float_clamp
+        if clamp is None:
+            clamp = cfg.opt != 0
+        self._float_clamp = clamp and fmt.bits == 32
+
+    # --------------------------------------------------------------- engines
+    def _init_engines(self) -> None:
+        """Select and build the engine per plane operator into ``engines``."""
+        cfg, fmt = self.cfg, self.fmt
+        self._impl = cfg.impl
+        self._dev_luma = None
+        self._dev_chroma = None
+        self._applier_luma = None
+        self._applier_chroma = None
+        self.engines: dict[str, str] = {}
+        # u8 planes are bf16-exact; the JAX package runs a weight-split kernel
+        # for them, the port the same exact fp32 kernel.
+        prec = cfg.precision
+        if prec == "fp32" and fmt.bits == 8:
+            prec = "fp32_u8src"
+        if self._impl == "numpy":
+            self.engines["luma"] = "numpy"
+            if self.op_chroma is not None:
+                self.engines["chroma"] = "numpy"
+            return
+        ops = {"luma": self.op_luma, "chroma": self.op_chroma}
+        for plane, op in ops.items():
+            if op is None:
+                continue
+            app, eng = (None, "xla")
+            if self._impl != "xla":
+                app, eng = _select_engine(op, self._impl, prec, self.device)
+            dev = apply_xla.to_device(op, self.device) if app is None else None
+            setattr(self, f"_applier_{plane}", app)
+            setattr(self, f"_dev_{plane}", dev)
+            self.engines[plane] = eng
+
+    # ------------------------------------------------------------------ plane
+    def _plane_op(self, name: str):
+        """Chroma planes use the chroma operator for subsampled formats,
+        everything else (incl. alpha) the luma operator."""
+        if name in ("U", "V") and self.op_chroma is not None:
+            return self.op_chroma, self._dev_chroma, self._applier_chroma
+        return self.op_luma, self._dev_luma, self._applier_luma
+
+    def _clamp_min(self, name: str) -> float | None:
+        if not self._float_clamp:
+            return None
+        # (i && !is_rgb) -> -0.5 else 0.0
+        if self.fmt.family != "RGB" and name != self.fmt.plane_names[0]:
+            return -0.5
+        return 0.0
+
+    def _resize_planes(self, name: str, src: np.ndarray) -> np.ndarray:
+        """Resample a batch (F, h, w) of one plane through the selected engine."""
+        op, dop, app = self._plane_op(name)
+        cmin = self._clamp_min(name)
+        dtype, peak = self.fmt.dtype, self.peak
+        # SIMD store semantics under the reference's default dispatch
+        # (opt != 0): 9..15-bit stores saturate at the u16 type max, not at
+        # peak; only opt=0 selects the C kernel's peak clamp.
+        if self.cfg.opt != 0 and 8 < self.fmt.bits < 16:
+            peak = 65535.0
+        if self._impl == "numpy":
+            return np.stack(
+                [
+                    apply_plane_numpy(
+                        op, s, out_dtype=dtype, peak=peak, float_clamp_min=cmin
+                    )
+                    for s in src
+                ]
+            )
+        t = torch.from_numpy(np.ascontiguousarray(src)).to(self.device)
+        if app is not None:
+            out = app(t, out_dtype=dtype, peak=peak, float_clamp_min=cmin)
+        else:
+            out = apply_xla.resize_plane_batch(
+                dop, t, out_dtype=dtype, peak=peak, float_clamp_min=cmin
+            )
+        return out.cpu().numpy()
+
+    def _out_frame(self, planes: dict, props: dict) -> Frame:
+        out = Frame(format=self.fmt, planes=planes, props=dict(props))
+        # _ChromaLocation output prop for 420/422/411.
+        if self.fmt.is_420 or self.fmt.is_422 or self.fmt.is_411:
+            loc = {"mpeg2": 0, "mpeg1": 1, "topleft": 2}[self.cplace]
+            out = out.with_props(_ChromaLocation=loc)
+        return out
+
+    def process_frame(self, frame: Frame) -> Frame:
+        """Resample one frame (all planes). No state is mutated."""
+        frame.validate()
+        out_planes = {
+            name: self._resize_planes(name, np.asarray(frame.planes[name])[None])[0]
+            for name in self.fmt.plane_names
+        }
+        return self._out_frame(out_planes, frame.props)
+
+    def process_clip_batched(self, clip: Clip) -> Clip:
+        """Resample all frames in one batched call per plane."""
+        for f in clip.frames:
+            f.validate()
+        out_by_plane = {
+            name: self._resize_planes(
+                name, np.stack([f.planes[name] for f in clip.frames], axis=0)
+            )
+            for name in self.fmt.plane_names
+        }
+        frames = tuple(
+            self._out_frame(
+                {n: out_by_plane[n][i] for n in self.fmt.plane_names}, f.props
+            )
+            for i, f in enumerate(clip.frames)
+        )
+        return Clip(
+            format=self.fmt,
+            frames=frames,
+            width=self.cfg.target_width,
+            height=self.cfg.target_height,
+        )
+
+    def __call__(self, clip: Clip) -> Clip:
+        if len(clip.frames) > 1 and self._impl != "numpy":
+            return self.process_clip_batched(clip)
+        frames = tuple(self.process_frame(f) for f in clip.frames)
+        return Clip(
+            format=self.fmt,
+            frames=frames,
+            width=self.cfg.target_width,
+            height=self.cfg.target_height,
+        )
+
+
+def jinc_resize(
+    clip: Clip,
+    target_width: int,
+    target_height: int,
+    device="cuda",
+    **kwargs,
+) -> Clip:
+    """``JincResize(clip, target_width, target_height, ...)`` on ``device``."""
+    cfg = JincConfig(target_width=target_width, target_height=target_height, **kwargs)
+    frame0 = clip.frames[0] if len(clip.frames) else None
+    resizer = JincResizer(
+        clip.format, clip.width, clip.height, cfg, frame0=frame0, device=device
+    )
+    return resizer(clip)
+
+
+def _alias(tap: int):
+    """Fixed-tap alias: forwards the reduced parameter set and pins tap."""
+
+    def fn(
+        clip: Clip,
+        target_width: int,
+        target_height: int,
+        src_left: float = 0.0,
+        src_top: float = 0.0,
+        src_width: float | None = None,
+        src_height: float | None = None,
+        quant_x: int = 256,
+        quant_y: int = 256,
+        cplace: str | None = None,
+        threads: int = 0,
+        **extra,
+    ) -> Clip:
+        return jinc_resize(
+            clip,
+            target_width,
+            target_height,
+            src_left=src_left,
+            src_top=src_top,
+            src_width=src_width,
+            src_height=src_height,
+            quant_x=quant_x,
+            quant_y=quant_y,
+            cplace=cplace,
+            threads=threads,
+            tap=tap,
+            **extra,
+        )
+
+    fn.__name__ = f"jinc{tap * tap * 4}_resize"
+    return fn
+
+
+jinc36_resize = _alias(3)
+jinc64_resize = _alias(4)
+jinc144_resize = _alias(6)
+jinc256_resize = _alias(8)

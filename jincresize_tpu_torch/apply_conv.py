@@ -1,0 +1,373 @@
+"""Phase-decomposed convolution apply: the fused-kernel engine.
+
+Port of ``jincresize_tpu/apply_conv.py`` for ``interior='fused'``. For
+periodic geometry (``phase.plan_phases``) the interior resample is a strided
+correlation in which every (row-phase, column-phase) pair owns one (fs, fs)
+coefficient block; ``kernels/fused.py`` computes it in destination layout.
+Full-width top/bottom strips run on ``kernels/strips.py``; exception rows and
+columns (float32 position drift) and the left/right strips are patched with
+small gathers and einsums. When the strips exactly frame the interior, the
+canvas is assembled with one concatenate.
+
+The JAX package's XLA shift-sum interiors (``apply_plane_conv`` and its
+deep-tap forms) are not an engine here: a plan outside the fused kernel's
+envelope takes the general ``apply_xla`` engine.
+
+The einsums here contract small tap dimensions in float32; they assume
+PyTorch's default ``torch.backends.cuda.matmul.allow_tf32 = False``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from jincresize_tpu.operator import PlaneOperator
+from jincresize_tpu.phase import PhasePlan, build_conv_kernels, plan_phases
+
+from .apply_strips_fast import plan_strips, strip_values_fast
+from .apply_xla import DevicePlaneOperator, finalize, source_f32, to_device
+from .kernels import fused as fused_k
+from .kernels import strips as strips_k
+
+f32 = torch.float32
+
+
+@dataclass(frozen=True)
+class ConvOperator:
+    """Device-resident phase-conv operator (kernels + fixup metadata)."""
+
+    kernels: torch.Tensor  # (py*px, 1, Kh, Kw) float32
+    dop: DevicePlaneOperator
+    exc_x: torch.Tensor  # (mx,) int64 exception columns (may be empty)
+    exc_y: torch.Tensor  # (my,) int64 exception rows
+    meta: tuple  # static geometry tuple -- see build_conv_operator
+    phase_offsets: tuple = ()  # static ((oy, ox), ...) per phase channel
+
+
+def build_conv_operator(
+    op: PlaneOperator, plan: PhasePlan | None = None, device="cpu"
+) -> ConvOperator | None:
+    """Compile a PlaneOperator into its phase-conv form; None if aperiodic."""
+    if plan is None:
+        plan = plan_phases(op)
+    if plan is None:
+        return None
+    K = build_conv_kernels(op, plan)
+    Kh, Kw = K.shape[2], K.shape[3]
+    meta = (
+        plan.y.lo,
+        plan.x.lo,
+        plan.y.p,
+        plan.x.p,
+        plan.y.q,
+        plan.x.q,
+        plan.y.base,
+        plan.x.base,
+        plan.y.nblocks,
+        plan.x.nblocks,
+        Kh,
+        Kw,
+    )
+    offs_y = plan.y.offsets
+    offs_x = plan.x.offsets
+    phase_offsets = tuple(
+        (int(offs_y[ry]), int(offs_x[rx]))
+        for ry in range(plan.y.p)
+        for rx in range(plan.x.p)
+    )
+    return ConvOperator(
+        kernels=torch.from_numpy(K).to(device),
+        dop=to_device(op, device),
+        exc_x=torch.from_numpy(plan.x.exceptions.astype(np.int64)).to(device),
+        exc_y=torch.from_numpy(plan.y.exceptions.astype(np.int64)).to(device),
+        meta=meta,
+        phase_offsets=phase_offsets,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Fixup computations (exceptions + strips): small targeted gathers. Sources
+# are (F, H, W) float32; results carry the frame dimension first.
+# ---------------------------------------------------------------------------
+
+
+def _cols_subset(dop: DevicePlaneOperator, src_f, sel) -> torch.Tensor:
+    """Recompute a subset of destination columns (all rows): (F, dst_h, m)."""
+    fs = dop.filter_size
+    F, H, W = src_f.shape
+    taps = torch.arange(fs, device=src_f.device)
+    cols = torch.clamp(dop.start_x[sel][:, None] + taps[None, :], 0, W - 1)
+    P = src_f[:, :, cols]  # (F, H, m, fs)
+    cxs = dop.cx_idx[sel]
+    acc = torch.zeros((F, dop.dst_height, sel.shape[0]), dtype=f32, device=src_f.device)
+    for ly in range(fs):
+        rows = torch.clamp(dop.start_y + ly, 0, H - 1)
+        Prow = P[:, rows]  # (F, dst_h, m, fs)
+        panex = dop.pair_blocks[:, cxs, ly, :]  # (n_uy, m, fs)
+        Wrow = panex[dop.cy_idx]  # (dst_h, m, fs)
+        acc += torch.einsum("fymk,ymk->fym", Prow, Wrow)
+    return acc
+
+
+def _rows_subset(dop: DevicePlaneOperator, src_f, sel) -> torch.Tensor:
+    """Recompute a subset of destination rows (all columns): (F, m, dst_w)."""
+    fs = dop.filter_size
+    F, H, W = src_f.shape
+    m = sel.shape[0]
+    taps = torch.arange(fs, device=src_f.device)
+    rows_n = torch.clamp(dop.start_y[sel][:, None] + taps[None, :], 0, H - 1)
+    S = src_f[:, rows_n.reshape(-1)]  # (F, m*fs, W)
+    cols = torch.clamp(dop.start_x[:, None] + taps[None, :], 0, W - 1)
+    P = S[:, :, cols].reshape(F, m, fs, dop.dst_width, fs)  # (F, m, k, w, l)
+    pane_sel = dop.pair_blocks[dop.cy_idx[sel]]  # (m, n_ux, fs, fs)
+    Wm = pane_sel[:, dop.cx_idx]  # (m, w, fs, fs)
+    return torch.einsum("fmkwl,mwkl->fmw", P, Wm)
+
+
+def _strip_values(dop: DevicePlaneOperator, src_f, s) -> torch.Tensor:
+    """Per-pixel border strip apply: (F, ny, nx) via one im2col + einsum."""
+    fs = dop.filter_size
+    F, H, W = src_f.shape
+    taps = torch.arange(fs, device=src_f.device)
+    cols = torch.clamp(dop.start_x[s.x0 : s.x1][:, None] + taps[None, :], 0, W - 1)
+    P = src_f[:, :, cols]  # (F, H, nx, fs)
+    rows = torch.clamp(dop.start_y[s.y0 : s.y1][:, None] + taps[None, :], 0, H - 1)
+    G = P[:, rows]  # (F, ny, k, nx, l)
+    return torch.einsum("fykxl,yxkl->fyx", G, s.blocks)
+
+
+def _strip_cols_patch(src_f, sy_const: int, fs: int, cols_sx, blocks_sel):
+    """Per-pixel strip values for selected columns: (F, ny, m).
+
+    ``cols_sx`` (m,) are the columns' window starts; ``blocks_sel``
+    (ny, m, fs, fs) their per-pixel blocks (corners + verified exceptions of
+    the strip kernel, kernels/strips.py).
+    """
+    W = src_f.shape[2]
+    taps = torch.arange(fs, device=src_f.device)
+    band = src_f[:, sy_const : sy_const + fs, :]
+    cidx = torch.clamp(cols_sx[:, None] + taps[None, :], 0, W - 1)  # (m, fs)
+    P = band[:, :, cidx]  # (F, fs, m, fs)
+    return torch.einsum("fkml,ymkl->fym", P, blocks_sel)
+
+
+# ---------------------------------------------------------------------------
+# Canvas assembly and the applier.
+# ---------------------------------------------------------------------------
+
+
+def _assemble(cop: ConvOperator, block, src_f, strip_blocks) -> torch.Tensor:
+    """Paste the dst-layout interior block, then exception fixups, then strips.
+
+    Used when the strips do not exactly frame the interior.
+    """
+    dop = cop.dop
+    (ylo, xlo, py, px, qy, qx, base_y, base_x, nyb, nxb, Kh, Kw) = cop.meta
+    F = src_f.shape[0]
+    canvas = torch.zeros(
+        (F, dop.dst_height, dop.dst_width), dtype=f32, device=src_f.device
+    )
+    canvas[:, ylo : ylo + py * nyb, xlo : xlo + px * nxb] = block
+    # Exception fixups (float32 drift deviations + partial trailing periods).
+    if cop.exc_x.shape[0]:
+        canvas[:, :, cop.exc_x] = _cols_subset(dop, src_f, cop.exc_x)
+    if cop.exc_y.shape[0]:
+        canvas[:, cop.exc_y, :] = _rows_subset(dop, src_f, cop.exc_y)
+    # Border strips own their pixels.
+    for (y0, y1, x0, x1), blk in strip_blocks:
+        canvas[:, y0:y1, x0:x1] = blk
+    return canvas
+
+
+class ConvApplier:
+    """Phase-conv applier with the fused interior kernel.
+
+    ``interior`` must be ``'fused'``: the JAX package's XLA shift-sum
+    interior is not ported, so a plan outside ``kernels.fused.is_supported``
+    raises ValueError. ``precision`` is ``'fp32'`` or ``'fp32_u8src'`` (both
+    run the exact fp32 kernel); ``'bf16'`` raises NotImplementedError.
+    """
+
+    def __init__(
+        self,
+        op: PlaneOperator,
+        plan: PhasePlan | None = None,
+        interior: str = "fused",
+        precision: str = "fp32",
+        device="cpu",
+    ):
+        if precision not in ("fp32", "bf16", "fp32_u8src"):
+            raise ValueError(f"ConvApplier: unknown precision {precision!r}")
+        if interior != "fused":
+            raise NotImplementedError(
+                f"ConvApplier: interior={interior!r} is not ported; only the "
+                "fused kernel interior exists in this package"
+            )
+        self.precision = precision
+        self.device = torch.device(device)
+        if plan is None:
+            plan = plan_phases(op)
+        if plan is None:
+            raise ValueError("ConvApplier: geometry is aperiodic")
+        if not fused_k.is_supported(op, plan):
+            raise ValueError("ConvApplier: plan outside the fused kernel envelope")
+        self.fi = fused_k.make_fused_interior(op, plan, self.device, precision)
+        self.cop = build_conv_operator(op, plan, self.device)
+        self.fs = op.filter_size
+        self._strip_plans = plan_strips(op, plan)
+        self.strips_spec = None
+        self._setup_strip_kernel(op, plan)
+        self._concat = self._frame_classification(op)
+
+    # ----------------------------------------------------------------- strips
+    def _strip_blocks_default(self, src_f, only=None):
+        dop = self.cop.dop
+        if self._strip_plans is not None:
+            return [
+                (rect, acc)
+                for _, rect, acc in strip_values_fast(
+                    dop, self._strip_plans, src_f, only=only
+                )
+            ]
+        return [
+            ((s.y0, s.y1, s.x0, s.x1), _strip_values(dop, src_f, s))
+            for i, s in enumerate(dop.strips)
+            if only is None or i in only
+        ]
+
+    def _setup_strip_kernel(self, op, plan):
+        """Put the full-width strips on the strip kernel when it applies.
+
+        kernels/strips.py computes the pattern-covered top/bottom strip values
+        from anchor blocks (bitwise-verified); corners and exception columns
+        are patched per pixel; left/right strips stay on strip_values_fast.
+        """
+        r = strips_k.make_strips(op, plan, self.device)
+        self._strip_patches = {}
+        self._strips_meta = None
+        self._rem = None
+        if r is None:
+            return
+        spec, patches, meta = r
+        kernel_rects = set()
+        for s, cols in patches:
+            kernel_rects.add((s.y0, s.y1, s.x0, s.x1))
+            if len(cols) == 0:
+                continue
+            self._strip_patches[(s.y0, s.y1)] = (
+                int(op.start_y[s.y0]),
+                torch.from_numpy(cols).to(self.device),
+                torch.from_numpy(op.start_x[cols].astype(np.int64)).to(self.device),
+                torch.from_numpy(np.ascontiguousarray(s.blocks[:, cols - s.x0])).to(
+                    self.device
+                ),
+            )
+        self._rem = tuple(
+            i
+            for i, s in enumerate(op.strips)
+            if (s.y0, s.y1, s.x0, s.x1) not in kernel_rects
+        )
+        self.strips_spec = spec
+        self._strips_meta = meta
+
+    def _strip_blocks(self, src_f):
+        """[(rect, values (F, ny, nx))] for every border strip."""
+        if self.strips_spec is None:
+            return self._strip_blocks_default(src_f)
+        meta = self._strips_meta
+        xlo, width = meta["xlo"], meta["width"]
+        F = src_f.shape[0]
+        dst_w = self.cop.dop.dst_width
+        out = strips_k.strips(self.strips_spec, src_f)
+        blocks = []
+        for si, (y0, y1) in enumerate(meta["strips"]):
+            # Full-width row block: kernel values + per-pixel corner and
+            # exception columns.
+            row_block = torch.zeros((F, y1 - y0, dst_w), dtype=f32, device=src_f.device)
+            row_block[:, :, xlo : xlo + width] = out[:, si, : y1 - y0]
+            p = self._strip_patches.get((y0, y1))
+            if p is not None:
+                sy_c, cols, cols_sx, blocks_sel = p
+                row_block[:, :, cols] = _strip_cols_patch(
+                    src_f, sy_c, self.fs, cols_sx, blocks_sel
+                )
+            blocks.append(((y0, y1, 0, dst_w), row_block))
+        if self._rem:
+            blocks.extend(self._strip_blocks_default(src_f, only=self._rem))
+        return blocks
+
+    # --------------------------------------------------------------- assembly
+    def _frame_classification(self, op):
+        """(ylo, xlo, yhi, xhi, H, W) when the strips exactly frame the
+        interior block (one-concatenate assembly), else None."""
+        (ylo, xlo, py_, px_, qy, qx, by_, bx_, nyb, nxb, Kh, Kw) = self.cop.meta
+        H, W = op.dst_height, op.dst_width
+        yhi, xhi = ylo + py_ * nyb, xlo + px_ * nxb
+        seen, ok = set(), True
+        for s in op.strips:
+            r = (s.y0, s.y1, s.x0, s.x1)
+            if r in (
+                (0, ylo, 0, W),
+                (yhi, H, 0, W),
+                (ylo, yhi, 0, xlo),
+                (ylo, yhi, xhi, W),
+            ) and r not in seen:
+                seen.add(r)
+            else:
+                ok = False
+        if (
+            ok
+            and (ylo == 0 or (0, ylo, 0, W) in seen)
+            and (yhi == H or (yhi, H, 0, W) in seen)
+            and (xlo == 0 or (ylo, yhi, 0, xlo) in seen)
+            and (xhi == W or (ylo, yhi, xhi, W) in seen)
+        ):
+            return (ylo, xlo, yhi, xhi, H, W)
+        return None
+
+    def _acc_concat(self, src_f):
+        """Single-write canvas assembly: rows = [top; [left|interior|right];
+        bottom], with exception fixups applied to the middle block only (the
+        border strips own their pixels -- same precedence as the
+        paste-then-overwrite order of ``_assemble``)."""
+        cop = self.cop
+        dop = cop.dop
+        ylo, xlo, yhi, xhi, H, W = self._concat
+        block = fused_k.fused_interior(self.fi, src_f)
+        by_rect = dict(self._strip_blocks(src_f))
+        mid = [
+            by_rect.pop((ylo, yhi, 0, xlo), None),
+            block,
+            by_rect.pop((ylo, yhi, xhi, W), None),
+        ]
+        mid = [m for m in mid if m is not None]
+        mid = torch.cat(mid, dim=2) if len(mid) > 1 else mid[0]
+        if cop.exc_x.shape[0]:
+            vals = _cols_subset(dop, src_f, cop.exc_x)
+            mid[:, :, cop.exc_x] = vals[:, ylo:yhi]
+        if cop.exc_y.shape[0]:
+            vals = _rows_subset(dop, src_f, cop.exc_y)
+            mid[:, cop.exc_y - ylo, xlo:xhi] = vals[:, :, xlo:xhi]
+        rows = [
+            by_rect.pop((0, ylo, 0, W), None),
+            mid,
+            by_rect.pop((yhi, H, 0, W), None),
+        ]
+        rows = [r for r in rows if r is not None]
+        return torch.cat(rows, dim=1) if len(rows) > 1 else rows[0]
+
+    def _acc(self, src_f):
+        if self._concat is not None:
+            return self._acc_concat(src_f)
+        block = fused_k.fused_interior(self.fi, src_f)
+        return _assemble(self.cop, block, src_f, self._strip_blocks(src_f))
+
+    def __call__(self, src, out_dtype=f32, peak=None, float_clamp_min=None):
+        """Resample ``src`` (H, W) or (F, H, W) on the applier's device."""
+        if src.dim() == 2:
+            return self(src[None], out_dtype, peak, float_clamp_min)[0]
+        src_f = source_f32(src, float_clamp_min)
+        return finalize(self._acc(src_f), out_dtype, peak)

@@ -1,0 +1,147 @@
+"""Gather-light border-strip apply for periodic geometries.
+
+Port of ``jincresize_tpu/apply_strips_fast.py``. Every top-strip pixel has
+window start_y == 0, bottom-strip rows share start_y == src_h - fs, and
+left/right strip columns share start_x == 0 / src_w - fs; the other axis of
+each strip follows the interior's periodic pattern with exceptions. A strip
+therefore touches only an (fs x W) or (H x fs) source band: all its windows
+come from one sliding-window view of that band, picked per destination
+coordinate by the pattern (and by the operator's starts at exceptions), and
+one einsum against the per-pixel strip blocks gives the strip.
+
+In the fused engine the top/bottom strips run on ``kernels/strips.py``; this
+module computes the left/right strips (and any strip the kernel declines).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+
+@dataclass(frozen=True)
+class StripPlan:
+    """Static recipe for one strip's gather-light apply."""
+
+    kind: str  # 'top' | 'bottom' | 'left' | 'right'
+    const_start: int  # shared window start on the clamped axis
+    # Free-axis periodic pattern (from the interior phase plan):
+    lo: int  # first pattern-covered coordinate (absolute)
+    p: int
+    q: int
+    anchor_start: tuple  # (p,) window starts of the anchor period
+    nblocks: int
+    exc: np.ndarray  # absolute free-axis coords needing the gather path
+    rect: tuple  # (y0, y1, x0, x1)
+
+
+def plan_strips(op, phase_plan) -> list[StripPlan] | None:
+    """Build strip plans; None if preconditions fail (use the einsum path).
+
+    A copy of ``jincresize_tpu.apply_strips_fast.plan_strips``, whose module
+    imports jax.
+    """
+    fs = op.filter_size
+    if op.src_width < fs or op.src_height < fs:
+        return None
+    plans = []
+    px_plan, py_plan = phase_plan.x, phase_plan.y
+    for s in op.strips:
+        full_width = s.x0 == 0 and s.x1 == op.dst_width
+        if full_width and s.y1 <= op.y_lo:
+            kind, const, ax = "top", 0, px_plan
+        elif full_width and s.y0 >= op.y_hi:
+            kind, const, ax = "bottom", op.src_height - fs, px_plan
+        elif s.x1 <= op.x_lo:
+            kind, const, ax = "left", 0, py_plan
+        elif s.x0 >= op.x_hi:
+            kind, const, ax = "right", op.src_width - fs, py_plan
+        else:
+            return None
+        if kind in ("top", "bottom"):
+            starts = op.start_y[s.y0 : s.y1]
+            f0, f1 = s.x0, s.x1
+        else:
+            starts = op.start_x[s.x0 : s.x1]
+            f0, f1 = s.y0, s.y1
+        if not (starts == const).all():
+            return None
+        rng = np.arange(f0, f1)
+        exc_set = set(int(e) for e in ax.exceptions)
+        exc = np.array(
+            sorted(
+                int(c)
+                for c in rng
+                if (c < ax.lo or c >= ax.lo + ax.p * ax.nblocks or c in exc_set)
+            ),
+            dtype=np.int32,
+        )
+        plans.append(
+            StripPlan(
+                kind=kind,
+                const_start=const,
+                lo=ax.lo,
+                p=ax.p,
+                q=ax.q,
+                anchor_start=tuple(int(v) for v in ax.anchor_start),
+                nblocks=ax.nblocks,
+                exc=exc,
+                rect=(s.y0, s.y1, s.x0, s.x1),
+            )
+        )
+    return plans
+
+
+def _window_index(
+    sp: StripPlan, free_len: int, free0: int, starts: torch.Tensor
+) -> torch.Tensor:
+    """Per-destination-coordinate window start on the free axis.
+
+    Pattern coordinates ``lo + p*k + r`` take ``anchor_start[r] + q*k``;
+    exception coordinates take the operator's own start. ``plan_strips``
+    lists every strip coordinate outside the pattern as an exception, so
+    every one of the ``free_len`` coordinates gets a window.
+    """
+    dev = starts.device
+    k = torch.arange(sp.p * sp.nblocks, device=dev)
+    anchor = torch.tensor(sp.anchor_start, dtype=torch.int64, device=dev)
+    idx = torch.zeros(free_len, dtype=torch.int64, device=dev)
+    off = sp.lo - free0
+    idx[off : off + len(k)] = anchor[k % sp.p] + sp.q * (k // sp.p)
+    if len(sp.exc):
+        exc = torch.from_numpy(sp.exc.astype(np.int64)).to(dev)
+        idx[exc - free0] = starts[exc]
+    return idx
+
+
+def strip_values_fast(dop, strip_plans, src_f, only=None):
+    """Compute strip value blocks from one source band per strip.
+
+    ``src_f`` is (F, H, W) float32. Returns [(index, (y0, y1, x0, x1),
+    values (F, ny, nx))]; ``only`` (tuple of indices into dop.strips)
+    restricts which strips are computed -- used when the strip kernel
+    already covered the rest.
+    """
+    fs = dop.filter_size
+    out = []
+    for i, (s, sp) in enumerate(zip(dop.strips, strip_plans)):
+        if only is not None and i not in only:
+            continue
+        y0, y1, x0, x1 = sp.rect
+        c = sp.const_start
+        if sp.kind in ("top", "bottom"):
+            band = src_f[:, c : c + fs, :]  # (F, fs_ly, W)
+            S = band.unfold(2, fs, 1)  # (F, fs_ly, U, fs_lx)
+            idx = _window_index(sp, x1 - x0, x0, dop.start_x)
+            vec = S[:, :, idx, :]  # (F, fs_ly, nx, fs_lx)
+            acc = torch.einsum("fkxl,yxkl->fyx", vec, s.blocks)
+        else:
+            band = src_f[:, :, c : c + fs]  # (F, H, fs_lx)
+            S = band.unfold(1, fs, 1)  # (F, U, fs_lx, fs_ly)
+            idx = _window_index(sp, y1 - y0, y0, dop.start_y)
+            vec = S[:, idx]  # (F, ny, fs_lx, fs_ly)
+            acc = torch.einsum("fylk,yxkl->fyx", vec, s.blocks)
+        out.append((i, sp.rect, acc))
+    return out

@@ -1,0 +1,122 @@
+"""Build the hand-written CUDA kernels at first use and bind them with ctypes.
+
+Every ``jincresize_tpu_torch/csrc/*.cu`` is compiled by ``nvcc`` for
+``sm_90a`` into one shared library with a plain C interface, in a directory
+keyed by a hash of the sources and flags (``build/kernels/<hash>/`` at the
+root of the checkout, which ``.gitignore`` lists). Nothing here includes
+PyTorch's headers, so a build takes seconds, not the minutes that
+``torch.utils.cpp_extension.load`` needs.
+
+Nothing is built or loaded on import: ``library()`` does it on the first
+kernel launch. A missing ``nvcc`` or a failed build raises with the
+compiler's output; there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode",
+    "arch=compute_90a,code=sm_90a",
+    "-std=c++17",
+    "-O3",
+    "-shared",
+    "-Xcompiler",
+    "-fPIC",
+    "-Xptxas=-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry point -> argtypes (pointers and the stream as c_void_p, sizes as c_int).
+_SIGNATURES = {
+    "jt_fused_interior": [_P, _P, _P, _P] + [_I] * 13 + [_P],
+    "jt_strips": [_P, _P, _P, _P, _P] + [_I] * 11 + [_P],
+}
+
+_lib = None
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+        shutil.which("nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "jincresize_tpu_torch: nvcc not found (looked in $CUDA_HOME/bin, "
+        "/usr/local/cuda/bin and PATH); the CUDA kernels cannot be built"
+    )
+
+
+def build_dir() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the sources into ``libjt_kernels.so`` unless already built."""
+    out_dir = build_dir()
+    lib_path = out_dir / "libjt_kernels.so"
+    if lib_path.exists():
+        return lib_path
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"libjt_kernels.{os.getpid()}.tmp.so"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
+    cmd += [str(p) for p in sorted(CSRC.glob("*.cu"))]
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    (out_dir / "build.log").write_text(
+        " ".join(cmd) + "\n" + r.stdout + r.stderr
+    )
+    if r.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"jincresize_tpu_torch: nvcc failed ({r.returncode}):\n{r.stderr}"
+        )
+    os.replace(tmp, lib_path)  # atomic: concurrent builders never see half a file
+    return lib_path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.jt_error_string.argtypes = [ctypes.c_int]
+        lib.jt_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(rc: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error (refused launch)."""
+    if rc != 0:
+        msg = library().jt_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def stream_of(t) -> ctypes.c_void_p:
+    """PyTorch's current stream on the tensor's device, as a raw handle."""
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)

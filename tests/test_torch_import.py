@@ -1,0 +1,39 @@
+"""The port imports no jax: every module, plus a tiny resize, in a fresh process."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+SCRIPT = """
+import sys
+import numpy as np
+import jincresize_tpu_torch
+from jincresize_tpu_torch import api, apply_conv, apply_strips_fast, apply_xla
+from jincresize_tpu_torch.kernels import _build, fused, strips
+from jincresize_tpu.clip import Clip, random_frame, yuv420p
+
+clip = Clip.from_frames([random_frame(yuv420p(8), 32, 24, seed=1)])
+r = api.JincResizer(clip.format, 32, 24, api.JincConfig(target_width=64, target_height=48,
+                    operator_cache=False), device="cpu")
+out = r(clip)
+assert r.engines == {"luma": "fused", "chroma": "fused"}, r.engines
+assert out.frames[0].planes["Y"].shape == (48, 64)
+assert out.frames[0].planes["U"].dtype == np.uint8
+jax_mods = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
+assert not jax_mods, jax_mods
+print("ok")
+"""
+
+
+def test_port_imports_no_jax():
+    r = subprocess.run(
+        [sys.executable, "-c", SCRIPT],
+        cwd=ROOT,
+        capture_output=True,
+        text=True,
+        timeout=300,
+    )
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"

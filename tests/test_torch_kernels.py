@@ -1,0 +1,226 @@
+"""Port kernels (plain forms on the CPU) against the JAX Pallas kernels.
+
+The JAX side runs ``make_fused_interior`` / ``make_strips_interior`` in
+Pallas interpret mode, as its own tests do. The port's wrappers take their
+plain PyTorch forms because the tensors lie on the CPU; the CUDA kernels
+themselves are checked against the same plain forms on the card by
+``chip_smoke.py``.
+
+Tolerance: 2e-6 absolute on fp32 sources in [0, 1) -- both sides multiply in
+exact fp32 and differ only in summation order.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from jincresize_tpu.operator import build_plane_operator, radius_for_tap
+from jincresize_tpu.phase import plan_phases
+from jincresize_tpu_torch.kernels import fused, strips
+
+F32_TOL = 2e-6
+
+# test_pallas_fused.py's five geometries plus its subpixel crop.
+GEOMS = [
+    ((64, 48, 128, 96, 8), {}),
+    ((96, 60, 64, 40, 3), {}),
+    ((90, 60, 60, 40, 4), {}),
+    ((64, 64, 256, 256, 3), {}),
+    ((40, 30, 200, 150, 3), {}),
+    ((64, 48, 128, 96, 4), {"crop_left": 0.25, "crop_top": -0.5}),
+]
+IDS = ["2x-tap8", "down-tap3", "2/3-tap4", "4x-tap3", "5x-tap3", "subpixel-crop"]
+
+
+def _op(g, kw):
+    sw, sh, dw, dh, tap = g
+    return build_plane_operator(sw, sh, dw, dh, radius_for_tap(tap), **kw)
+
+
+def _src(op, seed, frames=None):
+    shape = (op.src_height, op.src_width)
+    if frames is not None:
+        shape = (frames,) + shape
+    return np.random.default_rng(seed).random(shape, dtype=np.float32)
+
+
+@pytest.mark.parametrize("g,kw", GEOMS, ids=IDS)
+def test_fused_plain_matches_pallas_interpret(g, kw):
+    import jax.numpy as jnp
+
+    from jincresize_tpu.kernels.pallas_fused import make_fused_interior
+
+    op = _op(g, kw)
+    plan = plan_phases(op)
+    assert fused.is_supported(op, plan)
+    src = _src(op, 11)
+    want = np.asarray(make_fused_interior(op, plan, interpret=True)(jnp.asarray(src)))
+    fi = fused.make_fused_interior(op, plan)
+    got = fused.fused_interior(fi, torch.from_numpy(src)[None])[0].numpy()
+    assert got.shape == want.shape == fi.out_shape
+    assert np.abs(got - want).max() <= F32_TOL
+
+
+def test_fused_batch_matches_per_frame():
+    op = _op(*GEOMS[0])
+    plan = plan_phases(op)
+    fi = fused.make_fused_interior(op, plan)
+    src = torch.from_numpy(_src(op, 3, frames=3))
+    batch = fused.fused_interior(fi, src)
+    for f in range(3):
+        one = fused.fused_interior(fi, src[f : f + 1])[0]
+        assert torch.equal(batch[f], one)
+
+
+def _full_width_strips(op):
+    return [s for s in op.strips if s.x0 == 0 and s.x1 == op.dst_width and s.y1 > s.y0]
+
+
+STRIP_GEOMS = [GEOMS[0], GEOMS[1], GEOMS[2], GEOMS[3]]
+
+
+@pytest.mark.parametrize("g,kw", STRIP_GEOMS, ids=IDS[:4])
+def test_strips_plain_matches_pallas_interpret(g, kw):
+    import jax.numpy as jnp
+
+    from jincresize_tpu.kernels.pallas_strips import make_strips_interior
+
+    op = _op(g, kw)
+    plan = plan_phases(op)
+    jr = make_strips_interior(op, plan, interpret=True)
+    assert jr is not None
+    jfn, jpatches, jmeta = jr
+    st, patches, meta = strips.make_strips(op, plan)
+    assert meta["strips"] == jmeta["strips"]
+    assert (meta["xlo"], meta["width"]) == (jmeta["xlo"], jmeta["width"])
+    # Corner + exception columns the caller patches: exactly the same.
+    assert len(patches) == len(jpatches)
+    for (s, cols), (js, jcols) in zip(patches, jpatches):
+        assert (s.y0, s.y1, s.x0, s.x1) == (js.y0, js.y1, js.x0, js.x1)
+        np.testing.assert_array_equal(cols, jcols)
+    src = _src(op, 5)
+    want = np.asarray(jfn(jnp.asarray(src)))
+    got = strips.strips(st, torch.from_numpy(src)[None])[0].numpy()
+    ny_p = jmeta["ny_p"]
+    for si, (y0, y1) in enumerate(meta["strips"]):
+        w = want[si * ny_p : si * ny_p + (y1 - y0)]
+        assert np.abs(got[si, : y1 - y0] - w).max() <= F32_TOL
+        assert not got[si, y1 - y0 :].any()  # unused rows of a shorter strip
+
+
+@pytest.mark.parametrize(
+    "g,kw",
+    GEOMS + [((160, 120, 400, 300, 3), {}), ((320, 180, 480, 270, 3), {})],
+    ids=IDS + ["5/2-exceptions", "3/2-drift"],
+)
+def test_anchor_blocks_copy_equals_original(g, kw):
+    """The copied host check gives the same anchors and exception columns."""
+    from jincresize_tpu.kernels import pallas_strips
+
+    op = _op(g, kw)
+    plan = plan_phases(op)
+    for s in _full_width_strips(op):
+        a = strips._anchor_blocks(s, plan.x, op.filter_size)
+        b = pallas_strips._anchor_blocks(s, plan.x, op.filter_size)
+        assert (a is None) == (b is None)
+        if a is not None:
+            np.testing.assert_array_equal(a[0], b[0])
+            np.testing.assert_array_equal(a[1], b[1])
+
+
+@pytest.mark.parametrize(
+    "g,kw",
+    GEOMS + [((160, 120, 400, 300, 3), {}), ((320, 180, 480, 270, 3), {})],
+    ids=IDS + ["5/2-exceptions", "3/2-drift"],
+)
+def test_plan_strips_copy_equals_original(g, kw):
+    from jincresize_tpu import apply_strips_fast as jsf
+    from jincresize_tpu_torch import apply_strips_fast as tsf
+
+    op = _op(g, kw)
+    plan = plan_phases(op)
+    a = tsf.plan_strips(op, plan)
+    b = jsf.plan_strips(op, plan)
+    assert (a is None) == (b is None)
+    for pa, pb in zip(a or [], b or []):
+        for f in ("kind", "const_start", "lo", "p", "q", "anchor_start", "nblocks", "rect"):
+            assert getattr(pa, f) == getattr(pb, f), f
+        np.testing.assert_array_equal(pa.exc, pb.exc)
+
+
+ENVELOPE_GEOMS = [
+    (64, 48, 128, 96, 8),
+    (96, 60, 64, 40, 3),
+    (90, 60, 60, 40, 4),
+    (64, 64, 256, 256, 3),
+    (40, 30, 200, 150, 3),
+    (160, 120, 400, 300, 3),
+    (320, 180, 480, 270, 3),
+    (192, 128, 96, 64, 8),
+    (200, 120, 100, 60, 10),
+    (256, 144, 128, 72, 6),
+    (48, 32, 384, 256, 3),
+    (120, 90, 80, 60, 4),
+    (128, 96, 64, 48, 6),
+]
+
+
+@pytest.mark.parametrize("g", ENVELOPE_GEOMS, ids=lambda g: "x".join(map(str, g)))
+def test_is_supported_covers_pallas_envelope(g):
+    """Every plan the Pallas kernel admits with fs**2 <= 1200 is admitted."""
+    from jincresize_tpu.kernels import pallas_fused
+
+    op = _op(g, {})
+    plan = plan_phases(op)
+    assert plan is not None
+    if pallas_fused.is_supported(op, plan) and op.filter_size**2 <= 1200:
+        assert fused.is_supported(op, plan)
+    assert fused.smem_bytes(plan.y.p, plan.x.p, op.filter_size) <= fused.MAX_SMEM_BYTES
+
+
+def test_deep_tap_outside_envelope():
+    op = build_plane_operator(480, 270, 240, 135, radius_for_tap(16))
+    plan = plan_phases(op)
+    assert op.filter_size**2 > fused.FS2_MAX
+    assert not fused.is_supported(op, plan)
+    with pytest.raises(ValueError, match="envelope"):
+        fused.make_fused_interior(op, plan)
+
+
+def test_bf16_not_ported():
+    op = _op(*GEOMS[0])
+    with pytest.raises(NotImplementedError, match="bf16"):
+        fused.make_fused_interior(op, plan_phases(op), precision="bf16")
+
+
+def test_wrappers_never_fall_back_off_cpu():
+    """A tensor that is neither on the CPU nor on a CUDA device is refused."""
+    op = _op(*GEOMS[0])
+    plan = plan_phases(op)
+    fi = fused.make_fused_interior(op, plan)
+    st, _, _ = strips.make_strips(op, plan)
+    src = torch.empty((1, op.src_height, op.src_width), device="meta")
+    with pytest.raises(RuntimeError, match="unsupported device"):
+        fused.fused_interior(fi, src)
+    with pytest.raises(RuntimeError, match="unsupported device"):
+        strips.strips(st, src)
+    assert fused.fused_interior.launches == 0 and strips.strips.launches == 0
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    from jincresize_tpu_torch.kernels import _build
+
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()
+
+
+def test_build_dir_keyed_by_sources():
+    from jincresize_tpu_torch.kernels import _build
+
+    names = {p.name for p in _build._sources()}
+    assert {"fused_interior.cu", "strips.cu", "common.cuh"} <= names
+    assert _build.build_dir() == _build.build_dir()
+    assert _build.build_dir().parent == _build.BUILD_ROOT
