@@ -9,20 +9,28 @@ sm_90a) and the CUDA toolkit:
 Phases (each raises on failure; nothing catches it):
 
 1. card and build -- the ``nvidia-smi`` name and power limit, torch and CUDA
-   versions, then ``nvcc`` builds the kernels from ``jincresize_tpu_torch/csrc``;
-2. kernel against plain -- both kernels and their plain PyTorch forms on the
-   conv-path geometries of ``tests/tpu_smoke.py``, an exception-heavy 5/2
-   upscale and the full 3840x2160 -> 7680x4320 tap-8 luma plane: 2e-6
-   absolute for fp32 sources in [0, 1), <= 1 LSB after ``finalize`` for
-   u8/u16;
-3. end to end -- ``jinc_resize`` of a 4-frame 3840x2160 yuv420p8 clip to
-   7680x4320 tap 8 on the card: both planes on the fused engine, every kernel
-   launched, <= 1 LSB against the port's plain engine (``impl='xla'``) on the
-   card and against the scalar oracle ``golden.reference_sample_pixels`` on
-   sampled pixels (borders and corners included);
-4. timing -- CUDA-event medians of each kernel and its plain form on an
-   8-frame fp32 4K -> 8K luma batch, and the end-to-end ms/frame of phase 3
-   with upload and download.
+   versions, then ``nvcc`` builds the kernels from ``jincresize_tpu_torch/csrc``
+   (one compiler per source, in parallel);
+2. kernel against plain -- every kernel and its plain PyTorch form: the fused
+   and strip kernels on the conv-path geometries of ``tests/tpu_smoke.py``, an
+   exception-heavy 5/2 upscale and the full 3840x2160 -> 7680x4320 tap-8 luma
+   plane; the gather and seg kernels on the geometries of
+   ``tests/test_apply_gather.py`` and ``tests/test_apply_conv_seg.py`` and on
+   the full 2560x1440 -> 3840x2160 and 1920x1080 -> 3740x2104 tap-8 luma
+   planes: 2e-6 absolute for fp32 sources in [0, 1), <= 1 LSB after
+   ``finalize`` for u8/u16; every launch counted;
+3. end to end, one path after another, each with the launch counts set to 0
+   just before and read just after, on 4-frame yuv420p8 clips at tap 8:
+   3840x2160 -> 7680x4320 (periodic: ``fused``), 2560x1440 -> 3840x2160
+   (drifted 1.5x: ``fused-seg``) and 1920x1080 -> 3740x2104 (aperiodic:
+   ``gather``), each <= 1 LSB against the port's plain engine
+   (``impl='xla'``) on the card and against the scalar oracle
+   ``golden.reference_sample_pixels`` on sampled pixels (borders and corners
+   included);
+4. timing -- CUDA-event medians of each kernel and its plain form on 8-frame
+   fp32 luma batches of each path, the seg and gather appliers on the same
+   1440p -> 4K plane, and each path's end-to-end ms/frame with its upload /
+   device / download split.
 
 Prints the kernels' JSON line, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
@@ -41,6 +49,7 @@ from dataclasses import replace
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+DEVICE = "cuda"
 
 # (name, src_w, src_h, dst_w, dst_h, tap, bits, kwargs) -- the conv-path
 # cases of tests/tpu_smoke.py plus the 5/2 exception case of
@@ -61,7 +70,18 @@ CASES = [
      {"src_left": 0.3, "src_top": 0.3, "pos_precision": "f64"}),
     ("5/2 upscale exceptions", 160, 120, 400, 300, 3, 32, {}),
 ]  # fmt: skip
+# (name, kernel, src_w, src_h, dst_w, dst_h, tap): tests/test_apply_gather.py
+# (aperiodic upscale, tap-2 downscale) and tests/test_apply_conv_seg.py
+# (drifted 1.5x, 2.5x with exception columns).
+INTERIOR_CASES = [
+    ("gather 96x64->167x113 tap3", "gather", 96, 64, 167, 113, 3),
+    ("gather 120x80->77x53 tap2", "gather", 120, 80, 77, 53, 2),
+    ("seg 640x360->960x540 tap8", "seg", 640, 360, 960, 540, 8),
+    ("seg 1920x80->4800x200 tap2", "seg", 1920, 80, 4800, 200, 2),
+]
 SRC_W, SRC_H, DST_W, DST_H, TAP = 3840, 2160, 7680, 4320, 8
+DRIFT = (2560, 1440, 3840, 2160)  # 1.5x: drifted under f32 positions, seg on both planes
+APERIODIC = (1920, 1080, 3740, 2104)  # 1.947x: 256x256 classes, gather on both planes
 E2E_FRAMES = 4
 TIMING_FRAMES = 8
 F32_TOL = 2e-6  # exact fp32 products on both sides; only the summation order differs
@@ -103,20 +123,32 @@ def main() -> int:
     os.environ.setdefault("JINCRESIZE_CACHE_DIR", str(ROOT / "build" / "cache"))
     import numpy as np
 
-    from jincresize_tpu.clip import Clip, random_frame, yuv420p, yuv444p
+    from jincresize_tpu.clip import Clip, gray, random_frame, yuv420p, yuv444p
     from jincresize_tpu.geometry import chroma_crop
     from jincresize_tpu.golden import reference_sample_pixels
     from jincresize_tpu.operator import radius_for_tap
-    from jincresize_tpu.phase import plan_phases
+    from jincresize_tpu.phase import plan_phases, plan_phases_seg
     from jincresize_tpu_torch.api import JincConfig, JincResizer, jinc_resize
+    from jincresize_tpu_torch.apply_gather import GatherApplier
     from jincresize_tpu_torch.apply_xla import finalize, torch_dtype
     from jincresize_tpu_torch.kernels import _build
     from jincresize_tpu_torch.kernels import fused as fused_k
+    from jincresize_tpu_torch.kernels import gather as gather_k
+    from jincresize_tpu_torch.kernels import seg as seg_k
     from jincresize_tpu_torch.kernels import strips as strips_k
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
+    wrappers = {
+        "fused": fused_k.fused_interior,
+        "strips": strips_k.strips,
+        "gather": gather_k.gather_interior,
+        "seg": seg_k.seg_interior,
+    }
+
+    def counts():
+        return {k: w.launches for k, w in wrappers.items()}
 
     # ---------------------------------------------------------------- phase 1
     card = card_line()
@@ -132,6 +164,21 @@ def main() -> int:
             print(f"[1] ptxas: {line.strip()}")
 
     # ---------------------------------------------------------------- phase 2
+    def rand_src(op, bits, rng, frames):
+        shape = (frames, op.src_height, op.src_width)
+        if bits == 32:
+            return torch.from_numpy(rng.random(shape, dtype=np.float32)).to(dev)
+        peak = (1 << bits) - 1
+        return torch.from_numpy(rng.integers(0, peak + 1, shape).astype(np.float32)).to(dev)
+
+    def err_of(got, ref, bits):
+        """fp32: max |got - ref|; integers: max LSB difference after finalize."""
+        if bits == 32:
+            return float((got - ref).abs().max())
+        peak = float((1 << bits) - 1)
+        dt = torch_dtype(np.uint8 if bits == 8 else np.uint16)
+        return float((finalize(got, dt, peak).int() - finalize(ref, dt, peak).int()).abs().max())
+
     def check_kernels(name, op, bits, rng, frames=2):
         """Both kernels against their plain forms on ``op``; returns the
         largest fp32 |kernel - plain| (fp32 sources) or the LSB error."""
@@ -139,12 +186,7 @@ def main() -> int:
         assert plan is not None and fused_k.is_supported(op, plan), name
         fi = fused_k.make_fused_interior(op, plan, dev)
         r = strips_k.make_strips(op, plan, dev)
-        shape = (frames, op.src_height, op.src_width)
-        if bits == 32:
-            src = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(dev)
-        else:
-            peak = (1 << bits) - 1
-            src = torch.from_numpy(rng.integers(0, peak + 1, shape).astype(np.float32)).to(dev)
+        src = rand_src(op, bits, rng, frames)
         before = (fused_k.fused_interior.launches, strips_k.strips.launches)
         pairs = [("fused", fused_k.fused_interior(fi, src), fused_k.fused_interior_plain(fi, src))]
         if r is not None:
@@ -155,23 +197,59 @@ def main() -> int:
         errs = {}
         for kname, got, ref in pairs:
             assert torch.isfinite(got).all(), (name, kname)
-            if bits == 32:
-                err = float((got - ref).abs().max())
-                assert err <= F32_TOL, (name, kname, err)
-            else:
-                dt = torch_dtype(np.uint8 if bits == 8 else np.uint16)
-                err = float((finalize(got, dt, float(peak)).int()
-                             - finalize(ref, dt, float(peak)).int()).abs().max())
-                assert err <= 1, (name, kname, err)
+            err = err_of(got, ref, bits)
+            assert err <= (F32_TOL if bits == 32 else 1), (name, kname, err)
             errs[kname] = err
         print(f"[2] {name:28s} p=({plan.y.p},{plan.x.p}) q=({plan.y.q},{plan.x.q}) "
               f"fs={op.filter_size} strips_kernel={r is not None} "
               + " ".join(f"{k}_err={v:.3g}{'' if bits == 32 else ' LSB'}" for k, v in errs.items()))
         return errs, bits
 
+    def check_interior(kind, name, op, bits, rng, frames=2):
+        """The gather or seg kernel against its plain form on ``op``."""
+        if kind == "seg":
+            plan = plan_phases_seg(op)
+            assert plan is not None and seg_k.is_supported(op, plan), name
+            tables = seg_k.make_seg_interior(op, plan, dev)
+            plain = seg_k.seg_interior_plain
+            info = (f"p=({plan.y.p},{plan.x.p}) q=({plan.y.q},{plan.x.q}) "
+                    f"spread=({plan.y.spread},{plan.x.spread}) "
+                    f"exc=({len(plan.y.exceptions)},{len(plan.x.exceptions)}) "
+                    f"window={tables.win_h}x{tables.win_w}x{tables.frames_per_block}")
+        else:
+            assert gather_k.is_supported(op), name
+            tables = gather_k.make_gather_interior(op, dev)
+            plain = gather_k.gather_interior_plain
+            info = f"interior={tables.out_shape[1]}x{tables.out_shape[0]}"
+        src = rand_src(op, bits, rng, frames)
+        before = counts()
+        got = wrappers[kind](tables, src)
+        ref = plain(tables, src)
+        torch.cuda.synchronize()
+        assert counts() == {**before, kind: before[kind] + 1}, (name, before, counts())
+        assert torch.isfinite(got).all(), name
+        err = err_of(got, ref, bits)
+        assert err <= (F32_TOL if bits == 32 else 1), (name, kind, err)
+        print(f"[2] {name:34s} {kind:6s} {info} classes={op.pair_blocks.shape[:2]} "
+              f"fs={op.filter_size} err={err:.3g}{'' if bits == 32 else ' LSB'}")
+        return err
+
+    def against_golden(name, fmt, r, cfg, sw, sh):
+        """The whole applier through the public API (upload, dtype casts,
+        fixups, assembly, finalize) against the host golden."""
+        clip = Clip.from_frames([random_frame(fmt, sw, sh, seed=7)])
+        got = r(clip).frames[0]
+        want = JincResizer(fmt, sw, sh, replace(cfg, impl="numpy"), device=dev)(clip).frames[0]
+        d = max(
+            float(np.abs(got.planes[n].astype(np.float64) - want.planes[n].astype(np.float64)).max())
+            for n in fmt.plane_names
+        )
+        assert d <= (F32_TOL if fmt.bits == 32 else 1), (name, d)
+        print(f"[2] {name:28s} jinc_resize vs host golden: max diff {d:.3g} ({r.engines})")
+
     rng = np.random.default_rng(2026)
-    max_err = {"fused": 0.0, "strips": 0.0}
-    covered = {"fused": 0, "strips": 0}
+    max_err = dict.fromkeys(wrappers, 0.0)
+    covered = dict.fromkeys(wrappers, 0)
     for name, sw, sh, dw, dh, tap, bits, kw in CASES:
         kw = dict(kw)
         fmt = yuv420p(bits) if kw.pop("fmt", None) == "420" else yuv444p(bits)
@@ -184,17 +262,18 @@ def main() -> int:
                 covered[k] += 1
                 if b == 32:
                     max_err[k] = max(max_err[k], v)
-        # The whole applier through the public API (upload, dtype casts,
-        # fixups, assembly, finalize) against the host golden.
-        clip = Clip.from_frames([random_frame(fmt, sw, sh, seed=7)])
-        got = r(clip).frames[0]
-        want = JincResizer(fmt, sw, sh, replace(cfg, impl="numpy"), device=dev)(clip).frames[0]
-        d = max(
-            float(np.abs(got.planes[n].astype(np.float64) - want.planes[n].astype(np.float64)).max())
-            for n in fmt.plane_names
-        )
-        assert d <= (F32_TOL if bits == 32 else 1), (name, d)
-        print(f"[2] {name:28s} jinc_resize vs host golden: max diff {d:.3g} ({r.engines})")
+        against_golden(name, fmt, r, cfg, sw, sh)
+
+    for name, kind, sw, sh, dw, dh, tap in INTERIOR_CASES:
+        cfg = JincConfig(target_width=dw, target_height=dh, tap=tap, impl=kind)
+        r = JincResizer(gray(8), sw, sh, cfg, device=dev)
+        assert r.engines == {"luma": {"seg": "fused-seg", "gather": "gather"}[kind]}, r.engines
+        for bits in (32, 8):
+            err = check_interior(kind, name, r.op_luma, bits, rng)
+            covered[kind] += 1
+            if bits == 32:
+                max_err[kind] = max(max_err[kind], err)
+        against_golden(name, gray(8), r, cfg, sw, sh)
 
     t0 = time.perf_counter()
     fmt = yuv420p(8)
@@ -209,9 +288,68 @@ def main() -> int:
     for k, v in errs.items():
         covered[k] += 1
         max_err[k] = max(max_err[k], v)
-    assert covered["fused"] and covered["strips"], covered
+
+    paths = {}
+    for key, (sw, sh, dw, dh), seed in (("drift", DRIFT, 200), ("aperiodic", APERIODIC, 300)):
+        t0 = time.perf_counter()
+        pclip = Clip.from_frames([random_frame(fmt, sw, sh, seed=seed + i) for i in range(E2E_FRAMES)])
+        pr = JincResizer(fmt, sw, sh, JincConfig(dw, dh, tap=TAP), frame0=pclip.frames[0], device=dev)
+        print(f"[2] {sw}x{sh}->{dw}x{dh} tap8 resizer built in {time.perf_counter() - t0:.1f} s "
+              f"(host operator build + upload); engines {pr.engines}")
+        paths[key] = (pr, pclip)
+        kinds = ("seg", "gather") if key == "drift" else ("gather",)
+        for kind in kinds:
+            err = check_interior(kind, f"{sw}x{sh}->{dw}x{dh} tap8 luma", pr.op_luma, 32, rng)
+            covered[kind] += 1
+            max_err[kind] = max(max_err[kind], err)
+    assert all(covered.values()), covered
 
     # ---------------------------------------------------------------- phase 3
+    def oracle_check(tag, pclip, out, pr, sw, sh, dw, dh):
+        """<= 1 LSB against the scalar oracle on sampled pixels of frame 0."""
+        radius = radius_for_tap(TAP)
+        srng = np.random.default_rng(7)
+        for n in fmt.plane_names:
+            pw, ph = fmt.plane_dims(n, dw, dh)
+            sw_, sh_ = fmt.plane_dims(n, sw, sh)
+            if n == "Y":
+                crop = (0.0, 0.0, float(sw), float(sh))
+            else:
+                crop = chroma_crop(pr.cplace, sw, sh, dw, dh, 0.0, 0.0,
+                                   float(sw), float(sh), fmt.sub_w, fmt.sub_h)
+            nb = 24  # border band (covers every strip row/column at these sizes)
+            ys = np.concatenate([
+                srng.integers(0, ph, ORACLE_SAMPLES // 2),
+                np.r_[srng.integers(0, nb, ORACLE_SAMPLES // 8), srng.integers(ph - nb, ph, ORACLE_SAMPLES // 8)],
+                srng.integers(0, ph, ORACLE_SAMPLES // 4),
+                [0, 0, ph - 1, ph - 1],
+            ])  # fmt: skip
+            xs = np.concatenate([
+                srng.integers(0, pw, ORACLE_SAMPLES // 2),
+                srng.integers(0, pw, ORACLE_SAMPLES // 4),
+                np.r_[srng.integers(0, nb, ORACLE_SAMPLES // 8), srng.integers(pw - nb, pw, ORACLE_SAMPLES // 8)],
+                [0, pw - 1, 0, pw - 1],
+            ])  # fmt: skip
+            t0 = time.perf_counter()
+            vals, *_ = reference_sample_pixels(
+                pclip.frames[0].planes[n], ys, xs, pw, ph, radius,
+                crop_left=crop[0], crop_top=crop[1], crop_width=crop[2], crop_height=crop[3],
+            )  # fmt: skip
+            want = np.rint(np.clip(vals, 0, 255)).astype(np.int64)
+            got = out.frames[0].planes[n][ys, xs].astype(np.int64)
+            d = int(np.abs(got - want).max())
+            print(f"[3] {tag}plane {n} ({sw_}x{sh_}->{pw}x{ph}): {len(ys)} oracle samples "
+                  f"max diff {d} LSB ({time.perf_counter() - t0:.1f} s)")
+            assert d <= 1, (tag, n, d)
+
+    def against_xla(what, out, ref):
+        for fo, fr in zip(out.frames, ref.frames):
+            fo.validate()
+            for n in fmt.plane_names:
+                d = int(np.abs(fo.planes[n].astype(np.int64) - fr.planes[n].astype(np.int64)).max())
+                assert d <= 1, (what, n, d)
+        print(f"[3] {what} vs plain (impl='xla') engine on the card: <= 1 LSB on every plane")
+
     assert resizer.engines == {"luma": "fused", "chroma": "fused"}, resizer.engines
     n_planes = len(fmt.plane_names)
     expect = {
@@ -223,63 +361,78 @@ def main() -> int:
         ),
     }
     assert expect["strips"] > 0, "the strip kernel declined every 4K->8K plane"
-    fused_k.fused_interior.launches = 0
-    strips_k.strips.launches = 0
+    for w in wrappers.values():
+        w.launches = 0
     t0 = time.perf_counter()
-    out = jinc_resize(clip, DST_W, DST_H, tap=TAP, device="cuda", operator_cache=False)
+    out = jinc_resize(clip, DST_W, DST_H, tap=TAP, device=DEVICE, operator_cache=False)
     torch.cuda.synchronize()
-    launches = {
-        "fused": fused_k.fused_interior.launches,
-        "strips": strips_k.strips.launches,
-    }
+    launches = counts()
     print(f"[3] jinc_resize 4x 3840x2160 yuv420p8 -> 7680x4320 tap8 in "
           f"{time.perf_counter() - t0:.1f} s (construction included); launches {launches}")
-    assert launches == expect, (launches, expect)
+    assert launches == {**expect, "gather": 0, "seg": 0}, (launches, expect)
 
-    ref = jinc_resize(clip, DST_W, DST_H, tap=TAP, device="cuda", impl="xla", operator_cache=False)
-    for fo, fr in zip(out.frames, ref.frames):
-        fo.validate()
-        for n in fmt.plane_names:
-            d = int(np.abs(fo.planes[n].astype(np.int64) - fr.planes[n].astype(np.int64)).max())
-            assert d <= 1, ("fused vs plain engine", n, d)
-    print("[3] fused engine vs plain (impl='xla') engine on the card: <= 1 LSB on every plane")
+    ref = jinc_resize(clip, DST_W, DST_H, tap=TAP, device=DEVICE, impl="xla", operator_cache=False)
+    against_xla("fused engine", out, ref)
+    oracle_check("", clip, out, resizer, SRC_W, SRC_H, DST_W, DST_H)
 
-    radius = radius_for_tap(TAP)
-    srng = np.random.default_rng(7)
-    for n in fmt.plane_names:
-        pw, ph = fmt.plane_dims(n, DST_W, DST_H)
-        sw_, sh_ = fmt.plane_dims(n, SRC_W, SRC_H)
-        if n == "Y":
-            crop = (0.0, 0.0, float(SRC_W), float(SRC_H))
-        else:
-            crop = chroma_crop(resizer.cplace, SRC_W, SRC_H, DST_W, DST_H, 0.0, 0.0,
-                               float(SRC_W), float(SRC_H), fmt.sub_w, fmt.sub_h)
-        nb = 24  # border band (covers every strip row/column at these sizes)
-        ys = np.concatenate([
-            srng.integers(0, ph, ORACLE_SAMPLES // 2),
-            np.r_[srng.integers(0, nb, ORACLE_SAMPLES // 8), srng.integers(ph - nb, ph, ORACLE_SAMPLES // 8)],
-            srng.integers(0, ph, ORACLE_SAMPLES // 4),
-            [0, 0, ph - 1, ph - 1],
-        ])  # fmt: skip
-        xs = np.concatenate([
-            srng.integers(0, pw, ORACLE_SAMPLES // 2),
-            srng.integers(0, pw, ORACLE_SAMPLES // 4),
-            np.r_[srng.integers(0, nb, ORACLE_SAMPLES // 8), srng.integers(pw - nb, pw, ORACLE_SAMPLES // 8)],
-            [0, pw - 1, 0, pw - 1],
-        ])  # fmt: skip
+    # The drifted and the aperiodic path, each through the resizer a caller
+    # keeps (JincResizer.__call__), its kernel launched once per plane and no
+    # other kernel launched.
+    for key, engine, kind in (("drift", "fused-seg", "seg"), ("aperiodic", "gather", "gather")):
+        pr, pclip = paths[key]
+        sw, sh, dw, dh = DRIFT if key == "drift" else APERIODIC
+        assert pr.engines == {"luma": engine, "chroma": engine}, pr.engines
+        for w in wrappers.values():
+            w.launches = 0
         t0 = time.perf_counter()
-        vals, *_ = reference_sample_pixels(
-            clip.frames[0].planes[n], ys, xs, pw, ph, radius,
-            crop_left=crop[0], crop_top=crop[1], crop_width=crop[2], crop_height=crop[3],
-        )  # fmt: skip
-        want = np.rint(np.clip(vals, 0, 255)).astype(np.int64)
-        got = out.frames[0].planes[n][ys, xs].astype(np.int64)
-        d = int(np.abs(got - want).max())
-        print(f"[3] plane {n} ({sw_}x{sh_}->{pw}x{ph}): {len(ys)} oracle samples "
-              f"max diff {d} LSB ({time.perf_counter() - t0:.1f} s)")
-        assert d <= 1, (n, d)
+        pout = pr(pclip)
+        torch.cuda.synchronize()
+        launches[kind] = counts()[kind]
+        print(f"[3] JincResizer 4x {sw}x{sh} yuv420p8 -> {dw}x{dh} tap8 ({engine}) in "
+              f"{time.perf_counter() - t0:.1f} s; launches {counts()}")
+        assert counts() == {**dict.fromkeys(wrappers, 0), kind: n_planes}, counts()
+        pref = JincResizer(fmt, sw, sh, replace(pr.cfg, impl="xla"), device=dev)(pclip)
+        against_xla(f"{engine} engine", pout, pref)
+        oracle_check(f"{engine} ", pclip, pout, pr, sw, sh, dw, dh)
 
     # ---------------------------------------------------------------- phase 4
+    def e2e(tag, pr, pclip, plane_px):
+        """End-to-end ms/frame of ``pr(pclip)`` and where a call's time goes:
+        the per-plane steps of JincResizer's batched path, each closed by a
+        synchronise (host clock, summed over planes)."""
+        times = []
+        for i in range(4):
+            t0 = time.perf_counter()
+            pr(pclip)
+            torch.cuda.synchronize()
+            if i:  # first call is warm-up
+                times.append(time.perf_counter() - t0)
+        e2e_ms = statistics.median(times) * 1000 / E2E_FRAMES
+        split = {"stack+upload": [], "device": [], "download": []}
+        for _ in range(3):
+            acc = dict.fromkeys(split, 0.0)
+            for n in fmt.plane_names:
+                _, _, plane_app = pr._plane_op(n)
+                t0 = time.perf_counter()
+                t = torch.from_numpy(np.stack([f.planes[n] for f in pclip.frames])).to(dev)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                o = plane_app(t, out_dtype=np.uint8, peak=255.0)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                o.cpu().numpy()
+                t3 = time.perf_counter()
+                acc["stack+upload"] += t1 - t0
+                acc["device"] += t2 - t1
+                acc["download"] += t3 - t2
+            for k, v in acc.items():
+                split[k].append(v)
+        print(f"[4] {tag}split per frame: " + ", ".join(
+            f"{k} {statistics.median(v) * 1000 / E2E_FRAMES:.2f} ms" for k, v in split.items()
+        ) + f" [{card}]")  # fmt: skip
+        print(f"[4] {tag}end to end (upload + 3 planes + download) {e2e_ms:.2f} ms/frame, "
+              f"{plane_px / e2e_ms / 1e6:.3f} Gpx/s luma [{card}]")
+
     card = card_line()
     app = resizer._applier_luma
     tsrc = torch.from_numpy(
@@ -301,42 +454,52 @@ def main() -> int:
         print(f"[4] {k:13s} {ms[k]:10.3f} ms per {TIMING_FRAMES}-frame fp32 4K->8K luma "
               f"batch ({ms[k] / TIMING_FRAMES:.3f} ms/frame) [{card}]")
     del tsrc
-    e2e = []
-    for i in range(4):
-        t0 = time.perf_counter()
-        resizer(clip)
-        torch.cuda.synchronize()
-        if i:  # first call is warm-up
-            e2e.append(time.perf_counter() - t0)
-    e2e_ms = statistics.median(e2e) * 1000 / E2E_FRAMES
-    # Where a call's time goes: the per-plane steps of JincResizer's batched
-    # path, each closed by a synchronise (host clock, summed over planes).
-    split = {"stack+upload": [], "device": [], "download": []}
-    for _ in range(3):
-        acc = dict.fromkeys(split, 0.0)
-        for n in fmt.plane_names:
-            _, _, plane_app = resizer._plane_op(n)
-            t0 = time.perf_counter()
-            t = torch.from_numpy(np.stack([f.planes[n] for f in clip.frames])).to(dev)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            o = plane_app(t, out_dtype=np.uint8, peak=255.0)
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            o.cpu().numpy()
-            t3 = time.perf_counter()
-            acc["stack+upload"] += t1 - t0
-            acc["device"] += t2 - t1
-            acc["download"] += t3 - t2
-        for k, v in acc.items():
-            split[k].append(v)
-    print("[4] split per frame: " + ", ".join(
-        f"{k} {statistics.median(v) * 1000 / E2E_FRAMES:.2f} ms" for k, v in split.items()
-    ) + f" [{card}]")  # fmt: skip
-    print(f"[4] end to end (upload + 3 planes + download) {e2e_ms:.2f} ms/frame, "
-          f"{DST_W * DST_H / e2e_ms / 1e6:.3f} Gpx/s luma [{card}]")
+    e2e("", resizer, clip, DST_W * DST_H)
     print(f"[4] interior kernel {px_out / ms['fused'] / 1e6:.2f} Gpx/s "
           f"(output px / kernel time) [{card}]")
+
+    # The new paths: each kernel and its plain form on its own path's luma
+    # plane, the gather kernel on the drifted plane too, and the two
+    # appliers on the drifted plane (is seg before gather the right order?).
+    drift_r, aper_r = paths["drift"][0], paths["aperiodic"][0]
+    seg_app = drift_r._applier_luma
+    gather_app = GatherApplier(drift_r.op_luma, device=dev)
+    gi_aper = aper_r._applier_luma.gi
+    tsrc_d = torch.from_numpy(
+        rng.random((TIMING_FRAMES, DRIFT[1], DRIFT[0]), dtype=np.float32)
+    ).to(dev)
+    tsrc_a = torch.from_numpy(
+        rng.random((TIMING_FRAMES, APERIODIC[1], APERIODIC[0]), dtype=np.float32)
+    ).to(dev)
+    runs = (
+        ("seg_plain", lambda: seg_k.seg_interior_plain(seg_app.si, tsrc_d)),
+        ("seg", lambda: seg_k.seg_interior(seg_app.si, tsrc_d)),
+        ("gather_drift", lambda: gather_k.gather_interior(gather_app.gi, tsrc_d)),
+        ("seg_applier", lambda: seg_app(tsrc_d)),
+        ("gather_applier", lambda: gather_app(tsrc_d)),
+        ("gather", lambda: gather_k.gather_interior(gi_aper, tsrc_a)),
+        ("gather_plain", lambda: gather_k.gather_interior_plain(gi_aper, tsrc_a)),
+    )
+    new_ms = {}
+    for order in (runs, runs[::-1]):  # plain, kernel, ..., kernel, plain
+        for k, fn in order:
+            new_ms.setdefault(k, []).append(cuda_ms(fn, 3 if k.endswith("plain") else 10))
+    new_ms = {k: statistics.median(v) for k, v in new_ms.items()}
+    ms.update(new_ms)
+    drift_geo = "{}x{}->{}x{}".format(*DRIFT)
+    aper_geo = "{}x{}->{}x{}".format(*APERIODIC)
+    for k, _ in runs:
+        geo = aper_geo if k in ("gather", "gather_plain") else drift_geo
+        print(f"[4] {k:15s} {new_ms[k]:10.3f} ms per {TIMING_FRAMES}-frame fp32 {geo} luma "
+              f"batch ({new_ms[k] / TIMING_FRAMES:.3f} ms/frame) [{card}]")
+    print(f"[4] on the {drift_geo} plane the seg applier takes "
+          f"{new_ms['seg_applier'] / new_ms['gather_applier']:.3f}x the gather applier's time "
+          f"(seg interior {new_ms['seg'] / new_ms['gather_drift']:.3f}x gather interior) [{card}]")
+    del tsrc_d, tsrc_a, gather_app
+    for key, engine in (("drift", "fused-seg"), ("aperiodic", "gather")):
+        pr, pclip = paths[key]
+        sw, sh, dw, dh = DRIFT if key == "drift" else APERIODIC
+        e2e(f"{engine} {sw}x{sh}->{dw}x{dh} ", pr, pclip, dw * dh)
 
     print(card)
     kernels = [
@@ -359,6 +522,26 @@ def main() -> int:
             "max_abs_err": max_err["strips"],
             "ms": ms["strips"],
             "plain_ms": ms["strips_plain"],
+        },
+        {
+            "name": "gather_interior",
+            "route": "cuda",
+            "source": "jincresize_tpu_torch/csrc/gather_interior.cu",
+            "replaces": "jincresize_tpu/kernels/pallas_gather.py:137",
+            "launches": launches["gather"],
+            "max_abs_err": max_err["gather"],
+            "ms": ms["gather"],
+            "plain_ms": ms["gather_plain"],
+        },
+        {
+            "name": "seg_interior",
+            "route": "cuda",
+            "source": "jincresize_tpu_torch/csrc/seg_interior.cu",
+            "replaces": "jincresize_tpu/kernels/pallas_fused_seg.py:318",
+            "launches": launches["seg"],
+            "max_abs_err": max_err["seg"],
+            "ms": ms["seg"],
+            "plain_ms": ms["seg_plain"],
         },
     ]
     print(json.dumps({"kernels": kernels}))

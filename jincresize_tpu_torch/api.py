@@ -6,17 +6,26 @@ handling and the four ``jinc*_resize`` aliases. Operators are built by the
 shared NumPy host layer (``jincresize_tpu.operator``) and carried to an
 explicit torch ``device``.
 
-Engines (``JincResizer.engines`` records the one each plane ran):
+Engines (``JincResizer.engines`` records the one each plane ran, under the
+JAX package's names):
 
 * ``'fused'`` -- ``apply_conv.ConvApplier``: the hand-written interior and
   strip kernels on CUDA tensors (their plain forms on CPU tensors);
+* ``'fused-seg'`` -- ``apply_conv_seg.SegConvApplier``: the segment-periodic
+  kernel for drifted rational scales;
+* ``'gather'`` -- ``apply_gather.GatherApplier``: the gather kernel for any
+  geometry;
 * ``'xla'`` -- ``apply_xla``: the general gather-MAC in plain torch;
 * ``'numpy'`` -- the shared host golden (``golden.apply_plane_numpy``).
 
 ``impl='auto'`` picks ``fused`` when the plan is periodic and inside the
-kernel's envelope, else ``xla``; ``'conv'`` and ``'pallas'`` run ``fused`` or
-raise; ``'seg'``, ``'gather'`` and ``'sharded'`` raise NotImplementedError
-until their engines are ported. ``ChainResizer`` and the CLI are not ported.
+kernel's envelope; on a CUDA device it then tries ``fused-seg`` and
+``gather`` (the counterpart of the JAX package's TPU-only step); else
+``xla``. ``'conv'`` runs ``fused`` or raises; ``'seg'`` and ``'gather'`` run
+their engine or raise; ``'pallas'`` runs the first hand-written engine of
+``fused`` -> ``fused-seg`` -> ``gather`` or raises. ``'sharded'`` raises
+NotImplementedError until its engine is ported. ``ChainResizer`` and the CLI
+are not ported.
 """
 
 from __future__ import annotations
@@ -31,11 +40,15 @@ from jincresize_tpu.filters import build_lut
 from jincresize_tpu.geometry import chroma_crop
 from jincresize_tpu.golden import apply_plane_numpy
 from jincresize_tpu.operator import PlaneOperator, build_plane_operator, radius_for_tap
-from jincresize_tpu.phase import plan_phases
+from jincresize_tpu.phase import plan_phases, plan_phases_seg
 
 from . import apply_xla
 from .apply_conv import ConvApplier
+from .apply_conv_seg import SegConvApplier
+from .apply_gather import GatherApplier
 from .kernels import fused as fused_k
+from .kernels import gather as gather_k
+from .kernels import seg as seg_k
 
 
 class JincError(ValueError):
@@ -74,8 +87,6 @@ class JincConfig:
 
 # ROADMAP "still to port" items named by the engines that are not ported.
 _NOT_PORTED = {
-    "seg": "impl='seg' (segment-periodic engine, ROADMAP still to port #4)",
-    "gather": "impl='gather' (gather engine, ROADMAP still to port #3)",
     "sharded": "impl='sharded' (multi-device engine, ROADMAP still to port #5)",
 }
 
@@ -146,28 +157,72 @@ def _validate(cfg: JincConfig) -> None:
 def _select_engine(op: PlaneOperator, impl: str, precision: str, device):
     """Pick the execution engine for one plane operator.
 
-    Returns (applier_or_None, engine_name): ``'fused'`` (a ConvApplier) or
-    ``'xla'`` (no applier). Every accepted ``impl`` runs what it names or
-    raises.
+    Returns (applier_or_None, engine_name): ``'fused'``, ``'fused-seg'`` or
+    ``'gather'`` with its applier, or ``'xla'`` with none. Every accepted
+    ``impl`` runs what it names or raises. There is no size gate on
+    ``fused-seg``: the JAX package's ``JINCRESIZE_SEG_MIN_PIXELS`` exists for
+    a Mosaic compile of minutes, which the CUDA kernels do not have.
     """
     if impl in _NOT_PORTED:
         raise NotImplementedError(f"JincResize: {_NOT_PORTED[impl]} is not ported yet.")
+
+    def try_seg():
+        plan = plan_phases_seg(op)
+        if plan is None or not seg_k.is_supported(op, plan):
+            return None
+        return SegConvApplier(op, plan=plan, precision=precision, device=device)
+
+    def try_gather():
+        return GatherApplier(op, device=device) if gather_k.is_supported(op) else None
+
+    if impl == "seg":
+        app = try_seg()
+        if app is None:
+            raise JincError(
+                "JincResize: impl='seg' — geometry has no usable "
+                "segment-periodic structure (use impl='auto' for automatic "
+                "fallback)."
+            )
+        return app, "fused-seg"
+    if impl == "gather":
+        app = try_gather()
+        if app is None:
+            raise JincError(
+                "JincResize: impl='gather' — geometry outside the gather "
+                "kernel envelope (use impl='auto' for automatic fallback)."
+            )
+        return app, "gather"
     plan = plan_phases(op)
-    fused_ok = plan is not None and fused_k.is_supported(op, plan)
-    if fused_ok and impl in ("auto", "conv", "pallas"):
-        app = ConvApplier(op, plan=plan, precision=precision, device=device)
-        return app, "fused"
-    if impl == "conv" and plan is None:
-        raise JincError(
-            "JincResize: impl='conv' requires periodic geometry "
-            "(use impl='auto' for automatic fallback)."
-        )
-    if impl in ("conv", "pallas"):
+    if plan is not None and fused_k.is_supported(op, plan):
+        return ConvApplier(op, plan=plan, precision=precision, device=device), "fused"
+    if impl == "conv":
+        if plan is None:
+            raise JincError(
+                "JincResize: impl='conv' requires periodic geometry "
+                "(use impl='auto' for automatic fallback)."
+            )
         raise NotImplementedError(
-            f"JincResize: impl={impl!r} -- geometry is outside the fused kernel "
-            "envelope, and the deep-tap interior (ROADMAP still to port #1), "
-            "segment-periodic and gather engines are not ported yet "
-            "(use impl='auto' for automatic fallback)."
+            "JincResize: impl='conv' -- plan is outside the fused kernel envelope "
+            "and the deep-tap interior (ROADMAP still to port #1) is not ported "
+            "yet (use impl='auto' for automatic fallback)."
+        )
+    if impl == "pallas" or device.type == "cuda":
+        app = try_seg()
+        if app is not None:
+            return app, "fused-seg"
+        app = try_gather()
+        if app is not None:
+            return app, "gather"
+    if impl == "pallas":
+        if op.filter_size**2 > fused_k.FS2_MAX:
+            raise NotImplementedError(
+                "JincResize: impl='pallas' -- the deep-tap interior (ROADMAP "
+                "still to port #1) is not ported yet (use impl='auto' for "
+                "automatic fallback)."
+            )
+        raise JincError(
+            "JincResize: impl='pallas' — geometry is outside all Pallas "
+            "kernel envelopes (use impl='auto' for automatic fallback)."
         )
     return None, "xla"
 

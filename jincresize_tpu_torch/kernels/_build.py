@@ -1,10 +1,11 @@
 """Build the hand-written CUDA kernels at first use and bind them with ctypes.
 
 Every ``jincresize_tpu_torch/csrc/*.cu`` is compiled by ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface, in a directory
-keyed by a hash of the sources and flags (``build/kernels/<hash>/`` at the
-root of the checkout, which ``.gitignore`` lists). Nothing here includes
-PyTorch's headers, so a build takes seconds, not the minutes that
+``sm_90a`` (one ``nvcc`` per source, all started together) and linked into
+one shared library with a plain C interface, in a directory keyed by a hash
+of the sources and flags (``build/kernels/<hash>/`` at the root of the
+checkout, which ``.gitignore`` lists). Nothing here includes PyTorch's
+headers, so a build takes seconds, not the minutes that
 ``torch.utils.cpp_extension.load`` needs.
 
 Nothing is built or loaded on import: ``library()`` does it on the first
@@ -23,16 +24,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = (
-    "-gencode",
-    "arch=compute_90a,code=sm_90a",
-    "-std=c++17",
-    "-O3",
-    "-shared",
-    "-Xcompiler",
-    "-fPIC",
-    "-Xptxas=-v",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,6 +33,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "jt_fused_interior": [_P, _P, _P, _P] + [_I] * 13 + [_P],
     "jt_strips": [_P, _P, _P, _P, _P] + [_I] * 11 + [_P],
+    "jt_gather_interior": [_P] * 7 + [_I] * 7 + [_P],
+    "jt_seg_interior": [_P] * 7 + [_I] * 16 + [_P],
 }
 
 _lib = None
@@ -76,19 +71,35 @@ def build() -> Path:
     lib_path = out_dir / "libjt_kernels.so"
     if lib_path.exists():
         return lib_path
+    nvcc = _nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libjt_kernels.{os.getpid()}.tmp.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
-    cmd += [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "build.log").write_text(
-        " ".join(cmd) + "\n" + r.stdout + r.stderr
-    )
-    if r.returncode != 0:
+    tag = os.getpid()
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = out_dir / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        jobs.append((cmd, obj, proc))
+    log, failed = [], []
+    for cmd, _, proc in jobs:  # wait for every compiler before judging any
+        out, err = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out + err)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} ({proc.returncode}):\n{err}")
+    objs = [obj for _, obj, _ in jobs]
+    tmp = out_dir / f"libjt_kernels.{tag}.tmp.so"
+    if not failed:
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + r.stdout + r.stderr)
+        if r.returncode != 0:
+            failed.append(f"link ({r.returncode}):\n{r.stderr}")
+    (out_dir / "build.log").write_text("".join(log))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"jincresize_tpu_torch: nvcc failed ({r.returncode}):\n{r.stderr}"
-        )
+        raise RuntimeError("jincresize_tpu_torch: nvcc failed: " + "\n".join(failed))
     os.replace(tmp, lib_path)  # atomic: concurrent builders never see half a file
     return lib_path
 

@@ -1,0 +1,203 @@
+"""General-geometry gather interior: hand-written CUDA kernel and plain form.
+
+``gather_interior`` replaces ``jincresize_tpu/kernels/pallas_gather.py``
+``make_gather_interior``/``_gather_kernel``. It computes the interior
+rectangle ``[y_lo, y_hi) x [x_lo, x_hi)`` of any geometry, periodic or not:
+
+    out[f, m, x] = sum_{ly, lx < fs} src[f, sy[m] + ly, sx[x] + lx]
+                                     * pair_blocks[cy[m], cx[x], ly, lx]
+
+with the operator's own window starts ``sy``/``sx`` and dictionary classes
+``cy``/``cx``. Borders and the canvas are the caller's (``apply_gather``).
+
+The CUDA kernel is ``csrc/gather_interior.cu``: one thread per interior
+output pixel, fp32 ``fmaf`` along each tap row with the row sums added in ly
+order (more accurate than one running sum over fs**2 taps; the plain form
+sums alike), and up to four frames per thread, so every weight load serves
+each frame of the group.
+
+Weights: the kernel reads the compact dictionary, stored class-minor as
+``pair_blocks_t[cy, ly, lx, cx]`` (the same 75.8 MB at 256x256 classes). The
+expanded ``[cy, ly*fs + lx, x]`` layout would make a warp's weight loads
+fully coalesced across ``x``, but it costs n_ux-fold memory (1.16 GB on
+1080p -> 3740x2104) and still reads fs**2 floats per pixel from device
+memory. In the class-minor order the 32 columns of a warp read one
+``n_ux``-float row per tap (1 KB at 256 classes, at most 8 cache lines),
+where the ``(n_uy, n_ux, fs, fs)`` order would touch 32 blocks 1.2 KB apart;
+one row class's ``(fs, fs, n_ux)`` slab (296 KB at fs 17) stays in L2. What
+bounds the kernel on an H100: the per-pixel weights are structural (every
+pixel may own a different block), so each FMA needs one source load and,
+amortised over the frame group, a quarter of a scattered weight load --
+load issue, not HBM bytes or FLOPs.
+
+TPU workarounds of the Pallas kernel that this one drops:
+
+* the host and device x-expansion of the dictionary into class planes
+  ``Wx[n_uy, fs2p, nxi_pad]`` (``expand_weight_planes``, 1.16 GB at 256x256
+  classes) -- a GPU thread indexes the compact dictionary directly;
+* the XLA horizontal im2col ``P[f, h, lx, x]`` built outside the kernel --
+  a thread reads its window from the source plane;
+* ``_choose_tiles`` against the 12 MB VMEM budget, the band origins and
+  band-local starts (``syloc``/``y0``) and the padding of rows and columns
+  to the tile grid -- a thread block covers a 32 x 8 pixel tile and masks the
+  ragged edge itself;
+* the ``JINCRESIZE_GATHER_TN``/``JINCRESIZE_GATHER_TM`` tile overrides.
+
+Weights and state: the operator is the shared NumPy ``PlaneOperator`` that
+the JAX package builds too, so the device tables are made from the same
+object and no carry-over function is needed.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from jincresize_tpu.operator import PlaneOperator
+
+from . import _build
+from .fused import FS2_MAX
+
+
+@dataclass(frozen=True)
+class GatherInterior:
+    """Device tables of the gather interior for one operator."""
+
+    pair_blocks_t: torch.Tensor  # (n_uy, fs, fs, n_ux) f32, the dictionary class-minor
+    start_y: torch.Tensor  # (nyi,) int32 window starts of rows [y_lo, y_hi)
+    cy_idx: torch.Tensor  # (nyi,) int32 row classes
+    start_x: torch.Tensor  # (nxi,) int32 window starts of columns [x_lo, x_hi)
+    cx_idx: torch.Tensor  # (nxi,) int32 column classes
+    src_height: int
+    src_width: int
+    fs: int
+
+    @property
+    def out_shape(self) -> tuple[int, int]:
+        return self.start_y.shape[0], self.start_x.shape[0]
+
+
+def is_supported(op: PlaneOperator) -> bool:
+    """Envelope: a non-empty dictionary, fs**2 <= FS2_MAX, an interior."""
+    return (
+        op.pair_blocks.size > 0
+        and op.filter_size**2 <= FS2_MAX
+        and op.y_hi > op.y_lo
+        and op.x_hi > op.x_lo
+    )
+
+
+def check_window_starts(starts: np.ndarray, size: int, fs: int, what: str) -> None:
+    """Every window ``[start, start + fs)`` lies inside the source axis.
+
+    The operator builder clamps interior window begins to
+    ``0 <= start <= size - fs``; the kernels rely on that instead of an edge
+    rule (the JAX kernels clamp columns and zero-pad rows, ``common.cuh``
+    skips reads past the plane), so it is checked here on the host.
+    """
+    if len(starts) and (int(starts.min()) < 0 or int(starts.max()) + fs > size):
+        raise ValueError(
+            f"{what}: window starts in [{int(starts.min())}, {int(starts.max())}] "
+            f"leave the source axis of {size} with filter_size {fs}"
+        )
+
+
+def class_minor(pair_blocks: np.ndarray, device) -> torch.Tensor:
+    """The dictionary as ``[cy, ly, lx, cx]`` on ``device``: (n_uy, fs, fs, n_ux)."""
+    return torch.from_numpy(np.ascontiguousarray(pair_blocks.transpose(0, 2, 3, 1))).to(device)
+
+
+def make_gather_interior(
+    op: PlaneOperator, device: torch.device | str = "cpu"
+) -> GatherInterior:
+    """Host tables of the interior rectangle plus the device dictionary."""
+    if not is_supported(op):
+        raise ValueError("make_gather_interior: geometry outside the kernel envelope")
+    fs = op.filter_size
+    sy = op.start_y[op.y_lo : op.y_hi]
+    sx = op.start_x[op.x_lo : op.x_hi]
+    check_window_starts(sy, op.src_height, fs, "make_gather_interior rows")
+    check_window_starts(sx, op.src_width, fs, "make_gather_interior columns")
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device)
+
+    return GatherInterior(
+        pair_blocks_t=class_minor(op.pair_blocks, device),
+        start_y=t(sy),
+        cy_idx=t(op.cy_idx[op.y_lo : op.y_hi]),
+        start_x=t(sx),
+        cx_idx=t(op.cx_idx[op.x_lo : op.x_hi]),
+        src_height=op.src_height,
+        src_width=op.src_width,
+        fs=fs,
+    )
+
+
+def window_sum_plain(src_f, sy, cy, sx, cx, pair_blocks_t) -> torch.Tensor:
+    """Plain PyTorch per-pixel window sum: (F, H, W) -> (F, len(sy), len(sx)).
+
+    ``out[f, m, x] = sum src[f, sy[m] + ly, sx[x] + lx] *
+    pair_blocks_t[cy[m], ly, lx, cx[x]]``, summed as the kernels sum: along
+    each tap row, then the row sums in ly order. Per tap an (F, ny, nx)
+    source gather and an (ny, nx) weight gather, never the (F, ny, nx, fs,
+    fs) product. Elementwise fp32 only (no matmul, so no TF32 path on CUDA
+    tensors).
+    """
+    fs = pair_blocks_t.shape[1]
+    sy, cy, sx, cx = (a.long() for a in (sy, cy, sx, cx))
+    acc = torch.zeros(
+        (src_f.shape[0], sy.shape[0], sx.shape[0]), dtype=torch.float32, device=src_f.device
+    )
+    for ly in range(fs):
+        rows = (sy + ly)[:, None]
+        row = torch.zeros_like(acc)
+        for lx in range(fs):
+            w = pair_blocks_t[:, ly, lx][cy][:, cx]  # (ny, nx)
+            row.addcmul_(src_f[:, rows, (sx + lx)[None, :]], w)
+        acc += row
+    return acc
+
+
+def gather_interior_plain(gi: GatherInterior, src_f: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch form of the gather interior: (F, H, W) -> (F, nyi, nxi)."""
+    return window_sum_plain(src_f, gi.start_y, gi.cy_idx, gi.start_x, gi.cx_idx, gi.pair_blocks_t)
+
+
+def gather_interior(gi: GatherInterior, src_f: torch.Tensor) -> torch.Tensor:
+    """Gather interior of ``src_f`` (F, H, W) float32: (F, nyi, nxi).
+
+    On a CPU tensor this is ``gather_interior_plain``. On a CUDA tensor it
+    launches ``csrc/gather_interior.cu`` (counted in
+    ``gather_interior.launches``) or raises; it never falls back.
+    """
+    if src_f.device.type == "cpu":
+        return gather_interior_plain(gi, src_f)
+    if src_f.device.type != "cuda":
+        raise RuntimeError(f"gather_interior: unsupported device {src_f.device}")
+    if src_f.dtype != torch.float32 or src_f.dim() != 3 or not src_f.is_contiguous():
+        raise ValueError("gather_interior: src must be a contiguous (F, H, W) float32 tensor")
+    F, H, W = src_f.shape
+    if (H, W) != (gi.src_height, gi.src_width):
+        raise ValueError(f"gather_interior: source {W}x{H} does not match the operator")
+    if gi.pair_blocks_t.device != src_f.device:
+        raise ValueError("gather_interior: operator and source on different devices")
+    nyi, nxi = gi.out_shape
+    out = torch.empty((F, nyi, nxi), dtype=torch.float32, device=src_f.device)
+    if F == 0:
+        return out
+    with torch.cuda.device(src_f.device):
+        rc = _build.library().jt_gather_interior(
+            src_f.data_ptr(), gi.pair_blocks_t.data_ptr(), gi.start_y.data_ptr(),
+            gi.cy_idx.data_ptr(), gi.start_x.data_ptr(), gi.cx_idx.data_ptr(),
+            out.data_ptr(), F, H, W, nyi, nxi, gi.pair_blocks_t.shape[3], gi.fs,
+            _build.stream_of(src_f),
+        )  # fmt: skip
+    _build.check(rc, "jt_gather_interior")
+    gather_interior.launches += 1
+    return out
+
+
+gather_interior.launches = 0

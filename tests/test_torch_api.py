@@ -151,10 +151,26 @@ def test_cplace_errors_identical(fmt, props, kw):
     assert str(te.value) == str(je.value)
 
 
+# impl -> (geometry, engine) of the seg and gather engines.
+PORTED_ENGINES = {
+    "seg": ((96, 64, 288, 192, 2), "fused-seg"),
+    "gather": ((96, 64, 167, 113, 3), "gather"),
+}
+
+
 @pytest.mark.parametrize("impl", ["seg", "gather", "sharded"])
 def test_unported_engines_raise(impl):
-    with pytest.raises(NotImplementedError, match=f"impl='{impl}'.*ROADMAP"):
-        api.jinc_resize(_clip(gray()), 64, 48, impl=impl, device="cpu")
+    """Only 'sharded' is still unported; 'seg' and 'gather' run their engines."""
+    if impl == "sharded":
+        with pytest.raises(NotImplementedError, match=f"impl='{impl}'.*ROADMAP"):
+            api.jinc_resize(_clip(gray()), 64, 48, impl=impl, device="cpu")
+        return
+    (sw, sh, dw, dh, tap), engine = PORTED_ENGINES[impl]
+    clip = _clip(gray(), w=sw, h=sh)
+    cfg = api.JincConfig(target_width=dw, target_height=dh, tap=tap, impl=impl)
+    r = api.JincResizer(clip.format, sw, sh, cfg, device="cpu")
+    assert r.engines == {"luma": engine}
+    _assert_clips_close(r(clip), japi.jinc_resize(clip, dw, dh, tap=tap, impl="numpy"), 8)
 
 
 def test_bf16_raises_and_conv_requires_periodic():
@@ -163,8 +179,14 @@ def test_bf16_raises_and_conv_requires_periodic():
     clip = _clip(gray(), w=96, h=64)
     with pytest.raises(api.JincError, match="impl='conv' requires periodic"):
         api.jinc_resize(clip, 288, 192, tap=2, impl="conv", device="cpu")
-    with pytest.raises(NotImplementedError, match="envelope"):
-        api.jinc_resize(clip, 288, 192, tap=2, impl="pallas", device="cpu")
+    # Outside the fused envelope, 'pallas' now runs the next hand-written
+    # engine: this 3x plane is segment-periodic.
+    cfg = api.JincConfig(target_width=288, target_height=192, tap=2, impl="pallas")
+    assert api.JincResizer(clip.format, 96, 64, cfg, device="cpu").engines == {
+        "luma": "fused-seg"
+    }
+    with pytest.raises(NotImplementedError, match="bf16.*ROADMAP"):
+        api.jinc_resize(clip, 288, 192, tap=2, impl="seg", precision="bf16", device="cpu")
 
 
 @pytest.mark.parametrize("impl", ["conv", "pallas", "xla", "numpy"])
@@ -210,3 +232,92 @@ def test_cuda_device_without_gpu_raises():
         pytest.skip("a CUDA device is visible")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         api.jinc_resize(_clip(gray()), 64, 48)
+
+
+def test_engine_records_match_jax():
+    """impl='seg' and 'gather' record the JAX package's engine names and run
+    end to end within 1 LSB of the host golden."""
+    for impl, ((sw, sh, dw, dh, tap), engine) in PORTED_ENGINES.items():
+        clip = _clip(gray(8), w=sw, h=sh, seed=7)
+        cfg = api.JincConfig(target_width=dw, target_height=dh, tap=tap, impl=impl)
+        r = api.JincResizer(clip.format, sw, sh, cfg, frame0=clip.frames[0], device="cpu")
+        jcfg = japi.JincConfig(target_width=dw, target_height=dh, tap=tap, impl=impl)
+        assert r.engines == japi.JincResizer(clip.format, sw, sh, jcfg).engines
+        assert r.engines == {"luma": engine}
+        assert r._applier_luma.interior == engine
+        _assert_clips_close(r(clip), japi.jinc_resize(clip, dw, dh, tap=tap, impl="numpy"), 8)
+
+
+def test_impl_pallas_runs_hand_written_engines():
+    """'pallas' runs a hand-written engine for every geometry it accepts:
+    fused for periodic geometry, the gather kernel for aperiodic geometry."""
+    clip = _clip(gray(8), w=64, h=48, seed=3)
+    cfg = api.JincConfig(target_width=128, target_height=96, impl="pallas")
+    assert api.JincResizer(clip.format, 64, 48, cfg, device="cpu").engines == {"luma": "fused"}
+    clip2 = _clip(gray(8), w=96, h=64, seed=4)
+    cfg2 = api.JincConfig(target_width=167, target_height=113, impl="pallas")
+    r2 = api.JincResizer(clip2.format, 96, 64, cfg2, device="cpu")
+    assert r2.engines == {"luma": "gather"}
+    _assert_clips_close(r2(clip2), japi.jinc_resize(clip2, 167, 113, impl="numpy"), 8)
+
+
+ENGINE_ERRORS = [
+    ("seg", (400, 220, 601, 331, 3), "segment-periodic"),
+    ("gather", (481, 271, 240, 135, 16), "gather kernel envelope"),
+    ("pallas", (8, 8, 16, 16, 8), "outside all Pallas"),
+    ("conv", (96, 64, 167, 113, 3), "requires periodic"),
+]
+
+
+@pytest.mark.parametrize(
+    "impl,geom,msg", ENGINE_ERRORS, ids=[f"{e[0]}-{e[2].split()[0]}" for e in ENGINE_ERRORS]
+)
+def test_engine_errors_identical(impl, geom, msg):
+    sw, sh, dw, dh, tap = geom
+    with pytest.raises(japi.JincError, match=msg) as je:
+        japi.JincResizer(gray(8), sw, sh, japi.JincConfig(dw, dh, tap=tap, impl=impl))
+    with pytest.raises(api.JincError) as te:
+        api.JincResizer(gray(8), sw, sh, api.JincConfig(dw, dh, tap=tap, impl=impl), device="cpu")
+    assert str(te.value) == str(je.value)
+
+
+def test_pallas_deep_tap_not_ported():
+    cfg = api.JincConfig(target_width=240, target_height=135, tap=16, impl="pallas")
+    with pytest.raises(NotImplementedError, match="deep-tap.*ROADMAP"):
+        api.JincResizer(gray(8), 481, 271, cfg, device="cpu")
+
+
+@pytest.mark.parametrize(
+    "geom", [(96, 64, 167, 113, 3), (96, 64, 288, 192, 2)], ids=["aperiodic", "segment-periodic"]
+)
+def test_auto_on_cpu_takes_xla_off_the_periodic_path(geom):
+    """On the CPU, auto stays fused -> xla, as the JAX package's does off the TPU."""
+    sw, sh, dw, dh, tap = geom
+    r = api.JincResizer(gray(8), sw, sh, api.JincConfig(dw, dh, tap=tap), device="cpu")
+    assert r.engines == {"luma": "xla"}
+    assert japi.JincResizer(gray(8), sw, sh, japi.JincConfig(dw, dh, tap=tap)).engines == {
+        "luma": "xla"
+    }
+
+
+AUTO_CUDA = [
+    ((32, 24, 64, 48, 3), "fused", "ConvApplier"),
+    ((96, 64, 288, 192, 2), "fused-seg", "SegConvApplier"),
+    ((96, 64, 167, 113, 3), "gather", "GatherApplier"),
+    ((481, 271, 240, 135, 16), "xla", None),
+]
+
+
+@pytest.mark.parametrize("geom,engine,cls", AUTO_CUDA, ids=[e[1] for e in AUTO_CUDA])
+def test_auto_on_cuda_selects_fused_seg_gather_xla(geom, engine, cls, monkeypatch):
+    """auto on a CUDA device: fused -> fused-seg -> gather -> xla. The
+    appliers are stand-ins here (no card): the order is what is checked."""
+    from jincresize_tpu.operator import build_plane_operator, radius_for_tap
+
+    made = []
+    for name in ("ConvApplier", "SegConvApplier", "GatherApplier"):
+        monkeypatch.setattr(api, name, lambda op, *a, _n=name, **kw: made.append(_n) or _n)
+    sw, sh, dw, dh, tap = geom
+    op = build_plane_operator(sw, sh, dw, dh, radius_for_tap(tap))
+    app, eng = api._select_engine(op, "auto", "fp32", torch.device("cuda"))
+    assert (app, eng, made) == (cls, engine, [cls] if cls else [])

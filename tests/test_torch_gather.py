@@ -1,0 +1,192 @@
+"""Port's gather engine (plain forms on the CPU) against the JAX gather engine.
+
+The JAX side runs ``make_gather_interior`` and ``GatherApplier`` in Pallas
+interpret mode, as ``tests/test_apply_gather.py`` does; the port's wrappers
+take their plain PyTorch forms because the tensors lie on the CPU. The CUDA
+kernel is held to the same plain form on the card by ``chip_smoke.py``.
+
+Tolerances: 2e-6 absolute for the interior on fp32 sources in [0, 1) (exact
+fp32 products, only the summation order differs); for the applier,
+``tests/test_apply_gather.py``'s relative fp32 bound against the golden and
+<= 1 LSB for u8/u16 after ``finalize``.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from jincresize_tpu.golden import apply_plane_numpy
+from jincresize_tpu.operator import build_plane_operator, radius_for_tap
+from jincresize_tpu.phase import plan_phases, plan_phases_seg
+from jincresize_tpu_torch.apply_gather import GatherApplier
+from jincresize_tpu_torch.kernels import fused, gather
+
+F32_TOL = 2e-6
+
+# tests/test_apply_gather.py: aperiodic upscale (>100 classes per axis) and
+# the tap-2 downscale.
+GEOMS = {"aperiodic-up": (96, 64, 167, 113, 3), "down-tap2": (120, 80, 77, 53, 2)}
+
+
+def _op(name):
+    sw, sh, dw, dh, tap = GEOMS[name]
+    return build_plane_operator(sw, sh, dw, dh, radius_for_tap(tap))
+
+
+def _src(op, dtype, seed, frames=2, peak=255):
+    rng = np.random.default_rng(seed)
+    shape = (frames, op.src_height, op.src_width)
+    if dtype == np.float32:
+        return rng.random(shape, dtype=np.float32)
+    return rng.integers(0, peak + 1, shape).astype(dtype)
+
+
+def _maxdiff(a, b):
+    return float(np.abs(a.astype(np.float64) - b.astype(np.float64)).max())
+
+
+@pytest.fixture(scope="module")
+def ops():
+    return {name: _op(name) for name in GEOMS}
+
+
+@pytest.fixture(scope="module")
+def jax_interiors(ops):
+    """JAX Pallas gather interiors (interpret mode) on 2-frame fp32 sources."""
+    import jax.numpy as jnp
+
+    from jincresize_tpu.kernels.pallas_gather import make_gather_interior
+
+    out = {}
+    for name, op in ops.items():
+        src = _src(op, np.float32, seed=11)
+        out[name] = (src, np.asarray(make_gather_interior(op, interpret=True)(jnp.asarray(src))))
+    return out
+
+
+@pytest.mark.parametrize("name", list(GEOMS))
+def test_gather_plain_matches_pallas_interpret(name, ops, jax_interiors):
+    op = ops[name]
+    assert plan_phases(op) is None and plan_phases_seg(op) is None
+    src, want = jax_interiors[name]
+    gi = gather.make_gather_interior(op)
+    got = gather.gather_interior(gi, torch.from_numpy(src)).numpy()
+    assert got.shape == want.shape == (2,) + gi.out_shape
+    assert np.abs(got - want).max() <= F32_TOL
+
+
+@pytest.fixture(scope="module")
+def jax_applier_outputs(ops):
+    """JAX GatherApplier (interpret) outputs: fp32 and u8 batches."""
+    import jax.numpy as jnp
+
+    from jincresize_tpu.apply_gather import GatherApplier as JaxGatherApplier
+
+    op = ops["aperiodic-up"]
+    jap = JaxGatherApplier(op, interpret=True)
+    out = {"concat": jap._concat}
+    for dtype, peak in ((np.float32, None), (np.uint8, 255.0)):
+        src = _src(op, dtype, seed=5)
+        out[np.dtype(dtype).name] = (
+            src,
+            np.asarray(jap(jnp.asarray(src), out_dtype=dtype, peak=peak)),
+        )
+    return out
+
+
+@pytest.mark.parametrize("dtype,peak", [(np.float32, None), (np.uint8, 255.0)], ids=["f32", "u8"])
+def test_gather_applier_matches_jax_and_golden(dtype, peak, ops, jax_applier_outputs):
+    op = ops["aperiodic-up"]
+    src, want = jax_applier_outputs[np.dtype(dtype).name]
+    ap = GatherApplier(op)
+    assert ap._concat == jax_applier_outputs["concat"]
+    got = ap(torch.from_numpy(src), out_dtype=dtype, peak=peak).numpy()
+    golden = np.stack([apply_plane_numpy(op, s, out_dtype=dtype, peak=peak) for s in src])
+    assert got.dtype == np.dtype(dtype)
+    if dtype == np.float32:
+        bound = 2e-6 * max(1.0, float(np.abs(golden).max()))  # test_apply_gather.py's bound
+        assert _maxdiff(got, golden) <= bound
+        assert _maxdiff(got, want) <= bound
+    else:
+        assert _maxdiff(got, golden) <= 1
+        assert _maxdiff(got, want) <= 1
+
+
+@pytest.mark.parametrize(
+    "name,dtype,peak",
+    [("down-tap2", np.float32, None), ("down-tap2", np.uint16, 1023.0)],
+    ids=["down-f32", "down-u16"],
+)
+def test_gather_applier_matches_golden(name, dtype, peak, ops):
+    op = ops[name]
+    src = _src(op, dtype, seed=13, peak=int(peak or 1))
+    got = GatherApplier(op)(torch.from_numpy(src), out_dtype=dtype, peak=peak).numpy()
+    golden = np.stack([apply_plane_numpy(op, s, out_dtype=dtype, peak=peak) for s in src])
+    tol = 2e-6 * max(1.0, float(np.abs(golden).max())) if dtype == np.float32 else 1
+    assert _maxdiff(got, golden) <= tol
+
+
+def test_gather_batch_matches_per_frame(ops):
+    op = ops["aperiodic-up"]
+    ap = GatherApplier(op)
+    src = torch.from_numpy(_src(op, np.float32, seed=3, frames=3))
+    batch = ap(src)
+    gi = gather.make_gather_interior(op)
+    whole = gather.gather_interior(gi, src)
+    for f in range(3):
+        # The einsum may block the frames differently: summation order only.
+        assert float((batch[f] - ap(src[f])).abs().max()) <= F32_TOL
+        one = gather.gather_interior(gi, src[f : f + 1])[0]
+        assert float((whole[f] - one).abs().max()) <= F32_TOL
+
+
+def test_gather_tables_follow_the_operator(ops):
+    """State carries across: the device tables are the operator's own arrays."""
+    op = ops["aperiodic-up"]
+    gi = gather.make_gather_interior(op)
+    np.testing.assert_array_equal(gi.start_y.numpy(), op.start_y[op.y_lo : op.y_hi])
+    np.testing.assert_array_equal(gi.cy_idx.numpy(), op.cy_idx[op.y_lo : op.y_hi])
+    np.testing.assert_array_equal(gi.start_x.numpy(), op.start_x[op.x_lo : op.x_hi])
+    np.testing.assert_array_equal(gi.cx_idx.numpy(), op.cx_idx[op.x_lo : op.x_hi])
+    np.testing.assert_array_equal(gi.pair_blocks_t.numpy(), op.pair_blocks.transpose(0, 2, 3, 1))
+    assert gi.start_y.dtype == gi.cx_idx.dtype == torch.int32
+
+
+def test_is_supported_declines_deep_tap_and_empty_dictionary():
+    from jincresize_tpu.kernels import pallas_gather
+
+    deep = build_plane_operator(481, 271, 240, 135, radius_for_tap(16))
+    assert deep.filter_size**2 > fused.FS2_MAX
+    assert not gather.is_supported(deep)
+    assert not pallas_gather.is_supported(deep)
+    with pytest.raises(ValueError, match="envelope"):
+        gather.make_gather_interior(deep)
+    with pytest.raises(ValueError, match="envelope"):
+        GatherApplier(deep)
+    border_only = build_plane_operator(8, 8, 16, 16, radius_for_tap(8))
+    assert border_only.pair_blocks.size == 0
+    assert not gather.is_supported(border_only)
+
+
+def test_make_checks_window_starts_on_the_host(ops):
+    op = ops["aperiodic-up"]
+    sy = op.start_y.copy()
+    sy[op.y_lo] = op.src_height - op.filter_size + 1
+    with pytest.raises(ValueError, match="leave the source axis"):
+        gather.make_gather_interior(dataclasses.replace(op, start_y=sy))
+    sx = op.start_x.copy()
+    sx[op.x_hi - 1] = -1
+    with pytest.raises(ValueError, match="columns"):
+        gather.make_gather_interior(dataclasses.replace(op, start_x=sx))
+
+
+def test_wrapper_never_falls_back_off_cpu(ops):
+    op = ops["aperiodic-up"]
+    gi = gather.make_gather_interior(op)
+    src = torch.empty((1, op.src_height, op.src_width), device="meta")
+    before = gather.gather_interior.launches
+    with pytest.raises(RuntimeError, match="unsupported device"):
+        gather.gather_interior(gi, src)
+    assert gather.gather_interior.launches == before == 0

@@ -10,8 +10,9 @@ SCRIPT = """
 import sys
 import numpy as np
 import jincresize_tpu_torch
-from jincresize_tpu_torch import api, apply_conv, apply_strips_fast, apply_xla
-from jincresize_tpu_torch.kernels import _build, fused, strips
+from jincresize_tpu_torch import (api, apply_conv, apply_conv_seg, apply_gather,
+                                  apply_strips_fast, apply_xla)
+from jincresize_tpu_torch.kernels import _build, fused, gather, seg, strips
 from jincresize_tpu.clip import Clip, random_frame, yuv420p
 
 clip = Clip.from_frames([random_frame(yuv420p(8), 32, 24, seed=1)])

@@ -221,6 +221,41 @@ def test_build_dir_keyed_by_sources():
     from jincresize_tpu_torch.kernels import _build
 
     names = {p.name for p in _build._sources()}
-    assert {"fused_interior.cu", "strips.cu", "common.cuh"} <= names
+    assert {
+        "fused_interior.cu", "strips.cu", "gather_interior.cu", "seg_interior.cu", "common.cuh"
+    } <= names
     assert _build.build_dir() == _build.build_dir()
     assert _build.build_dir().parent == _build.BUILD_ROOT
+
+
+@pytest.mark.parametrize("fail", [None, "seg_interior.cu"], ids=["builds", "one-source-fails"])
+def test_build_compiles_each_source_then_links(fail, monkeypatch, tmp_path):
+    """One ``nvcc -c`` per source, then one ``-shared`` link; a failing source
+    fails the build, names the source and leaves no objects behind."""
+    from jincresize_tpu_torch.kernels import _build
+
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        'out=""; prev=""\n'
+        'for a in "$@"; do [ "$prev" = "-o" ] && out="$a"; prev="$a"; done\n'
+        f'case "$*" in *{fail or "no-such-source"}*) echo "error: bad kernel" >&2; exit 2;; esac\n'
+        'touch "$out"\n'
+    )
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "build")
+    sources = sorted(p.name for p in _build.CSRC.glob("*.cu"))
+    if fail:
+        with pytest.raises(RuntimeError, match=f"(?s){fail}.*bad kernel"):
+            _build.build()
+        assert not list(_build.build_dir().glob("*.o"))
+        assert not (_build.build_dir() / "libjt_kernels.so").exists()
+        return
+    lib = _build.build()
+    assert lib.exists() and lib == _build.build_dir() / "libjt_kernels.so"
+    log = (lib.parent / "build.log").read_text().splitlines()
+    compiles = [line for line in log if " -c " in line]
+    assert sorted(line.split()[-1].rsplit("/", 1)[-1] for line in compiles) == sources
+    assert sum(" -shared " in line for line in log) == 1
+    assert not list(lib.parent.glob("*.o"))
