@@ -17,7 +17,10 @@ Phases (each raises on failure; nothing catches it):
    plane; the gather and seg kernels on the geometries of
    ``tests/test_apply_gather.py`` and ``tests/test_apply_conv_seg.py`` and on
    the full 2560x1440 -> 3840x2160 and 1920x1080 -> 3740x2104 tap-8 luma
-   planes: 2e-6 absolute for fp32 sources in [0, 1), <= 1 LSB after
+   planes; the sharded engine's band kernel on every row shard of
+   96x72 -> 160x120 tap 3 (8 shards), a multi-hop and a replicated downscale
+   (8 shards) and the full 1920x1080 -> 3740x2104 tap-8 luma plane (4
+   shards): 2e-6 absolute for fp32 sources in [0, 1), <= 1 LSB after
    ``finalize`` for u8/u16; every launch counted;
 3. end to end, one path after another, each with the launch counts set to 0
    just before and read just after, on 4-frame yuv420p8 clips at tap 8:
@@ -26,11 +29,18 @@ Phases (each raises on failure; nothing catches it):
    ``gather``), each <= 1 LSB against the port's plain engine
    (``impl='xla'``) on the card and against the scalar oracle
    ``golden.reference_sample_pixels`` on sampled pixels (borders and corners
-   included);
+   included); then the sharded engine on four row shards of ``cuda:0``:
+   the aperiodic clip (``sharded/gather``, 12 band-kernel launches, <= 1 LSB
+   against the single-card engine and the oracle) and 2-frame runs of the
+   periodic (``sharded/conv-fused``) and drifted (``sharded/seg``) clips,
+   each <= 1 LSB against its single-card engine; on a machine with several
+   cards, the aperiodic clip on a mesh of distinct cards too;
 4. timing -- CUDA-event medians of each kernel and its plain form on 8-frame
-   fp32 luma batches of each path, the seg and gather appliers on the same
+   fp32 luma batches of each path (the band kernel summed over the four
+   shards of the aperiodic plane), the seg and gather appliers on the same
    1440p -> 4K plane, and each path's end-to-end ms/frame with its upload /
-   device / download split.
+   device / download split, the sharded aperiodic path beside the
+   single-card one.
 
 Prints the kernels' JSON line, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
@@ -79,6 +89,15 @@ INTERIOR_CASES = [
     ("seg 640x360->960x540 tap8", "seg", 640, 360, 960, 540, 8),
     ("seg 1920x80->4800x200 tap2", "seg", 1920, 80, 4800, 200, 2),
 ]
+# (name, src_w, src_h, dst_w, dst_h, tap, row shards): the band kernel on
+# tests/test_torch_sharding.py's gather geometry, a multi-hop (2 hops each
+# way) and a replicated downscale.
+BAND_CASES = [
+    ("band 96x72->160x120 tap3", 96, 72, 160, 120, 3, 8),
+    ("band 128x96->21x16 tap2 multi-hop", 128, 96, 21, 16, 2, 8),
+    ("band 64x48->10x8 tap2 replicated", 64, 48, 10, 8, 2, 8),
+]
+N_SHARDS = 4  # row shards of the sharded runs, all on cuda:0
 SRC_W, SRC_H, DST_W, DST_H, TAP = 3840, 2160, 7680, 4320, 8
 DRIFT = (2560, 1440, 3840, 2160)  # 1.5x: drifted under f32 positions, seg on both planes
 APERIODIC = (1920, 1080, 3740, 2104)  # 1.947x: 256x256 classes, gather on both planes
@@ -128,6 +147,8 @@ def main() -> int:
     from jincresize_tpu.golden import reference_sample_pixels
     from jincresize_tpu.operator import radius_for_tap
     from jincresize_tpu.phase import plan_phases, plan_phases_seg
+    from jincresize_tpu.operator import build_plane_operator
+    from jincresize_tpu_torch import sharding
     from jincresize_tpu_torch.api import JincConfig, JincResizer, jinc_resize
     from jincresize_tpu_torch.apply_gather import GatherApplier
     from jincresize_tpu_torch.apply_xla import finalize, torch_dtype
@@ -145,6 +166,7 @@ def main() -> int:
         "strips": strips_k.strips,
         "gather": gather_k.gather_interior,
         "seg": seg_k.seg_interior,
+        "gather_band": gather_k.gather_band,
     }
 
     def counts():
@@ -234,6 +256,34 @@ def main() -> int:
               f"fs={op.filter_size} err={err:.3g}{'' if bits == 32 else ' LSB'}")
         return err
 
+    def check_band(name, op, n_rows, bits, rng, frames=2):
+        """The band kernel against its plain form on every row shard of
+        ``op`` over ``n_rows`` shards of the card; returns the largest error."""
+        mesh = sharding.make_mesh(n_rows=n_rows, devices=[dev] * n_rows)
+        built = sharding.make_sharded_apply_gather(op, mesh)
+        assert built is not None, name
+        fn, plan = built
+        worst = 0.0
+        src = rand_src(op, bits, rng, frames)
+        for shard, band in zip(fn.shards[0], fn.bands(src)):
+            if shard is None:
+                continue
+            gb = shard.tables
+            shape = (frames, gb.rows, op.dst_width)
+            before = counts()
+            got = gather_k.gather_band(gb, band, torch.zeros(shape, device=dev))
+            ref = gather_k.gather_band_plain(gb, band, torch.zeros(shape, device=dev))
+            torch.cuda.synchronize()
+            assert counts() == {**before, "gather_band": before["gather_band"] + 1}, name
+            assert torch.isfinite(got).all(), name
+            err = err_of(got, ref, bits)
+            assert err <= (F32_TOL if bits == 32 else 1), (name, err)
+            worst = max(worst, err)
+        print(f"[2] {name:34s} band   shards={n_rows} hops=({plan.hops_up},{plan.hops_dn}) "
+              f"replicated={plan.replicate_src} fs={op.filter_size} "
+              f"err={worst:.3g}{'' if bits == 32 else ' LSB'}")
+        return worst
+
     def against_golden(name, fmt, r, cfg, sw, sh):
         """The whole applier through the public API (upload, dtype casts,
         fixups, assembly, finalize) against the host golden."""
@@ -275,6 +325,14 @@ def main() -> int:
                 max_err[kind] = max(max_err[kind], err)
         against_golden(name, gray(8), r, cfg, sw, sh)
 
+    for name, sw, sh, dw, dh, tap, n_rows in BAND_CASES:
+        op = build_plane_operator(sw, sh, dw, dh, radius_for_tap(tap))
+        for bits in (32, 8):
+            err = check_band(name, op, n_rows, bits, rng)
+            covered["gather_band"] += 1
+            if bits == 32:
+                max_err["gather_band"] = max(max_err["gather_band"], err)
+
     t0 = time.perf_counter()
     fmt = yuv420p(8)
     clip = Clip.from_frames(
@@ -302,6 +360,13 @@ def main() -> int:
             err = check_interior(kind, f"{sw}x{sh}->{dw}x{dh} tap8 luma", pr.op_luma, 32, rng)
             covered[kind] += 1
             max_err[kind] = max(max_err[kind], err)
+    sw, sh, dw, dh = APERIODIC
+    for bits in (32, 8):
+        err = check_band(f"{sw}x{sh}->{dw}x{dh} tap8 luma", paths["aperiodic"][0].op_luma,
+                         N_SHARDS, bits, rng)
+        covered["gather_band"] += 1
+        if bits == 32:
+            max_err["gather_band"] = max(max_err["gather_band"], err)
     assert all(covered.values()), covered
 
     # ---------------------------------------------------------------- phase 3
@@ -342,13 +407,15 @@ def main() -> int:
                   f"max diff {d} LSB ({time.perf_counter() - t0:.1f} s)")
             assert d <= 1, (tag, n, d)
 
-    def against_xla(what, out, ref):
+    def against(what, out, ref, ref_name="plain (impl='xla') engine"):
+        assert len(out.frames) == len(ref.frames), what
+        d = 0
         for fo, fr in zip(out.frames, ref.frames):
             fo.validate()
             for n in fmt.plane_names:
-                d = int(np.abs(fo.planes[n].astype(np.int64) - fr.planes[n].astype(np.int64)).max())
-                assert d <= 1, (what, n, d)
-        print(f"[3] {what} vs plain (impl='xla') engine on the card: <= 1 LSB on every plane")
+                d = max(d, int(np.abs(fo.planes[n].astype(np.int64) - fr.planes[n].astype(np.int64)).max()))
+        assert d <= 1, (what, ref_name, d)
+        print(f"[3] {what} vs {ref_name} on the card: max {d} LSB over every plane")
 
     assert resizer.engines == {"luma": "fused", "chroma": "fused"}, resizer.engines
     n_planes = len(fmt.plane_names)
@@ -369,15 +436,16 @@ def main() -> int:
     launches = counts()
     print(f"[3] jinc_resize 4x 3840x2160 yuv420p8 -> 7680x4320 tap8 in "
           f"{time.perf_counter() - t0:.1f} s (construction included); launches {launches}")
-    assert launches == {**expect, "gather": 0, "seg": 0}, (launches, expect)
+    assert launches == {**expect, "gather": 0, "seg": 0, "gather_band": 0}, (launches, expect)
 
     ref = jinc_resize(clip, DST_W, DST_H, tap=TAP, device=DEVICE, impl="xla", operator_cache=False)
-    against_xla("fused engine", out, ref)
+    against("fused engine", out, ref)
     oracle_check("", clip, out, resizer, SRC_W, SRC_H, DST_W, DST_H)
 
     # The drifted and the aperiodic path, each through the resizer a caller
     # keeps (JincResizer.__call__), its kernel launched once per plane and no
     # other kernel launched.
+    pouts = {}
     for key, engine, kind in (("drift", "fused-seg", "seg"), ("aperiodic", "gather", "gather")):
         pr, pclip = paths[key]
         sw, sh, dw, dh = DRIFT if key == "drift" else APERIODIC
@@ -392,8 +460,60 @@ def main() -> int:
               f"{time.perf_counter() - t0:.1f} s; launches {counts()}")
         assert counts() == {**dict.fromkeys(wrappers, 0), kind: n_planes}, counts()
         pref = JincResizer(fmt, sw, sh, replace(pr.cfg, impl="xla"), device=dev)(pclip)
-        against_xla(f"{engine} engine", pout, pref)
+        against(f"{engine} engine", pout, pref)
         oracle_check(f"{engine} ", pclip, pout, pr, sw, sh, dw, dh)
+        pouts[key] = pout
+
+    # The sharded engine on N_SHARDS row shards of the card, through the
+    # resizer a caller keeps: the aperiodic clip (band kernel), then two
+    # frames of the periodic (fused kernel) and the drifted (seg kernel) clip.
+    mesh = sharding.make_mesh(n_rows=N_SHARDS, devices=[dev] * N_SHARDS)
+    sharded = {}
+    for key, interior, kind, sclip, ref_out in (
+        ("aperiodic", "gather", "gather_band", paths["aperiodic"][1], pouts["aperiodic"]),
+        ("periodic", "conv-fused", "fused", Clip.from_frames(clip.frames[:2]),
+         Clip.from_frames(out.frames[:2])),
+        ("drift", "seg", "seg", Clip.from_frames(paths["drift"][1].frames[:2]),
+         Clip.from_frames(pouts["drift"].frames[:2])),
+    ):  # fmt: skip
+        sw, sh, dw, dh = {"aperiodic": APERIODIC, "drift": DRIFT}.get(
+            key, (SRC_W, SRC_H, DST_W, DST_H)
+        )
+        t0 = time.perf_counter()
+        cfg = JincConfig(dw, dh, tap=TAP, impl="sharded")
+        sr = JincResizer(fmt, sw, sh, cfg, frame0=sclip.frames[0], device=dev, mesh=mesh)
+        built = time.perf_counter() - t0
+        assert sr.engines == {"luma": f"sharded/{interior}", "chroma": f"sharded/{interior}"}, sr.engines
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        sout = sr(sclip)
+        torch.cuda.synchronize()
+        got = counts()
+        print(f"[3] JincResizer {len(sclip.frames)}x {sw}x{sh} yuv420p8 -> {dw}x{dh} tap8 on "
+              f"{N_SHARDS} row shards of {dev} (sharded/{interior}) in "
+              f"{time.perf_counter() - t0:.1f} s (built in {built:.1f} s); launches {got}")
+        assert got == {**dict.fromkeys(wrappers, 0), kind: N_SHARDS * n_planes}, got
+        if key == "aperiodic":
+            launches["gather_band"] = got["gather_band"]
+        single = {"aperiodic": "gather", "periodic": "fused", "drift": "fused-seg"}[key]
+        against(f"sharded/{interior} engine", sout, ref_out, f"single-card {single} engine")
+        if key == "aperiodic":
+            oracle_check("sharded/gather ", sclip, sout, sr, sw, sh, dw, dh)
+        sharded[key] = sr
+
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        cards = [torch.device("cuda", i) for i in range(n_cards)][:N_SHARDS]
+        sw, sh, dw, dh = APERIODIC
+        cfg = JincConfig(dw, dh, tap=TAP, impl="sharded")
+        mr = JincResizer(fmt, sw, sh, cfg, device=dev, mesh=sharding.make_mesh(devices=cards))
+        mout = mr(paths["aperiodic"][1])
+        torch.cuda.synchronize()
+        against(f"sharded/gather on {len(cards)} cards", mout, pouts["aperiodic"],
+                "single-card gather engine")
+    else:
+        print("[3] one visible card: the mesh of distinct cards was not run")
 
     # ---------------------------------------------------------------- phase 4
     def e2e(tag, pr, pclip, plane_px):
@@ -432,6 +552,7 @@ def main() -> int:
         ) + f" [{card}]")  # fmt: skip
         print(f"[4] {tag}end to end (upload + 3 planes + download) {e2e_ms:.2f} ms/frame, "
               f"{plane_px / e2e_ms / 1e6:.3f} Gpx/s luma [{card}]")
+        return e2e_ms
 
     card = card_line()
     app = resizer._applier_luma
@@ -495,11 +616,37 @@ def main() -> int:
     print(f"[4] on the {drift_geo} plane the seg applier takes "
           f"{new_ms['seg_applier'] / new_ms['gather_applier']:.3f}x the gather applier's time "
           f"(seg interior {new_ms['seg'] / new_ms['gather_drift']:.3f}x gather interior) [{card}]")
-    del tsrc_d, tsrc_a, gather_app
+    # The band kernel and its plain form on each row shard of the same
+    # aperiodic batch, summed over the shards.
+    sfn = sharded["aperiodic"]._applier_luma._fn
+    shard_runs = []
+    for shard, band in zip(sfn.shards[0], sfn.bands(tsrc_a)):
+        canvas = torch.zeros((TIMING_FRAMES, shard.r1 - shard.r0, APERIODIC[2]), device=dev)
+        shard_runs.append((shard.tables, band, canvas))
+    band_ms = {"gather_band": [], "gather_band_plain": []}
+    for k in ("gather_band_plain", "gather_band", "gather_band", "gather_band_plain"):
+        fn = gather_k.gather_band_plain if k.endswith("plain") else gather_k.gather_band
+        band_ms[k].append(sum(cuda_ms(lambda a=a: fn(*a), 3 if k.endswith("plain") else 10)
+                              for a in shard_runs))
+    for k, v in band_ms.items():
+        ms[k] = statistics.median(v)
+        print(f"[4] {k:17s} {ms[k]:10.3f} ms per {TIMING_FRAMES}-frame fp32 {aper_geo} luma "
+              f"batch, summed over {N_SHARDS} row shards ({ms[k] / TIMING_FRAMES:.3f} ms/frame) "
+              f"[{card}]")
+    print(f"[4] band kernel over {N_SHARDS} shards takes {ms['gather_band'] / ms['gather']:.3f}x "
+          f"the single-card gather kernel on the same batch [{card}]")
+    del tsrc_d, tsrc_a, gather_app, shard_runs
     for key, engine in (("drift", "fused-seg"), ("aperiodic", "gather")):
         pr, pclip = paths[key]
         sw, sh, dw, dh = DRIFT if key == "drift" else APERIODIC
         e2e(f"{engine} {sw}x{sh}->{dw}x{dh} ", pr, pclip, dw * dh)
+    sw, sh, dw, dh = APERIODIC
+    pr, pclip = paths["aperiodic"]
+    tag = f"{sw}x{sh}->{dw}x{dh} "
+    e_single = e2e(f"gather {tag}(again, beside sharded) ", pr, pclip, dw * dh)
+    e_sharded = e2e(f"sharded/gather {N_SHARDS} shards {tag}", sharded["aperiodic"], pclip, dw * dh)
+    print(f"[4] sharded/gather end to end takes {e_sharded / e_single:.3f}x the single-card "
+          f"gather engine on the same clip [{card}]")
 
     print(card)
     kernels = [
@@ -542,6 +689,16 @@ def main() -> int:
             "max_abs_err": max_err["seg"],
             "ms": ms["seg"],
             "plain_ms": ms["seg_plain"],
+        },
+        {
+            "name": "gather_band",
+            "route": "cuda",
+            "source": "jincresize_tpu_torch/csrc/gather_band.cu",
+            "replaces": "jincresize_tpu/kernels/pallas_gather.py:306",
+            "launches": launches["gather_band"],
+            "max_abs_err": max_err["gather_band"],
+            "ms": ms["gather_band"],
+            "plain_ms": ms["gather_band_plain"],
         },
     ]
     print(json.dumps({"kernels": kernels}))

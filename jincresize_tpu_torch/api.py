@@ -16,16 +16,23 @@ JAX package's names):
 * ``'gather'`` -- ``apply_gather.GatherApplier``: the gather kernel for any
   geometry;
 * ``'xla'`` -- ``apply_xla``: the general gather-MAC in plain torch;
-* ``'numpy'`` -- the shared host golden (``golden.apply_plane_numpy``).
+* ``'numpy'`` -- the shared host golden (``golden.apply_plane_numpy``);
+* ``'sharded/<interior>'`` -- ``sharding.ShardedApplier``: destination rows
+  split over the row shards of a ``sharding.RowMesh`` of torch devices
+  (frames over its data rows), each shard running the ``conv-fused``,
+  ``conv-shift``, ``seg``, ``gather`` (band kernel) or ``gather-scan``
+  interior on its band of source rows.
 
 ``impl='auto'`` picks ``fused`` when the plan is periodic and inside the
 kernel's envelope; on a CUDA device it then tries ``fused-seg`` and
 ``gather`` (the counterpart of the JAX package's TPU-only step); else
 ``xla``. ``'conv'`` runs ``fused`` or raises; ``'seg'`` and ``'gather'`` run
 their engine or raise; ``'pallas'`` runs the first hand-written engine of
-``fused`` -> ``fused-seg`` -> ``gather`` or raises. ``'sharded'`` raises
-NotImplementedError until its engine is ported. ``ChainResizer`` and the CLI
-are not ported.
+``fused`` -> ``fused-seg`` -> ``gather`` or raises. ``'sharded'``, or
+``'auto'`` with a ``mesh``, runs the sharded engine on every plane; with no
+mesh it takes ``sharding.make_mesh`` over every visible device of the
+resizer's device type. A mesh with any other ``impl`` raises ``JincError``.
+``ChainResizer`` and the CLI are not ported.
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ from .apply_gather import GatherApplier
 from .kernels import fused as fused_k
 from .kernels import gather as gather_k
 from .kernels import seg as seg_k
+from .sharding import ShardedApplier, make_mesh
 
 
 class JincError(ValueError):
@@ -83,12 +91,6 @@ class JincConfig:
     precision: str = "fp32"  # 'fp32' | 'bf16'
     pos_precision: str = "f32"  # 'f32' (reference walk) | 'f64' (drift-free)
     operator_cache: bool = True
-
-
-# ROADMAP "still to port" items named by the engines that are not ported.
-_NOT_PORTED = {
-    "sharded": "impl='sharded' (multi-device engine, ROADMAP still to port #5)",
-}
 
 
 def _resolve_cplace(cfg: JincConfig, fmt: VideoFormat, frame0: Frame | None) -> str:
@@ -163,9 +165,6 @@ def _select_engine(op: PlaneOperator, impl: str, precision: str, device):
     ``fused-seg``: the JAX package's ``JINCRESIZE_SEG_MIN_PIXELS`` exists for
     a Mosaic compile of minutes, which the CUDA kernels do not have.
     """
-    if impl in _NOT_PORTED:
-        raise NotImplementedError(f"JincResize: {_NOT_PORTED[impl]} is not ported yet.")
-
     def try_seg():
         plan = plan_phases_seg(op)
         if plan is None or not seg_k.is_supported(op, plan):
@@ -231,7 +230,8 @@ class JincResizer:
     """Constructed filter instance: operators built once, frames are calls.
 
     ``device`` is where the device engines run; ``'cuda'`` without a visible
-    GPU raises instead of running on the CPU.
+    GPU raises instead of running on the CPU. ``mesh`` (a
+    ``sharding.RowMesh``) routes every plane through the sharded engine.
     """
 
     def __init__(
@@ -242,8 +242,13 @@ class JincResizer:
         cfg: JincConfig,
         frame0: Frame | None = None,
         device="cuda",
+        mesh=None,
     ):
         _validate(cfg)
+        if mesh is not None and cfg.impl not in ("auto", "sharded"):
+            raise JincError(
+                "JincResize: mesh is only valid with impl='sharded' or 'auto'."
+            )
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -328,7 +333,7 @@ class JincResizer:
                 blur=blur,
                 pos_precision=pos_precision,
             )
-        self._init_engines()
+        self._init_engines(mesh)
 
         # Float-source clamp per plane (SIMD semantics unless opt==0).
         clamp = cfg.float_clamp
@@ -337,7 +342,7 @@ class JincResizer:
         self._float_clamp = clamp and fmt.bits == 32
 
     # --------------------------------------------------------------- engines
-    def _init_engines(self) -> None:
+    def _init_engines(self, mesh=None) -> None:
         """Select and build the engine per plane operator into ``engines``."""
         cfg, fmt = self.cfg, self.fmt
         self._impl = cfg.impl
@@ -357,6 +362,16 @@ class JincResizer:
                 self.engines["chroma"] = "numpy"
             return
         ops = {"luma": self.op_luma, "chroma": self.op_chroma}
+        if self._impl == "sharded" or (self._impl == "auto" and mesh is not None):
+            if mesh is None:
+                mesh = make_mesh(device_type=self.device.type)
+            for plane, op in ops.items():
+                if op is not None:
+                    app = ShardedApplier(op, mesh, precision=prec)
+                    setattr(self, f"_applier_{plane}", app)
+                    self.engines[plane] = f"sharded/{app.interior}"
+            self._impl = "sharded"
+            return
         for plane, op in ops.items():
             if op is None:
                 continue
@@ -469,13 +484,15 @@ def jinc_resize(
     target_width: int,
     target_height: int,
     device="cuda",
+    mesh=None,
     **kwargs,
 ) -> Clip:
-    """``JincResize(clip, target_width, target_height, ...)`` on ``device``."""
+    """``JincResize(clip, target_width, target_height, ...)`` on ``device``,
+    or on the row shards of ``mesh`` (a ``sharding.RowMesh``)."""
     cfg = JincConfig(target_width=target_width, target_height=target_height, **kwargs)
     frame0 = clip.frames[0] if len(clip.frames) else None
     resizer = JincResizer(
-        clip.format, clip.width, clip.height, cfg, frame0=frame0, device=device
+        clip.format, clip.width, clip.height, cfg, frame0=frame0, device=device, mesh=mesh
     )
     return resizer(clip)
 

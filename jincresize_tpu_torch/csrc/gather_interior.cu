@@ -9,10 +9,11 @@
 // pbt is the compact class-pair dictionary stored class-minor, so the 32
 // columns of a warp read one n_ux-float row per tap. One thread per output
 // pixel of a 32 x 8 tile: fp32 FMA along each tap row, the row sums added in
-// ly order (kernels/gather.py's plain form sums alike). A thread carries up
-// to kFrames frames (gridDim.z walks the frame groups), so each weight it
-// loads serves every frame of its group. The host guarantees 0 <= sy <= H - fs
-// and 0 <= sx <= W - fs (kernels/gather.py), so no read leaves the plane.
+// ly order (common.cuh jt_gather_window; kernels/gather.py's plain form sums
+// alike). A thread carries up to kFrames frames (gridDim.z walks the frame
+// groups), so each weight it loads serves every frame of its group. The host
+// guarantees 0 <= sy <= H - fs and 0 <= sx <= W - fs (kernels/gather.py), so
+// no read leaves the plane.
 #include "common.cuh"
 
 namespace {
@@ -35,19 +36,8 @@ __global__ void __launch_bounds__(kTileX* kTileY)
   const int64_t plane = static_cast<int64_t>(H) * W;
   const float* w = pbt + static_cast<int64_t>(cy[Y]) * fs * fs * n_ux + cx[X];
   const float* s0 = src + f0 * plane + static_cast<int64_t>(sy[Y]) * W + sx[X];
-  float acc[kFrames] = {0.f, 0.f, 0.f, 0.f};
-  for (int ly = 0; ly < fs; ++ly) {
-    const float* srow = s0 + static_cast<int64_t>(ly) * W;
-    float row[kFrames] = {0.f, 0.f, 0.f, 0.f};
-    for (int lx = 0; lx < fs; ++lx, w += n_ux) {
-      const float wv = __ldg(w);
-#pragma unroll
-      for (int i = 0; i < kFrames; ++i)
-        if (i < nf) row[i] = fmaf(__ldg(srow + i * plane + lx), wv, row[i]);
-    }
-#pragma unroll
-    for (int i = 0; i < kFrames; ++i) acc[i] += row[i];
-  }
+  float acc[kFrames];
+  jt_gather_window<kFrames>(s0, plane, W, w, n_ux, fs, nf, acc);
   float* o = out + f0 * (static_cast<int64_t>(nyi) * nxi) + static_cast<int64_t>(Y) * nxi + X;
 #pragma unroll
   for (int i = 0; i < kFrames; ++i)

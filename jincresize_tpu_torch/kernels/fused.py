@@ -102,6 +102,15 @@ def make_fused_interior(
         raise ValueError(f"make_fused_interior: unknown precision {precision!r}")
     if not is_supported(op, plan):
         raise ValueError("make_fused_interior: plan outside the kernel envelope")
+    return fused_tables(op, plan, device)
+
+
+def fused_tables(
+    op: PlaneOperator, plan: PhasePlan, device: torch.device | str = "cpu"
+) -> FusedInterior:
+    """The tables of ``plan`` without the envelope check: what
+    ``fused_interior_plain`` needs for a plan the kernel declines (the
+    sharded engine's ``conv-shift`` interior on deep taps)."""
     fs = op.filter_size
     py, px = plan.y.p, plan.x.p
     wstride = _odd_stride(fs * fs)

@@ -43,6 +43,23 @@ TPU workarounds of the Pallas kernel that this one drops:
   ragged edge itself;
 * the ``JINCRESIZE_GATHER_TN``/``JINCRESIZE_GATHER_TM`` tile overrides.
 
+``gather_band`` replaces ``pallas_gather.py`` ``make_gather_band``/
+``band_kernel``: the same sum over one row shard of the sharded engine
+(``sharding.make_sharded_apply_gather``), read from the shard's band (its own
+source rows plus the halos) at band-local window starts ``syl``, for every
+destination row of the shard (border rows too; the caller patches them), and
+stored straight into the shard's ``(F, td, dst_w)`` canvas at column
+``x_lo``. Its kernel is ``csrc/gather_band.cu``, the gather interior's thread
+layout and window sum (``common.cuh`` ``jt_gather_window``) with the canvas
+row stride. TPU workarounds of ``make_gather_band`` that it drops besides the
+ones above: the x-expanded class planes passed as a jit argument (the remote
+compile's HTTP 413 limit), the XLA im2col ``P = band[:, colsT]``,
+``choose_band_tiles`` against the 12 MB VMEM budget, the per-band origins
+``y0`` with ``syloc`` relative to them, the padding of rows and columns to
+``tm``/``tn`` and of the band to ``hp_need``, the ``dynamic_update_slice`` of
+the interior into the canvas, and the ``interpret=not backend_tpu`` switch
+(the wrapper chooses by the tensor's device).
+
 Weights and state: the operator is the shared NumPy ``PlaneOperator`` that
 the JAX package builds too, so the device tables are made from the same
 object and no carry-over function is needed.
@@ -201,3 +218,122 @@ def gather_interior(gi: GatherInterior, src_f: torch.Tensor) -> torch.Tensor:
 
 
 gather_interior.launches = 0
+
+BAND_TILE = (32, 8)  # output pixels (x, y) of one thread block; csrc/gather_band.cu kTileX/kTileY
+BAND_FRAMES = 4  # frames per thread; csrc/gather_band.cu kFrames
+
+
+@dataclass(frozen=True)
+class GatherBand:
+    """Device tables of one row shard's band interior."""
+
+    pair_blocks_t: torch.Tensor  # (n_uy, fs, fs, n_ux) f32, the dictionary class-minor
+    syl: torch.Tensor  # (td,) int32 band-local window starts of the shard's rows
+    cy: torch.Tensor  # (td,) int32 row classes (border rows clipped into range)
+    start_x: torch.Tensor  # (nxi,) int32 window starts of columns [x_lo, x_hi)
+    cx_idx: torch.Tensor  # (nxi,) int32 column classes
+    band_h: int
+    src_width: int
+    dst_width: int
+    x_lo: int
+    fs: int
+
+    @property
+    def rows(self) -> int:
+        return self.syl.shape[0]
+
+
+def make_gather_band(
+    op: PlaneOperator,
+    syl: np.ndarray,
+    cy: np.ndarray,
+    band_h: int,
+    pair_blocks_t: torch.Tensor,
+) -> GatherBand:
+    """Tables of one row shard on the device of ``pair_blocks_t``
+    (``class_minor(op.pair_blocks, device)``, shared by the shards of a device).
+
+    ``syl``/``cy`` are the band-local window starts and the classes of the
+    shard's destination rows; every window must lie inside the band.
+    """
+    if not is_supported(op):
+        raise ValueError("make_gather_band: geometry outside the kernel envelope")
+    fs = op.filter_size
+    n_uy = op.pair_blocks.shape[0]
+    sx = op.start_x[op.x_lo : op.x_hi]
+    check_window_starts(syl, band_h, fs, "make_gather_band rows")
+    check_window_starts(sx, op.src_width, fs, "make_gather_band columns")
+    if len(cy) != len(syl) or (len(cy) and (int(cy.min()) < 0 or int(cy.max()) >= n_uy)):
+        raise ValueError(f"make_gather_band: row classes must be {len(syl)} values in [0, {n_uy})")
+    device = pair_blocks_t.device
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device)
+
+    return GatherBand(
+        pair_blocks_t=pair_blocks_t,
+        syl=t(syl),
+        cy=t(cy),
+        start_x=t(sx),
+        cx_idx=t(op.cx_idx[op.x_lo : op.x_hi]),
+        band_h=band_h,
+        src_width=op.src_width,
+        dst_width=op.dst_width,
+        x_lo=op.x_lo,
+        fs=fs,
+    )
+
+
+def gather_band_plain(gb: GatherBand, band: torch.Tensor, canvas: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch form: ``window_sum_plain`` of the band, written into
+    ``canvas[:, :, x_lo:x_hi]`` (in place); returns ``canvas``."""
+    nxi = gb.start_x.shape[0]
+    canvas[:, :, gb.x_lo : gb.x_lo + nxi] = window_sum_plain(
+        band, gb.syl, gb.cy, gb.start_x, gb.cx_idx, gb.pair_blocks_t
+    )
+    return canvas
+
+
+def gather_band(gb: GatherBand, band: torch.Tensor, canvas: torch.Tensor) -> torch.Tensor:
+    """Interior columns of one row shard, stored into ``canvas`` in place.
+
+    ``band`` (F, band_h, W) and ``canvas`` (F, td, dst_w) are float32. On a
+    CPU tensor this is ``gather_band_plain``. On a CUDA tensor it launches
+    ``csrc/gather_band.cu`` (counted in ``gather_band.launches``) or raises;
+    it never falls back. Returns ``canvas``.
+    """
+    if band.device.type == "cpu":
+        return gather_band_plain(gb, band, canvas)
+    if band.device.type != "cuda":
+        raise RuntimeError(f"gather_band: unsupported device {band.device}")
+    if band.dtype != torch.float32 or band.dim() != 3 or not band.is_contiguous():
+        raise ValueError("gather_band: band must be a contiguous (F, band_h, W) float32 tensor")
+    F, H, W = band.shape
+    if (H, W) != (gb.band_h, gb.src_width):
+        raise ValueError(f"gather_band: band {W}x{H} does not match the tables")
+    if (
+        canvas.dtype != torch.float32
+        or tuple(canvas.shape) != (F, gb.rows, gb.dst_width)
+        or not canvas.is_contiguous()
+    ):
+        raise ValueError(
+            f"gather_band: canvas must be a contiguous ({F}, {gb.rows}, {gb.dst_width}) "
+            "float32 tensor"
+        )
+    if gb.pair_blocks_t.device != band.device or canvas.device != band.device:
+        raise ValueError("gather_band: tables, band and canvas on different devices")
+    if F == 0:
+        return canvas
+    with torch.cuda.device(band.device):
+        rc = _build.library().jt_gather_band(
+            band.data_ptr(), gb.pair_blocks_t.data_ptr(), gb.syl.data_ptr(), gb.cy.data_ptr(),
+            gb.start_x.data_ptr(), gb.cx_idx.data_ptr(), canvas.data_ptr(), F, H, W, gb.rows,
+            gb.start_x.shape[0], gb.pair_blocks_t.shape[3], gb.fs, gb.dst_width, gb.x_lo,
+            _build.stream_of(band),
+        )  # fmt: skip
+    _build.check(rc, "jt_gather_band")
+    gather_band.launches += 1
+    return canvas
+
+
+gather_band.launches = 0

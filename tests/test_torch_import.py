@@ -11,7 +11,7 @@ import sys
 import numpy as np
 import jincresize_tpu_torch
 from jincresize_tpu_torch import (api, apply_conv, apply_conv_seg, apply_gather,
-                                  apply_strips_fast, apply_xla)
+                                  apply_strips_fast, apply_xla, sharding)
 from jincresize_tpu_torch.kernels import _build, fused, gather, seg, strips
 from jincresize_tpu.clip import Clip, random_frame, yuv420p
 
@@ -22,6 +22,11 @@ out = r(clip)
 assert r.engines == {"luma": "fused", "chroma": "fused"}, r.engines
 assert out.frames[0].planes["Y"].shape == (48, 64)
 assert out.frames[0].planes["U"].dtype == np.uint8
+mesh = sharding.make_mesh(n_rows=2, devices=["cpu"] * 2)
+r = api.JincResizer(clip.format, 32, 24, api.JincConfig(target_width=64, target_height=48,
+                    operator_cache=False, impl="sharded"), device="cpu", mesh=mesh)
+assert r(clip).frames[0].planes["Y"].shape == (48, 64)
+assert all(e.startswith("sharded/") for e in r.engines.values()), r.engines
 jax_mods = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 assert not jax_mods, jax_mods
 print("ok")

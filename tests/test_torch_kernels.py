@@ -259,3 +259,15 @@ def test_build_compiles_each_source_then_links(fail, monkeypatch, tmp_path):
     assert sorted(line.split()[-1].rsplit("/", 1)[-1] for line in compiles) == sources
     assert sum(" -shared " in line for line in log) == 1
     assert not list(lib.parent.glob("*.o"))
+
+
+def test_gather_band_kernel_is_built_and_bound():
+    """The sharded engine's band kernel has its source and its C signature:
+    seven pointers, nine sizes, the stream."""
+    from jincresize_tpu_torch.kernels import _build
+
+    assert (_build.CSRC / "gather_band.cu").exists()
+    assert "gather_band.cu" in {p.name for p in _build._sources()}
+    sig = _build._SIGNATURES["jt_gather_band"]
+    assert sig == [_build._P] * 7 + [_build._I] * 9 + [_build._P]
+    assert "jt_gather_band(" in (_build.CSRC / "gather_band.cu").read_text()
