@@ -12,35 +12,44 @@ Phases (each raises on failure; nothing catches it):
    versions, then ``nvcc`` builds the kernels from ``jincresize_tpu_torch/csrc``
    (one compiler per source, in parallel);
 2. kernel against plain -- every kernel and its plain PyTorch form: the fused
-   and strip kernels on the conv-path geometries of ``tests/tpu_smoke.py``, an
-   exception-heavy 5/2 upscale and the full 3840x2160 -> 7680x4320 tap-8 luma
-   plane; the gather and seg kernels on the geometries of
+   and strip kernels on the conv-path geometries of ``tests/tpu_smoke.py``
+   (its two tap-16 deep-tap cases included), an exception-heavy 5/2 upscale,
+   a tap-16 2/5 downscale whose weights take 105 KB of shared memory, the
+   full 3840x2160 -> 7680x4320 tap-8 and 3840x2160 -> 1920x1080 tap-16 luma
+   planes; the gather and seg kernels on the geometries of
    ``tests/test_apply_gather.py`` and ``tests/test_apply_conv_seg.py`` and on
    the full 2560x1440 -> 3840x2160 and 1920x1080 -> 3740x2104 tap-8 luma
    planes; the sharded engine's band kernel on every row shard of
    96x72 -> 160x120 tap 3 (8 shards), a multi-hop and a replicated downscale
    (8 shards) and the full 1920x1080 -> 3740x2104 tap-8 luma plane (4
-   shards): 2e-6 absolute for fp32 sources in [0, 1), <= 1 LSB after
-   ``finalize`` for u8/u16; every launch counted;
+   shards): 2e-6 absolute for fp32 sources in [0, 1) (4e-6 for deep taps,
+   fs**2 > 1200), <= 1 LSB after ``finalize`` for u8/u16; every launch
+   counted;
 3. end to end, one path after another, each with the launch counts set to 0
-   just before and read just after, on 4-frame yuv420p8 clips at tap 8:
-   3840x2160 -> 7680x4320 (periodic: ``fused``), 2560x1440 -> 3840x2160
-   (drifted 1.5x: ``fused-seg``) and 1920x1080 -> 3740x2104 (aperiodic:
-   ``gather``), each <= 1 LSB against the port's plain engine
+   just before and read just after, on 4-frame yuv420p8 clips:
+   3840x2160 -> 7680x4320 tap 8 (periodic: ``fused``), 2560x1440 -> 3840x2160
+   tap 8 (drifted 1.5x: ``fused-seg``), 1920x1080 -> 3740x2104 tap 8
+   (aperiodic: ``gather``) and 3840x2160 -> 1920x1080 tap 16 (deep taps:
+   ``fused``), each <= 1 LSB against the port's plain engine
    (``impl='xla'``) on the card and against the scalar oracle
    ``golden.reference_sample_pixels`` on sampled pixels (borders and corners
    included); then the sharded engine on four row shards of ``cuda:0``:
    the aperiodic clip (``sharded/gather``, 12 band-kernel launches, <= 1 LSB
    against the single-card engine and the oracle) and 2-frame runs of the
-   periodic (``sharded/conv-fused``) and drifted (``sharded/seg``) clips,
-   each <= 1 LSB against its single-card engine; on a machine with several
-   cards, the aperiodic clip on a mesh of distinct cards too;
+   periodic and the deep-tap (``sharded/conv-fused``) and drifted
+   (``sharded/seg``) clips, each <= 1 LSB against its single-card engine; on
+   a machine with several cards, the aperiodic clip on a mesh of distinct
+   cards too. ``fused_interior_plain`` must be called 0 times in the phase;
 4. timing -- CUDA-event medians of each kernel and its plain form on 8-frame
    fp32 luma batches of each path (the band kernel summed over the four
-   shards of the aperiodic plane), the seg and gather appliers on the same
-   1440p -> 4K plane, and each path's end-to-end ms/frame with its upload /
-   device / download split, the sharded aperiodic path beside the
-   single-card one.
+   shards of the aperiodic plane), each beside its bound (operations or
+   bytes over the H100's fp32 and HBM peaks), cuDNN's ``conv2d`` computing
+   the fused interior at 4K -> 8K and at 4K -> 1080p tap 16 (checked against
+   the kernel, 4e-6), the seg and gather appliers on the same 1440p -> 4K
+   plane, each path's end-to-end ms/frame with its upload / device /
+   download split (the sharded aperiodic path beside the single-card one),
+   and ``python -m jincresize_tpu_torch.bench`` in its three modes, run in
+   this process.
 
 Prints the kernels' JSON line, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
@@ -49,8 +58,9 @@ no CUDA device is visible or the package is missing.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
-import os
 import statistics
 import subprocess
 import sys
@@ -79,6 +89,12 @@ CASES = [
     ("f64 8/3-by-4/3 px=8", 360, 240, 960, 320, 4, 8,
      {"src_left": 0.3, "src_top": 0.3, "pos_precision": "f64"}),
     ("5/2 upscale exceptions", 160, 120, 400, 300, 3, 32, {}),
+    # Deep taps (fs**2 > 1200): the two tap-16 cases of tests/tpu_smoke.py and
+    # a 2/5 downscale whose (4, 82, 82) weight set takes 105 KB of shared
+    # memory (the kernel's opt-in above 48 KB). Each is also checked on fp32.
+    ("tap16 2x down p=1 fs=65", 480, 270, 240, 135, 16, 8, {"fmt": "gray"}),
+    ("tap16 2/3 down p=2 fs=49", 480, 270, 320, 180, 16, 8, {"fmt": "gray"}),
+    ("tap16 2/5 down fs=82 105KB", 300, 200, 120, 80, 16, 8, {"fmt": "gray"}),
 ]  # fmt: skip
 # (name, kernel, src_w, src_h, dst_w, dst_h, tap): tests/test_apply_gather.py
 # (aperiodic upscale, tap-2 downscale) and tests/test_apply_conv_seg.py
@@ -101,10 +117,19 @@ N_SHARDS = 4  # row shards of the sharded runs, all on cuda:0
 SRC_W, SRC_H, DST_W, DST_H, TAP = 3840, 2160, 7680, 4320, 8
 DRIFT = (2560, 1440, 3840, 2160)  # 1.5x: drifted under f32 positions, seg on both planes
 APERIODIC = (1920, 1080, 3740, 2104)  # 1.947x: 256x256 classes, gather on both planes
+DEEP = (3840, 2160, 1920, 1080)  # tap-16 2x downscale: p=1, q=2, fs=65 on both planes
+DEEP_TAP = 16
 E2E_FRAMES = 4
 TIMING_FRAMES = 8
 F32_TOL = 2e-6  # exact fp32 products on both sides; only the summation order differs
+DEEP_TOL = 4e-6  # fs**2 > 1200 (4225 products a pixel at fs=65): the JAX deep-tap bound
 ORACLE_SAMPLES = 2000
+DEEP_ORACLE_SAMPLES = 128  # the scalar oracle costs ~45 ms a sample at fs=65
+# H100 SXM peaks (NVIDIA's data sheet, at 700 W): fp32 outside the tensor
+# cores, and HBM3. A kernel's bound is the larger of its operations and its
+# bytes (each input read once, each output written once) over these.
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_S = 3.35e12
 
 
 def card_line() -> str:
@@ -112,6 +137,32 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]  # fmt: skip
+
+
+def bound_ms(ops: float, nbytes: float) -> tuple[float, str]:
+    """The least time the card could take: (ms, 'operations' or 'bytes')."""
+    t_ops = ops / PEAK_FP32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def tensor_bytes(*objs, skip=()) -> int:
+    """Bytes of the tensors given, and of the tensor fields of the
+    dataclasses given (fields in ``skip`` left out: plain-form tables)."""
+    import dataclasses
+
+    import torch
+
+    total = 0
+    for o in objs:
+        if isinstance(o, torch.Tensor):
+            total += o.numel() * o.element_size()
+        else:
+            for f in dataclasses.fields(o):
+                v = getattr(o, f.name)
+                if f.name not in skip and isinstance(v, torch.Tensor):
+                    total += v.numel() * v.element_size()
+    return total
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -139,16 +190,14 @@ def main() -> int:
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    os.environ.setdefault("JINCRESIZE_CACHE_DIR", str(ROOT / "build" / "cache"))
     import numpy as np
 
-    from jincresize_tpu.clip import Clip, gray, random_frame, yuv420p, yuv444p
-    from jincresize_tpu.geometry import chroma_crop
-    from jincresize_tpu.golden import reference_sample_pixels
-    from jincresize_tpu.operator import radius_for_tap
-    from jincresize_tpu.phase import plan_phases, plan_phases_seg
-    from jincresize_tpu.operator import build_plane_operator
-    from jincresize_tpu_torch import sharding
+    from jincresize_tpu_torch import bench, sharding
+    from jincresize_tpu_torch.clip import Clip, gray, random_frame, yuv420p, yuv444p
+    from jincresize_tpu_torch.geometry import chroma_crop
+    from jincresize_tpu_torch.golden import reference_sample_pixels
+    from jincresize_tpu_torch.operator import build_plane_operator, radius_for_tap
+    from jincresize_tpu_torch.phase import plan_phases, plan_phases_seg
     from jincresize_tpu_torch.api import JincConfig, JincResizer, jinc_resize
     from jincresize_tpu_torch.apply_gather import GatherApplier
     from jincresize_tpu_torch.apply_xla import finalize, torch_dtype
@@ -201,6 +250,11 @@ def main() -> int:
         dt = torch_dtype(np.uint8 if bits == 8 else np.uint16)
         return float((finalize(got, dt, peak).int() - finalize(ref, dt, peak).int()).abs().max())
 
+    def tol_of(op, bits):
+        if bits != 32:
+            return 1
+        return DEEP_TOL if op.filter_size**2 > 1200 else F32_TOL
+
     def check_kernels(name, op, bits, rng, frames=2):
         """Both kernels against their plain forms on ``op``; returns the
         largest fp32 |kernel - plain| (fp32 sources) or the LSB error."""
@@ -220,7 +274,7 @@ def main() -> int:
         for kname, got, ref in pairs:
             assert torch.isfinite(got).all(), (name, kname)
             err = err_of(got, ref, bits)
-            assert err <= (F32_TOL if bits == 32 else 1), (name, kname, err)
+            assert err <= tol_of(op, bits), (name, kname, err)
             errs[kname] = err
         print(f"[2] {name:28s} p=({plan.y.p},{plan.x.p}) q=({plan.y.q},{plan.x.q}) "
               f"fs={op.filter_size} strips_kernel={r is not None} "
@@ -294,24 +348,30 @@ def main() -> int:
             float(np.abs(got.planes[n].astype(np.float64) - want.planes[n].astype(np.float64)).max())
             for n in fmt.plane_names
         )
-        assert d <= (F32_TOL if fmt.bits == 32 else 1), (name, d)
+        assert d <= tol_of(r.op_luma, fmt.bits), (name, d)
         print(f"[2] {name:28s} jinc_resize vs host golden: max diff {d:.3g} ({r.engines})")
 
     rng = np.random.default_rng(2026)
     max_err = dict.fromkeys(wrappers, 0.0)
     covered = dict.fromkeys(wrappers, 0)
+    deep_err = dict.fromkeys(("fused", "strips"), 0.0)
     for name, sw, sh, dw, dh, tap, bits, kw in CASES:
         kw = dict(kw)
-        fmt = yuv420p(bits) if kw.pop("fmt", None) == "420" else yuv444p(bits)
+        fmt = {"420": yuv420p, "gray": gray}.get(kw.pop("fmt", None), yuv444p)(bits)
         cfg = JincConfig(target_width=dw, target_height=dh, tap=tap, operator_cache=False, **kw)
         r = JincResizer(fmt, sw, sh, cfg, device=dev)
+        assert r.engines["luma"] == "fused", (name, r.engines)
         ops = [("luma", r.op_luma)] + ([("chroma", r.op_chroma)] if r.op_chroma else [])
+        deep = r.op_luma.filter_size**2 > 1200
         for plane, op in ops:
-            errs, b = check_kernels(f"{name} {plane}", op, bits, rng)
-            for k, v in errs.items():
-                covered[k] += 1
-                if b == 32:
-                    max_err[k] = max(max_err[k], v)
+            for b in sorted({bits, 32} if deep else {bits}):
+                errs, _ = check_kernels(f"{name} {plane}", op, b, rng)
+                for k, v in errs.items():
+                    covered[k] += 1
+                    if b == 32:
+                        max_err[k] = max(max_err[k], v)
+                        if deep:
+                            deep_err[k] = max(deep_err[k], v)
         against_golden(name, fmt, r, cfg, sw, sh)
 
     for name, kind, sw, sh, dw, dh, tap in INTERIOR_CASES:
@@ -347,6 +407,25 @@ def main() -> int:
         covered[k] += 1
         max_err[k] = max(max_err[k], v)
 
+    # The deep-tap path: 4K -> 1080p tap 16 (fs = 65) on the same kernels.
+    t0 = time.perf_counter()
+    dclip = Clip.from_frames(
+        [random_frame(fmt, DEEP[0], DEEP[1], seed=400 + i) for i in range(E2E_FRAMES)]
+    )
+    deep_cfg = JincConfig(DEEP[2], DEEP[3], tap=DEEP_TAP, operator_cache=False)
+    deep_r = JincResizer(fmt, DEEP[0], DEEP[1], deep_cfg, frame0=dclip.frames[0], device=dev)
+    print(f"[2] 4K->1080p tap16 resizer built in {time.perf_counter() - t0:.1f} s "
+          f"(host operator build + upload); engines {deep_r.engines}")
+    for bits in (32, 8):
+        errs, _ = check_kernels("3840x2160->1920x1080 tap16 luma", deep_r.op_luma, bits, rng)
+        for k, v in errs.items():
+            covered[k] += 1
+            if bits == 32:
+                max_err[k] = max(max_err[k], v)
+                deep_err[k] = max(deep_err[k], v)
+    print(f"[2] deep taps (fs**2 > 1200), kernel vs plain form on fp32 sources: max |err| "
+          + ", ".join(f"{k} {v:.3g}" for k, v in deep_err.items()) + f" (bound {DEEP_TOL:g})")
+
     paths = {}
     for key, (sw, sh, dw, dh), seed in (("drift", DRIFT, 200), ("aperiodic", APERIODIC, 300)):
         t0 = time.perf_counter()
@@ -370,9 +449,9 @@ def main() -> int:
     assert all(covered.values()), covered
 
     # ---------------------------------------------------------------- phase 3
-    def oracle_check(tag, pclip, out, pr, sw, sh, dw, dh):
+    def oracle_check(tag, pclip, out, pr, sw, sh, dw, dh, tap=TAP, n_samples=ORACLE_SAMPLES):
         """<= 1 LSB against the scalar oracle on sampled pixels of frame 0."""
-        radius = radius_for_tap(TAP)
+        radius = radius_for_tap(tap)
         srng = np.random.default_rng(7)
         for n in fmt.plane_names:
             pw, ph = fmt.plane_dims(n, dw, dh)
@@ -384,15 +463,15 @@ def main() -> int:
                                    float(sw), float(sh), fmt.sub_w, fmt.sub_h)
             nb = 24  # border band (covers every strip row/column at these sizes)
             ys = np.concatenate([
-                srng.integers(0, ph, ORACLE_SAMPLES // 2),
-                np.r_[srng.integers(0, nb, ORACLE_SAMPLES // 8), srng.integers(ph - nb, ph, ORACLE_SAMPLES // 8)],
-                srng.integers(0, ph, ORACLE_SAMPLES // 4),
+                srng.integers(0, ph, n_samples // 2),
+                np.r_[srng.integers(0, nb, n_samples // 8), srng.integers(ph - nb, ph, n_samples // 8)],
+                srng.integers(0, ph, n_samples // 4),
                 [0, 0, ph - 1, ph - 1],
             ])  # fmt: skip
             xs = np.concatenate([
-                srng.integers(0, pw, ORACLE_SAMPLES // 2),
-                srng.integers(0, pw, ORACLE_SAMPLES // 4),
-                np.r_[srng.integers(0, nb, ORACLE_SAMPLES // 8), srng.integers(pw - nb, pw, ORACLE_SAMPLES // 8)],
+                srng.integers(0, pw, n_samples // 2),
+                srng.integers(0, pw, n_samples // 4),
+                np.r_[srng.integers(0, nb, n_samples // 8), srng.integers(pw - nb, pw, n_samples // 8)],
                 [0, pw - 1, 0, pw - 1],
             ])  # fmt: skip
             t0 = time.perf_counter()
@@ -417,16 +496,15 @@ def main() -> int:
         assert d <= 1, (what, ref_name, d)
         print(f"[3] {what} vs {ref_name} on the card: max {d} LSB over every plane")
 
+    def conv_expect(r):
+        """Launches of one call of a fused-engine resizer on every plane."""
+        apps = [r._applier_chroma if n in ("U", "V") else r._applier_luma for n in fmt.plane_names]
+        return {"fused": len(apps), "strips": sum(a.strips_spec is not None for a in apps)}
+
+    fused_k.fused_interior_plain.calls = 0  # no engine may take the plain form in phase 3
     assert resizer.engines == {"luma": "fused", "chroma": "fused"}, resizer.engines
     n_planes = len(fmt.plane_names)
-    expect = {
-        "fused": n_planes,
-        "strips": sum(
-            (resizer._applier_chroma if n in ("U", "V") else resizer._applier_luma).strips_spec
-            is not None
-            for n in fmt.plane_names
-        ),
-    }
+    expect = conv_expect(resizer)
     assert expect["strips"] > 0, "the strip kernel declined every 4K->8K plane"
     for w in wrappers.values():
         w.launches = 0
@@ -464,23 +542,49 @@ def main() -> int:
         oracle_check(f"{engine} ", pclip, pout, pr, sw, sh, dw, dh)
         pouts[key] = pout
 
+    # The deep-tap path: 4K -> 1080p tap 16 through the resizer a caller
+    # keeps, the fused and strip kernels launched as on the 4K -> 8K path.
+    deep_geo = "{}x{}->{}x{}".format(*DEEP)
+    assert deep_r.engines == {"luma": "fused", "chroma": "fused"}, deep_r.engines
+    deep_expect = conv_expect(deep_r)
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    dout = deep_r(dclip)
+    torch.cuda.synchronize()
+    got = counts()
+    print(f"[3] JincResizer 4x {deep_geo} yuv420p8 tap16 (fused) in "
+          f"{time.perf_counter() - t0:.1f} s; launches {got}")
+    assert got == {**dict.fromkeys(wrappers, 0), **deep_expect}, (got, deep_expect)
+    for k in deep_expect:
+        launches[k] += got[k]
+    dref = JincResizer(fmt, DEEP[0], DEEP[1], replace(deep_cfg, impl="xla"), device=dev)(dclip)
+    against("deep-tap fused engine", dout, dref)
+    oracle_check("tap16 fused ", dclip, dout, deep_r, *DEEP, tap=DEEP_TAP,
+                 n_samples=DEEP_ORACLE_SAMPLES)
+    del dref
+
     # The sharded engine on N_SHARDS row shards of the card, through the
     # resizer a caller keeps: the aperiodic clip (band kernel), then two
-    # frames of the periodic (fused kernel) and the drifted (seg kernel) clip.
+    # frames of the periodic and the deep-tap (fused kernel) and the drifted
+    # (seg kernel) clip.
     mesh = sharding.make_mesh(n_rows=N_SHARDS, devices=[dev] * N_SHARDS)
     sharded = {}
     for key, interior, kind, sclip, ref_out in (
         ("aperiodic", "gather", "gather_band", paths["aperiodic"][1], pouts["aperiodic"]),
         ("periodic", "conv-fused", "fused", Clip.from_frames(clip.frames[:2]),
          Clip.from_frames(out.frames[:2])),
+        ("deep", "conv-fused", "fused", Clip.from_frames(dclip.frames[:2]),
+         Clip.from_frames(dout.frames[:2])),
         ("drift", "seg", "seg", Clip.from_frames(paths["drift"][1].frames[:2]),
          Clip.from_frames(pouts["drift"].frames[:2])),
     ):  # fmt: skip
-        sw, sh, dw, dh = {"aperiodic": APERIODIC, "drift": DRIFT}.get(
+        sw, sh, dw, dh = {"aperiodic": APERIODIC, "drift": DRIFT, "deep": DEEP}.get(
             key, (SRC_W, SRC_H, DST_W, DST_H)
         )
         t0 = time.perf_counter()
-        cfg = JincConfig(dw, dh, tap=TAP, impl="sharded")
+        cfg = JincConfig(dw, dh, tap=DEEP_TAP if key == "deep" else TAP, impl="sharded",
+                         operator_cache=key != "deep")  # no 2.4 GB cache file for one use
         sr = JincResizer(fmt, sw, sh, cfg, frame0=sclip.frames[0], device=dev, mesh=mesh)
         built = time.perf_counter() - t0
         assert sr.engines == {"luma": f"sharded/{interior}", "chroma": f"sharded/{interior}"}, sr.engines
@@ -490,13 +594,13 @@ def main() -> int:
         sout = sr(sclip)
         torch.cuda.synchronize()
         got = counts()
-        print(f"[3] JincResizer {len(sclip.frames)}x {sw}x{sh} yuv420p8 -> {dw}x{dh} tap8 on "
+        print(f"[3] JincResizer {len(sclip.frames)}x {sw}x{sh} yuv420p8 -> {dw}x{dh} tap{cfg.tap} on "
               f"{N_SHARDS} row shards of {dev} (sharded/{interior}) in "
               f"{time.perf_counter() - t0:.1f} s (built in {built:.1f} s); launches {got}")
         assert got == {**dict.fromkeys(wrappers, 0), kind: N_SHARDS * n_planes}, got
         if key == "aperiodic":
             launches["gather_band"] = got["gather_band"]
-        single = {"aperiodic": "gather", "periodic": "fused", "drift": "fused-seg"}[key]
+        single = {"aperiodic": "gather", "drift": "fused-seg"}.get(key, "fused")
         against(f"sharded/{interior} engine", sout, ref_out, f"single-card {single} engine")
         if key == "aperiodic":
             oracle_check("sharded/gather ", sclip, sout, sr, sw, sh, dw, dh)
@@ -514,6 +618,9 @@ def main() -> int:
                 "single-card gather engine")
     else:
         print("[3] one visible card: the mesh of distinct cards was not run")
+    plain_calls = fused_k.fused_interior_plain.calls
+    print(f"[3] fused_interior_plain called {plain_calls} times in phase 3")
+    assert plain_calls == 0, plain_calls
 
     # ---------------------------------------------------------------- phase 4
     def e2e(tag, pr, pclip, plane_px):
@@ -554,6 +661,33 @@ def main() -> int:
               f"{plane_px / e2e_ms / 1e6:.3f} Gpx/s luma [{card}]")
         return e2e_ms
 
+    def conv2d_interior(fi, src):
+        """The one PyTorch call that computes the fused interior: cuDNN's
+        strided conv2d of the phase kernels (``build_conv_kernels``; TF32
+        off), with the plain form's slice and the phase interleave."""
+        F, H, W = src.shape
+        nph, Kh, Kw = fi.kernels.shape
+        eh, ew = (fi.nyb - 1) * fi.qy + Kh, (fi.nxb - 1) * fi.qx + Kw
+        pad = (0, max(0, fi.base_x + ew - W), 0, max(0, fi.base_y + eh - H))
+        lhs = torch.nn.functional.pad(src, pad)[:, fi.base_y : fi.base_y + eh, fi.base_x : fi.base_x + ew]
+        conv = torch.nn.functional.conv2d(lhs[:, None], fi.kernels[:, None], stride=(fi.qy, fi.qx))
+        return (conv.view(F, fi.py, fi.px, fi.nyb, fi.nxb).permute(0, 3, 1, 4, 2)
+                .reshape(F, fi.py * fi.nyb, fi.px * fi.nxb))  # fmt: skip
+
+    def fused_bound(fi, src):
+        """(ms, by) of the fused interior on ``src``: 2 fs**2 flops per
+        output pixel; the source, the weights and the output once."""
+        out_px = src.shape[0] * fi.out_shape[0] * fi.out_shape[1]
+        return bound_ms(2 * fi.fs**2 * out_px, tensor_bytes(src, fi, skip=("kernels",)) + 4 * out_px)
+
+    def strips_bound(st, src):
+        """(ms, by) of the strip kernel: each strip's fs-row source band,
+        its anchors and the output once."""
+        F, _, W = src.shape
+        out_px = F * sum(ny for _, ny in st.rows) * st.px * st.nxb
+        nbytes = 4 * F * st.n_strips * st.fs * W + tensor_bytes(st, skip=("cols",))
+        return bound_ms(2 * st.fs**2 * out_px, nbytes + 4 * F * st.n_strips * st.ny_max * st.px * st.nxb)
+
     card = card_line()
     app = resizer._applier_luma
     tsrc = torch.from_numpy(
@@ -565,19 +699,66 @@ def main() -> int:
         for k, fn in (
             ("fused_plain", lambda: fused_k.fused_interior_plain(app.fi, tsrc)),
             ("fused", lambda: fused_k.fused_interior(app.fi, tsrc)),
+            ("fused_conv2d", lambda: conv2d_interior(app.fi, tsrc)),
             ("strips", lambda: strips_k.strips(app.strips_spec, tsrc)),
             ("strips_plain", lambda: strips_k.strips_plain(app.strips_spec, tsrc)),
         ):
             iters = 3 if k.endswith("plain") else 20
             ms.setdefault(k, []).append(cuda_ms(fn, iters))
     ms = {k: statistics.median(v) for k, v in ms.items()}
-    for k in ("fused", "fused_plain", "strips", "strips_plain"):
+    for k in ("fused", "fused_plain", "fused_conv2d", "strips", "strips_plain"):
         print(f"[4] {k:13s} {ms[k]:10.3f} ms per {TIMING_FRAMES}-frame fp32 4K->8K luma "
               f"batch ({ms[k] / TIMING_FRAMES:.3f} ms/frame) [{card}]")
+    lib_err = {"4K->8K tap8": float(
+        (conv2d_interior(app.fi, tsrc) - fused_k.fused_interior(app.fi, tsrc)).abs().max()
+    )}  # fmt: skip
+    bounds = {"fused": fused_bound(app.fi, tsrc), "strips": strips_bound(app.strips_spec, tsrc)}
+    for k, (b, by) in bounds.items():
+        print(f"[4] {k} bound {b:.3f} ms per batch ({by}): kernel at {b / ms[k]:.1%} of it [{card}]")
     del tsrc
     e2e("", resizer, clip, DST_W * DST_H)
     print(f"[4] interior kernel {px_out / ms['fused'] / 1e6:.2f} Gpx/s "
           f"(output px / kernel time) [{card}]")
+
+    # The deep-tap path: both kernels, their plain forms and cuDNN's conv2d
+    # on an 8-frame fp32 4K -> 1080p tap-16 luma batch, then end to end.
+    dapp = deep_r._applier_luma
+    tsrc_deep = torch.from_numpy(
+        rng.random((TIMING_FRAMES, DEEP[1], DEEP[0]), dtype=np.float32)
+    ).to(dev)
+    deep_runs = [
+        ("deep_fused_plain", lambda: fused_k.fused_interior_plain(dapp.fi, tsrc_deep)),
+        ("deep_fused", lambda: fused_k.fused_interior(dapp.fi, tsrc_deep)),
+        ("deep_fused_conv2d", lambda: conv2d_interior(dapp.fi, tsrc_deep)),
+    ]
+    if dapp.strips_spec is not None:
+        deep_runs += [
+            ("deep_strips", lambda: strips_k.strips(dapp.strips_spec, tsrc_deep)),
+            ("deep_strips_plain", lambda: strips_k.strips_plain(dapp.strips_spec, tsrc_deep)),
+        ]
+    deep_ms = {}
+    for order in (deep_runs, deep_runs[::-1]):  # plain, kernel, ..., kernel, plain
+        for k, fn in order:
+            deep_ms.setdefault(k, []).append(cuda_ms(fn, 3 if k.endswith("plain") else 10))
+    deep_ms = {k: statistics.median(v) for k, v in deep_ms.items()}
+    ms.update(deep_ms)
+    deep_bounds = {"deep_fused": fused_bound(dapp.fi, tsrc_deep)}
+    if dapp.strips_spec is not None:
+        deep_bounds["deep_strips"] = strips_bound(dapp.strips_spec, tsrc_deep)
+    for k, _ in deep_runs:
+        print(f"[4] {k:17s} {deep_ms[k]:10.3f} ms per {TIMING_FRAMES}-frame fp32 {deep_geo} tap16 "
+              f"luma batch ({deep_ms[k] / TIMING_FRAMES:.3f} ms/frame) [{card}]")
+    for k, (b, by) in deep_bounds.items():
+        print(f"[4] {k} bound {b:.3f} ms per batch ({by}): kernel at {b / deep_ms[k]:.1%} of it [{card}]")
+    print(f"[4] deep-tap interior kernel "
+          f"{TIMING_FRAMES * DEEP[2] * DEEP[3] / deep_ms['deep_fused'] / 1e6:.2f} Gpx/s, "
+          f"cuDNN conv2d takes {deep_ms['deep_fused_conv2d'] / deep_ms['deep_fused']:.3f}x the "
+          f"kernel's time [{card}]")
+    lib_err["4K->1080p tap16"] = float(
+        (conv2d_interior(dapp.fi, tsrc_deep) - fused_k.fused_interior(dapp.fi, tsrc_deep)).abs().max()
+    )
+    del tsrc_deep
+    e2e(f"fused {deep_geo} tap16 ", deep_r, dclip, DEEP[2] * DEEP[3])
 
     # The new paths: each kernel and its plain form on its own path's luma
     # plane, the gather kernel on the drifted plane too, and the two
@@ -635,6 +816,21 @@ def main() -> int:
               f"[{card}]")
     print(f"[4] band kernel over {N_SHARDS} shards takes {ms['gather_band'] / ms['gather']:.3f}x "
           f"the single-card gather kernel on the same batch [{card}]")
+
+    def gather_like_bound(tables, src, rows, cols):
+        """(ops, bytes) of a gather-family launch: 2 fs**2 flops a pixel;
+        its source (or band), its tables and its output once."""
+        out_px = src.shape[0] * rows * cols
+        return 2 * tables.fs**2 * out_px, tensor_bytes(src, tables) + 4 * out_px
+
+    bounds["gather"] = bound_ms(*gather_like_bound(gi_aper, tsrc_a, *gi_aper.out_shape))
+    bounds["seg"] = bound_ms(*gather_like_bound(seg_app.si, tsrc_d, *seg_app.si.out_shape))
+    band_work = [gather_like_bound(gb, band, gb.syl.numel(), gb.start_x.numel())
+                 for gb, band, _ in shard_runs]  # fmt: skip
+    bounds["gather_band"] = bound_ms(sum(o for o, _ in band_work), sum(b for _, b in band_work))
+    for k in ("gather", "seg", "gather_band"):
+        b, by = bounds[k]
+        print(f"[4] {k} bound {b:.3f} ms per batch ({by}): kernel at {b / ms[k]:.1%} of it [{card}]")
     del tsrc_d, tsrc_a, gather_app, shard_runs
     for key, engine in (("drift", "fused-seg"), ("aperiodic", "gather")):
         pr, pclip = paths[key]
@@ -648,6 +844,23 @@ def main() -> int:
     print(f"[4] sharded/gather end to end takes {e_sharded / e_single:.3f}x the single-card "
           f"gather engine on the same clip [{card}]")
 
+    # The bench twin in its three modes, in this process, at 2 queued calls.
+    for mode in ([], ["--downscale"], ["--tap16-downscale"]):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = bench.main([*mode, "--iters", "2"])
+        assert json.loads(buf.getvalue().strip().splitlines()[-1]) == res, buf.getvalue()
+        assert res["engine"] == "fused" and res["value"] > 0, res
+        print(f"[4] python -m jincresize_tpu_torch.bench {' '.join(mode)} --iters 2 "
+              f"({time.perf_counter() - t0:.1f} s): {json.dumps(res)}")
+
+    # cuDNN's conv2d (TF32 off) against the kernel, checked after every
+    # number is printed.
+    for k, v in lib_err.items():
+        print(f"[4] cuDNN conv2d vs fused kernel at {k}: max |err| {v:.3g} (bound {DEEP_TOL:g})")
+    assert all(v <= DEEP_TOL for v in lib_err.values()), lib_err
+
     print(card)
     kernels = [
         {
@@ -659,6 +872,9 @@ def main() -> int:
             "max_abs_err": max_err["fused"],
             "ms": ms["fused"],
             "plain_ms": ms["fused_plain"],
+            "bound_ms": bounds["fused"][0],
+            "bound_by": bounds["fused"][1],
+            "library_ms": ms["fused_conv2d"],
         },
         {
             "name": "strips",
@@ -669,6 +885,9 @@ def main() -> int:
             "max_abs_err": max_err["strips"],
             "ms": ms["strips"],
             "plain_ms": ms["strips_plain"],
+            "bound_ms": bounds["strips"][0],
+            "bound_by": bounds["strips"][1],
+            "library_ms": None,
         },
         {
             "name": "gather_interior",
@@ -679,6 +898,9 @@ def main() -> int:
             "max_abs_err": max_err["gather"],
             "ms": ms["gather"],
             "plain_ms": ms["gather_plain"],
+            "bound_ms": bounds["gather"][0],
+            "bound_by": bounds["gather"][1],
+            "library_ms": None,
         },
         {
             "name": "seg_interior",
@@ -689,6 +911,9 @@ def main() -> int:
             "max_abs_err": max_err["seg"],
             "ms": ms["seg"],
             "plain_ms": ms["seg_plain"],
+            "bound_ms": bounds["seg"][0],
+            "bound_by": bounds["seg"][1],
+            "library_ms": None,
         },
         {
             "name": "gather_band",
@@ -699,6 +924,9 @@ def main() -> int:
             "max_abs_err": max_err["gather_band"],
             "ms": ms["gather_band"],
             "plain_ms": ms["gather_band_plain"],
+            "bound_ms": bounds["gather_band"][0],
+            "bound_by": bounds["gather_band"][1],
+            "library_ms": None,
         },
     ]
     print(json.dumps({"kernels": kernels}))

@@ -3,8 +3,8 @@
 Port of ``jincresize_tpu/api.py``: the same ``JincConfig`` fields and
 defaults, the same validation messages, the same ``_ChromaLocation``
 handling and the four ``jinc*_resize`` aliases. Operators are built by the
-shared NumPy host layer (``jincresize_tpu.operator``) and carried to an
-explicit torch ``device``.
+port's NumPy host layer (``operator``, ``phase``; copies of the JAX
+package's) and carried to an explicit torch ``device``.
 
 Engines (``JincResizer.engines`` records the one each plane ran, under the
 JAX package's names):
@@ -20,11 +20,13 @@ JAX package's names):
 * ``'sharded/<interior>'`` -- ``sharding.ShardedApplier``: destination rows
   split over the row shards of a ``sharding.RowMesh`` of torch devices
   (frames over its data rows), each shard running the ``conv-fused``,
-  ``conv-shift``, ``seg``, ``gather`` (band kernel) or ``gather-scan``
-  interior on its band of source rows.
+  ``seg``, ``gather`` (band kernel) or ``gather-scan`` interior on its band
+  of source rows.
 
-``impl='auto'`` picks ``fused`` when the plan is periodic and inside the
-kernel's envelope; on a CUDA device it then tries ``fused-seg`` and
+``impl='auto'`` picks ``fused`` whenever the plan is periodic, deep taps
+(fs**2 > 1200, tap-16 downscales) and every output size included: the
+kernel's only envelope is the shared memory of its weights, which every plan
+of ``phase.plan_phases`` fits. On a CUDA device it then tries ``fused-seg`` and
 ``gather`` (the counterpart of the JAX package's TPU-only step); else
 ``xla``. ``'conv'`` runs ``fused`` or raises; ``'seg'`` and ``'gather'`` run
 their engine or raise; ``'pallas'`` runs the first hand-written engine of
@@ -42,12 +44,12 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from jincresize_tpu.clip import Clip, Frame, VideoFormat
-from jincresize_tpu.filters import build_lut
-from jincresize_tpu.geometry import chroma_crop
-from jincresize_tpu.golden import apply_plane_numpy
-from jincresize_tpu.operator import PlaneOperator, build_plane_operator, radius_for_tap
-from jincresize_tpu.phase import plan_phases, plan_phases_seg
+from .clip import Clip, Frame, VideoFormat
+from .filters import build_lut
+from .geometry import chroma_crop
+from .golden import apply_plane_numpy
+from .operator import PlaneOperator, build_plane_operator, radius_for_tap
+from .phase import plan_phases, plan_phases_seg
 
 from . import apply_xla
 from .apply_conv import ConvApplier
@@ -162,8 +164,9 @@ def _select_engine(op: PlaneOperator, impl: str, precision: str, device):
     Returns (applier_or_None, engine_name): ``'fused'``, ``'fused-seg'`` or
     ``'gather'`` with its applier, or ``'xla'`` with none. Every accepted
     ``impl`` runs what it names or raises. There is no size gate on
-    ``fused-seg``: the JAX package's ``JINCRESIZE_SEG_MIN_PIXELS`` exists for
-    a Mosaic compile of minutes, which the CUDA kernels do not have.
+    ``fused-seg`` or on deep-tap ``fused``: the JAX package's
+    ``JINCRESIZE_SEG_MIN_PIXELS`` and ``JINCRESIZE_DEEP_FUSED_MIN_PIXELS``
+    exist for a Mosaic compile of minutes, which the CUDA kernels do not have.
     """
     def try_seg():
         plan = plan_phases_seg(op)
@@ -195,15 +198,9 @@ def _select_engine(op: PlaneOperator, impl: str, precision: str, device):
     if plan is not None and fused_k.is_supported(op, plan):
         return ConvApplier(op, plan=plan, precision=precision, device=device), "fused"
     if impl == "conv":
-        if plan is None:
-            raise JincError(
-                "JincResize: impl='conv' requires periodic geometry "
-                "(use impl='auto' for automatic fallback)."
-            )
-        raise NotImplementedError(
-            "JincResize: impl='conv' -- plan is outside the fused kernel envelope "
-            "and the deep-tap interior (ROADMAP still to port #1) is not ported "
-            "yet (use impl='auto' for automatic fallback)."
+        raise JincError(
+            "JincResize: impl='conv' requires periodic geometry "
+            "(use impl='auto' for automatic fallback)."
         )
     if impl == "pallas" or device.type == "cuda":
         app = try_seg()
@@ -213,12 +210,6 @@ def _select_engine(op: PlaneOperator, impl: str, precision: str, device):
         if app is not None:
             return app, "gather"
     if impl == "pallas":
-        if op.filter_size**2 > fused_k.FS2_MAX:
-            raise NotImplementedError(
-                "JincResize: impl='pallas' -- the deep-tap interior (ROADMAP "
-                "still to port #1) is not ported yet (use impl='auto' for "
-                "automatic fallback)."
-            )
         raise JincError(
             "JincResize: impl='pallas' — geometry is outside all Pallas "
             "kernel envelopes (use impl='auto' for automatic fallback)."
@@ -279,7 +270,7 @@ class JincResizer:
 
         def _build(**geometry):
             if cfg.operator_cache:
-                from jincresize_tpu.cache import cached_build
+                from .cache import cached_build
 
                 return cached_build(
                     lambda **g: build_plane_operator(lut=lut, **g), **geometry

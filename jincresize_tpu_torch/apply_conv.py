@@ -12,8 +12,11 @@ canvas is assembled with one concatenate. ``strip_row_bands`` and
 strips from each strip's source row band (``_strip_values_banded``).
 
 The JAX package's XLA shift-sum interiors (``apply_plane_conv`` and its
-deep-tap forms) are not an engine here: a plan outside the fused kernel's
-envelope takes the general ``apply_xla`` engine.
+deep-tap forms ``_shift_sum_deep``, ``_shift_sum_scan``, ``_shift_sum_mxu``)
+are not an engine here: every periodic plan, deep taps (fs = 49, 65 at tap
+16) included, runs the fused kernel. Where the strip kernel declines a
+plan's top/bottom strips (``kernels.strips._anchor_blocks`` finds the anchor
+pattern too broken), the strips take the value path, as in the JAX package.
 
 The einsums here contract small tap dimensions in float32; they assume
 PyTorch's default ``torch.backends.cuda.matmul.allow_tf32 = False``.
@@ -26,8 +29,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from jincresize_tpu.operator import PlaneOperator
-from jincresize_tpu.phase import PhasePlan, build_conv_kernels, plan_phases
+from .operator import PlaneOperator
+from .phase import PhasePlan, build_conv_kernels, plan_phases
 
 from .apply_strips_fast import plan_strips, strip_values_fast
 from .apply_xla import DevicePlaneOperator, finalize, source_f32, to_device
@@ -252,7 +255,8 @@ class ConvApplier:
     """Phase-conv applier with the fused interior kernel.
 
     ``interior`` must be ``'fused'``: the JAX package's XLA shift-sum
-    interior is not ported, so a plan outside ``kernels.fused.is_supported``
+    interiors are not ported. Every plan of ``phase.plan_phases`` is inside
+    ``kernels.fused.is_supported`` (deep taps included); a plan outside it
     raises ValueError. ``precision`` is ``'fp32'`` or ``'fp32_u8src'`` (both
     run the exact fp32 kernel); ``'bf16'`` raises NotImplementedError.
     """

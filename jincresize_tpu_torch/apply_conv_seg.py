@@ -15,8 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from jincresize_tpu.operator import PlaneOperator
-from jincresize_tpu.phase import SegPhasePlan, plan_phases_seg
+from .operator import PlaneOperator
+from .phase import SegPhasePlan, plan_phases_seg
 
 from .apply_conv import _cols_subset, _rows_subset, banded_strip_values, strip_row_bands
 from .apply_gather import assemble, concat, strips_frame_interior

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from jincresize_tpu.operator import PlaneOperator
+from .operator import PlaneOperator
 
 from .apply_conv import banded_strip_values, strip_row_bands
 from .apply_xla import finalize, source_f32, to_device

@@ -16,7 +16,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from jincresize_tpu.operator import PlaneOperator
+from .operator import PlaneOperator
 
 _TORCH_DTYPES = {
     np.dtype(np.uint8): torch.uint8,

@@ -22,7 +22,13 @@ TPU workarounds of the Pallas kernel that this one drops:
 * the ``wsplit3`` bf16 weight split -- fp32 FMA is already exact, so
   ``precision='fp32_u8src'`` runs the same fp32 kernel;
 * ``_choose_tmb``, ``_vmem_bytes`` and ``VMEM_BUDGET`` -- no row-band tiling
-  against a VMEM budget; the envelope is the shared-memory size of the weights.
+  against a VMEM budget; the envelope is the shared-memory size of the weights;
+* the Mosaic deep-tap envelope (``py*px <= 4``, ``fs**2 <= 4500``,
+  ``JINCRESIZE_FUSED_FS2_MAX``) -- the kernel reads ``fs`` at run time, so a
+  deep tap (fs = 49 or 65 at tap 16) is the same loop, only longer;
+* the ``JINCRESIZE_DEEP_FUSED_MIN_PIXELS`` output-size gate
+  (``jincresize_tpu/apply_conv.py``), which exists because a Mosaic compile
+  takes minutes -- a deep-tap plan takes this kernel at every output size.
 """
 
 from __future__ import annotations
@@ -32,14 +38,15 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from jincresize_tpu.operator import PlaneOperator
-from jincresize_tpu.phase import PhasePlan, build_conv_kernels
+from ..operator import PlaneOperator
+from ..phase import PhasePlan, build_conv_kernels
 
 from . import _build
 
 # Per-block shared memory an H100 kernel may opt into (227 KB).
 MAX_SMEM_BYTES = 232448
-# Deep-tap supports (fs**2 > 1200) are not ported yet (ROADMAP, still to port #1).
+# The gather and seg kernels' envelope (fs**2 <= 1200, as the JAX gather
+# kernel's); the fused kernel has none beyond its shared memory.
 FS2_MAX = 1200
 
 
@@ -79,11 +86,10 @@ def is_supported(op: PlaneOperator, plan: PhasePlan) -> bool:
     """Envelope: the weight set fits one block's shared memory.
 
     ``phase.plan_phases`` caps ``py*px*fs**2`` at 32768, i.e. 128 KB of
-    weights, so every plan with ``fs**2 <= FS2_MAX`` is admitted; the
+    weights, so every plan it returns is admitted, deep taps included; the
     shared-memory check keeps the kernel honest if that cap ever moves.
     """
-    fs = op.filter_size
-    return fs * fs <= FS2_MAX and smem_bytes(plan.y.p, plan.x.p, fs) <= MAX_SMEM_BYTES
+    return smem_bytes(plan.y.p, plan.x.p, op.filter_size) <= MAX_SMEM_BYTES
 
 
 def make_fused_interior(
@@ -102,15 +108,6 @@ def make_fused_interior(
         raise ValueError(f"make_fused_interior: unknown precision {precision!r}")
     if not is_supported(op, plan):
         raise ValueError("make_fused_interior: plan outside the kernel envelope")
-    return fused_tables(op, plan, device)
-
-
-def fused_tables(
-    op: PlaneOperator, plan: PhasePlan, device: torch.device | str = "cpu"
-) -> FusedInterior:
-    """The tables of ``plan`` without the envelope check: what
-    ``fused_interior_plain`` needs for a plan the kernel declines (the
-    sharded engine's ``conv-shift`` interior on deep taps)."""
     fs = op.filter_size
     py, px = plan.y.p, plan.x.p
     wstride = _odd_stride(fs * fs)
@@ -142,8 +139,11 @@ def fused_interior_plain(fi: FusedInterior, src_f: torch.Tensor) -> torch.Tensor
     """Plain PyTorch form: shift-sum over the conv kernels + phase interleave.
 
     ``src_f`` (F, H, W) float32 -> (F, py*nyb, px*nxb) float32. Reads past the
-    plane are zeros (padding), as in the kernel.
+    plane are zeros (padding), as in the kernel. Calls are counted in
+    ``fused_interior_plain.calls``, so that a run on the card can show that
+    no engine took the plain form.
     """
+    fused_interior_plain.calls += 1
     F, H, W = src_f.shape
     K = fi.kernels
     nph, Kh, Kw = K.shape
@@ -164,6 +164,9 @@ def fused_interior_plain(fi: FusedInterior, src_f: torch.Tensor) -> torch.Tensor
         .permute(0, 3, 1, 4, 2)
         .reshape(F, fi.py * nyb, fi.px * nxb)
     )
+
+
+fused_interior_plain.calls = 0
 
 
 def fused_interior(fi: FusedInterior, src_f: torch.Tensor) -> torch.Tensor:

@@ -72,7 +72,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from jincresize_tpu.operator import PlaneOperator
+from ..operator import PlaneOperator
 
 from . import _build
 from .fused import FS2_MAX

@@ -65,8 +65,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from jincresize_tpu.operator import PlaneOperator
-from jincresize_tpu.phase import SegAxisPlan, SegPhasePlan
+from ..operator import PlaneOperator
+from ..phase import SegAxisPlan, SegPhasePlan
 
 from . import _build
 from .fused import FS2_MAX, MAX_SMEM_BYTES

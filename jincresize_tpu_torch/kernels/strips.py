@@ -33,8 +33,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from jincresize_tpu.operator import BorderStrip, PlaneOperator
-from jincresize_tpu.phase import PhasePlan
+from ..operator import BorderStrip, PlaneOperator
+from ..phase import PhasePlan
 
 from . import _build
 from .fused import MAX_SMEM_BYTES, _odd_stride

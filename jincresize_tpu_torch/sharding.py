@@ -16,9 +16,8 @@ package).
 Per shard, after its halo is collected:
 
 * ``conv-fused`` -- the fused phase-conv kernel (``kernels/fused.py``) on the
-  shard's segment, with the plan shifted so that block 0 starts at row 0;
-  ``conv-shift`` is the kernel's plain form on the same plan, only where the
-  kernel's envelope declines (deep taps, fs**2 > ``FS2_MAX``);
+  shard's segment, with the plan shifted so that block 0 starts at row 0,
+  deep taps included;
 * ``seg`` -- the segment-periodic kernel (``kernels/seg.py``) on the shard's
   blocks of the plan, made relative to its band;
 * ``gather`` -- the band kernel (``kernels/gather.py`` ``gather_band``),
@@ -34,7 +33,8 @@ is exchanged first and computed on after, with no overlap of the two.
 Meshes of several processes (``torch.distributed``) are not part of this
 module.
 
-Weights and state: the operator is the shared NumPy ``PlaneOperator``.
+Weights and state: the operator is the port's NumPy ``PlaneOperator`` (a
+copy of the JAX package's, bit-identical).
 ``build_uniform``, ``ShardPlan`` and ``plan_row_shard`` are copies of the JAX
 module's pure NumPy functions (that module imports jax), which the tests hold
 equal to the originals, so the block table and the partition are the same on
@@ -51,8 +51,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from jincresize_tpu.operator import PlaneOperator
-from jincresize_tpu.phase import (
+from .operator import PlaneOperator
+from .phase import (
     AxisPhasePlan,
     PhasePlan,
     SegAxisPlan,
@@ -620,14 +620,11 @@ def make_sharded_apply_conv(
         nblocks=nyb_l,
     )
     plan_local = PhasePlan(x=pplan.x, y=y_local)
-    # Deep taps the kernel declines run its plain form on the same plan.
-    fused = fused_k.is_supported(op, plan_local)
-    if fused:
-        tables_on = functools.cache(
-            lambda dev: fused_k.make_fused_interior(op, plan_local, dev, precision)
-        )
-    else:
-        tables_on = functools.cache(lambda dev: fused_k.fused_tables(op, plan_local, dev))
+    if not fused_k.is_supported(op, plan_local):
+        return None
+    tables_on = functools.cache(
+        lambda dev: fused_k.make_fused_interior(op, plan_local, dev, precision)
+    )
     bid, blocks_on = _uniform_on(op)
     exc_y = {int(v) for v in pplan.y.exceptions}
     cols = _border_cols(op, xlo, xhi, pplan.x.exceptions)
@@ -642,8 +639,7 @@ def make_sharded_apply_conv(
 
         def interior(band, canvas):
             seg = band[:, seg_off : seg_off + seg_h].contiguous()
-            run = fused_k.fused_interior if fused else fused_k.fused_interior_plain
-            _paste(canvas, run(fi, seg), ylo + py * bi0 - r0, xlo)
+            _paste(canvas, fused_k.fused_interior(fi, seg), ylo + py * bi0 - r0, xlo)
 
         rows = [r for r in range(r0, r1) if r < ylo or r >= yhi or r in exc_y]
         patches = make_patches(
@@ -652,8 +648,8 @@ def make_sharded_apply_conv(
         return Shard(r0, r1, op.dst_width, interior, patches, fi)
 
     info = {
-        "interior": "conv-fused" if fused else "conv-shift",
-        "precision": precision if fused else "fp32",
+        "interior": "conv-fused",
+        "precision": precision,
         "replicate_src": False,
         "hops": (1 if hu > 0 else 0, 1 if hd > 0 else 0),
     }
@@ -804,8 +800,8 @@ class ShardedApplier:
     the mesh's data rows, padded with copies of the last frame up to a
     multiple of their number; rows split over its row shards.
 
-    ``interior`` reports the interior built ('conv-fused', 'conv-shift',
-    'seg', 'gather' or 'gather-scan').
+    ``interior`` reports the interior built ('conv-fused', 'seg', 'gather'
+    or 'gather-scan').
     """
 
     def __init__(

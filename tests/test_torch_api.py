@@ -1,9 +1,12 @@
 """Port's public API (device='cpu') against ``jincresize_tpu.api``.
 
 On the CPU the JAX package's automatic engine is its XLA shift-sum conv
-interior; the port's is the fused engine with its kernels' plain forms. Both
-build the same operators from the shared host layer. Tolerances: <= 1 LSB
-for integer formats after ``finalize``, 2e-6 absolute for 32-bit float.
+interior; the port's is the fused engine with its kernels' plain forms. Each
+package builds its own clips and operators from its own host layer (bit
+for bit the same, ``tests/test_torch_host.py``): the port's clips are handed
+to the JAX package as ``jincresize_tpu.clip`` objects over the same arrays.
+Tolerances: <= 1 LSB for integer formats after ``finalize``, 2e-6 absolute
+for 32-bit float (4e-6 for deep taps, fs**2 > 1200).
 """
 
 import dataclasses
@@ -13,10 +16,24 @@ import pytest
 import torch
 
 from jincresize_tpu import api as japi
-from jincresize_tpu.clip import Clip, gray, random_frame, rgbp, yuv420p, yuv422p, yuv444p
+from jincresize_tpu import clip as jclip
 from jincresize_tpu_torch import api
+from jincresize_tpu_torch.clip import Clip, gray, random_frame, rgbp, yuv420p, yuv422p, yuv444p
 
 F32_TOL = 2e-6
+DEEP_TOL = 4e-6
+
+
+def _jfmt(fmt):
+    """The JAX package's VideoFormat equal to the port's ``fmt``."""
+    return jclip.VideoFormat(**dataclasses.asdict(fmt))
+
+
+def _jclip(clip):
+    """The port's ``clip`` as a JAX package Clip over the same arrays."""
+    return jclip.Clip.from_frames(
+        [jclip.Frame(_jfmt(f.format), dict(f.planes), dict(f.props)) for f in clip.frames]
+    )
 
 
 def _clip(fmt, w=32, h=24, n=1, seed=0, props=None):
@@ -25,8 +42,8 @@ def _clip(fmt, w=32, h=24, n=1, seed=0, props=None):
     )
 
 
-def _assert_clips_close(a, b, bits):
-    tol = F32_TOL if bits == 32 else 1
+def _assert_clips_close(a, b, bits, f32_tol=F32_TOL):
+    tol = f32_tol if bits == 32 else 1
     assert len(a.frames) == len(b.frames)
     assert (a.width, a.height) == (b.width, b.height)
     for fa, fb in zip(a.frames, b.frames):
@@ -47,7 +64,7 @@ FORMATS = [yuv420p(8), yuv444p(16), yuv444p(32), rgbp(8), rgbp(32)]
 def test_jinc_resize_matches_jax(fmt):
     clip = _clip(fmt, n=2, seed=3)
     got = api.jinc_resize(clip, 64, 48, tap=3, device="cpu")
-    want = japi.jinc_resize(clip, 64, 48, tap=3)
+    want = japi.jinc_resize(_jclip(clip), 64, 48, tap=3)
     _assert_clips_close(got, want, fmt.bits)
 
 
@@ -55,7 +72,7 @@ def test_jinc_resize_matches_jax(fmt):
 def test_cplace_matches_jax(cplace):
     clip = _clip(yuv420p(8), seed=5)
     got = api.jinc_resize(clip, 64, 48, cplace=cplace, device="cpu")
-    want = japi.jinc_resize(clip, 64, 48, cplace=cplace)
+    want = japi.jinc_resize(_jclip(clip), 64, 48, cplace=cplace)
     _assert_clips_close(got, want, 8)
     loc = {"mpeg2": 0, "mpeg1": 1, "topleft": 2}[cplace]
     assert got.frames[0].props["_ChromaLocation"] == loc
@@ -69,7 +86,7 @@ def test_chroma_location_prop_resolves_cplace(loc, cplace):
     assert r.cplace == cplace
     out = r(clip)
     assert out.frames[0].props["_ChromaLocation"] == loc
-    _assert_clips_close(out, japi.jinc_resize(clip, 48, 36, impl="numpy"), 8)
+    _assert_clips_close(out, japi.jinc_resize(_jclip(clip), 48, 36, impl="numpy"), 8)
 
 
 def test_no_chroma_location_prop_for_444():
@@ -82,28 +99,28 @@ def test_no_chroma_location_prop_for_444():
     [
         ((32, 24, 64, 48), 3, "fused", "shift"),
         ((96, 64, 288, 192), 2, "xla", "xla"),
-        ((480, 270, 240, 135), 16, "xla", "shift"),
+        ((480, 270, 240, 135), 16, "fused", "shift"),
     ],
     ids=["periodic", "aperiodic", "deep-tap"],
 )
 def test_engines_follow_the_auto_rule(geom, tap, want, want_jax):
-    """auto: fused where the plan is periodic and inside the kernel's
-    envelope, else the general engine. The JAX package's rule off the TPU
+    """auto: fused where the plan is periodic (deep taps and small outputs
+    included), else the general engine. The JAX package's rule off the TPU
     is the same, with its shift-sum conv interior in the fused engine's
-    place (and for deep taps, which the port does not run fused yet)."""
+    place."""
     sw, sh, dw, dh = geom
     fmt = yuv444p(8)
     cfg = api.JincConfig(target_width=dw, target_height=dh, tap=tap)
     r = api.JincResizer(fmt, sw, sh, cfg, device="cpu")
     assert r.engines == {"luma": want}
     jcfg = japi.JincConfig(target_width=dw, target_height=dh, tap=tap)
-    assert japi.JincResizer(fmt, sw, sh, jcfg).engines == {"luma": want_jax}
+    assert japi.JincResizer(_jfmt(fmt), sw, sh, jcfg).engines == {"luma": want_jax}
 
 
 def test_deep_tap_auto_matches_jax():
     clip = _clip(gray(8), w=96, h=64, seed=2)
     got = api.jinc_resize(clip, 48, 32, tap=16, device="cpu")
-    want = japi.jinc_resize(clip, 48, 32, tap=16)
+    want = japi.jinc_resize(_jclip(clip), 48, 32, tap=16)
     _assert_clips_close(got, want, 8)
 
 
@@ -128,7 +145,7 @@ def test_validation_messages_identical(kw, msg):
     clip = _clip(gray())
     kw = {"impl": "numpy", **kw}
     with pytest.raises(japi.JincError) as je:
-        japi.jinc_resize(clip, 48, 36, **kw)
+        japi.jinc_resize(_jclip(clip), 48, 36, **kw)
     with pytest.raises(api.JincError) as te:
         api.jinc_resize(clip, 48, 36, device="cpu", **kw)
     assert str(te.value) == str(je.value) == msg
@@ -145,7 +162,7 @@ def test_validation_messages_identical(kw, msg):
 def test_cplace_errors_identical(fmt, props, kw):
     clip = _clip(fmt, props=props)
     with pytest.raises(japi.JincError) as je:
-        japi.jinc_resize(clip, 48, 36, impl="numpy", **kw)
+        japi.jinc_resize(_jclip(clip), 48, 36, impl="numpy", **kw)
     with pytest.raises(api.JincError) as te:
         api.jinc_resize(clip, 48, 36, device="cpu", **kw)
     assert str(te.value) == str(je.value)
@@ -169,7 +186,7 @@ def test_unported_engines_raise(impl):
     cfg = api.JincConfig(target_width=dw, target_height=dh, tap=tap, impl=impl)
     r = api.JincResizer(clip.format, sw, sh, cfg, device="cpu")
     assert r.engines == {"luma": engine}
-    _assert_clips_close(r(clip), japi.jinc_resize(clip, dw, dh, tap=tap, impl="numpy"), 8)
+    _assert_clips_close(r(clip), japi.jinc_resize(_jclip(clip), dw, dh, tap=tap, impl="numpy"), 8)
 
 
 def test_bf16_raises_and_conv_requires_periodic():
@@ -192,7 +209,7 @@ def test_bf16_raises_and_conv_requires_periodic():
 def test_forced_engines_match_golden(impl):
     clip = _clip(yuv420p(8), seed=9)
     got = api.jinc_resize(clip, 64, 48, impl=impl, device="cpu")
-    want = japi.jinc_resize(clip, 64, 48, impl="numpy")
+    want = japi.jinc_resize(_jclip(clip), 64, 48, impl="numpy")
     _assert_clips_close(got, want, 8)
 
 
@@ -202,7 +219,7 @@ def test_aliases_pin_tap():
     b = api.jinc_resize(clip, 40, 30, tap=3, device="cpu")
     np.testing.assert_array_equal(a.frames[0].planes["Y"], b.frames[0].planes["Y"])
     c = api.jinc256_resize(clip, 40, 30, device="cpu")
-    _assert_clips_close(c, japi.jinc256_resize(clip, 40, 30), 8)
+    _assert_clips_close(c, japi.jinc256_resize(_jclip(clip), 40, 30), 8)
     assert [f.__name__ for f in (api.jinc36_resize, api.jinc64_resize, api.jinc144_resize, api.jinc256_resize)] == [
         "jinc36_resize", "jinc64_resize", "jinc144_resize", "jinc256_resize"
     ]  # fmt: skip
@@ -241,10 +258,10 @@ def test_engine_records_match_jax():
         cfg = api.JincConfig(target_width=dw, target_height=dh, tap=tap, impl=impl)
         r = api.JincResizer(clip.format, sw, sh, cfg, frame0=clip.frames[0], device="cpu")
         jcfg = japi.JincConfig(target_width=dw, target_height=dh, tap=tap, impl=impl)
-        assert r.engines == japi.JincResizer(clip.format, sw, sh, jcfg).engines
+        assert r.engines == japi.JincResizer(_jfmt(clip.format), sw, sh, jcfg).engines
         assert r.engines == {"luma": engine}
         assert r._applier_luma.interior == engine
-        _assert_clips_close(r(clip), japi.jinc_resize(clip, dw, dh, tap=tap, impl="numpy"), 8)
+        _assert_clips_close(r(clip), japi.jinc_resize(_jclip(clip), dw, dh, tap=tap, impl="numpy"), 8)
 
 
 def test_impl_pallas_runs_hand_written_engines():
@@ -257,7 +274,7 @@ def test_impl_pallas_runs_hand_written_engines():
     cfg2 = api.JincConfig(target_width=167, target_height=113, impl="pallas")
     r2 = api.JincResizer(clip2.format, 96, 64, cfg2, device="cpu")
     assert r2.engines == {"luma": "gather"}
-    _assert_clips_close(r2(clip2), japi.jinc_resize(clip2, 167, 113, impl="numpy"), 8)
+    _assert_clips_close(r2(clip2), japi.jinc_resize(_jclip(clip2), 167, 113, impl="numpy"), 8)
 
 
 ENGINE_ERRORS = [
@@ -274,16 +291,51 @@ ENGINE_ERRORS = [
 def test_engine_errors_identical(impl, geom, msg):
     sw, sh, dw, dh, tap = geom
     with pytest.raises(japi.JincError, match=msg) as je:
-        japi.JincResizer(gray(8), sw, sh, japi.JincConfig(dw, dh, tap=tap, impl=impl))
+        japi.JincResizer(_jfmt(gray(8)), sw, sh, japi.JincConfig(dw, dh, tap=tap, impl=impl))
     with pytest.raises(api.JincError) as te:
         api.JincResizer(gray(8), sw, sh, api.JincConfig(dw, dh, tap=tap, impl=impl), device="cpu")
     assert str(te.value) == str(je.value)
 
 
 def test_pallas_deep_tap_not_ported():
+    """impl='pallas' runs deep-tap periodic plans on the fused engine (the
+    JAX package's 'pallas' runs its fused kernel there too); an aperiodic
+    deep-tap plan is outside every hand-written engine and raises as JAX."""
     cfg = api.JincConfig(target_width=240, target_height=135, tap=16, impl="pallas")
-    with pytest.raises(NotImplementedError, match="deep-tap.*ROADMAP"):
+    r = api.JincResizer(gray(8), 480, 270, cfg, device="cpu")
+    assert r.engines == {"luma": "fused"} and r._applier_luma.fi.fs == 65
+    with pytest.raises(api.JincError, match="outside all Pallas"):
         api.JincResizer(gray(8), 481, 271, cfg, device="cpu")
+
+
+DEEP = {"2x-fs65": (480, 270, 240, 135), "2/3-fs49": (480, 270, 320, 180)}
+
+
+@pytest.fixture(scope="module")
+def deep_jax_outputs():
+    """The JAX package's automatic engine on the deep-tap clips (off the TPU
+    its XLA shift-sum deep-tap forms), per geometry and bit depth."""
+    out = {}
+    for name, (sw, sh, dw, dh) in DEEP.items():
+        for bits in (8, 16, 32):
+            clip = _clip(gray(bits), w=sw, h=sh, seed=11)
+            out[name, bits] = (clip, japi.jinc_resize(_jclip(clip), dw, dh, tap=16))
+    return out
+
+
+@pytest.mark.parametrize("bits", [8, 16, 32])
+@pytest.mark.parametrize("name", list(DEEP))
+def test_deep_tap_plans_take_fused_and_match_jax(name, bits, deep_jax_outputs):
+    """480x270 -> 240x135 (p=1, fs=65) and -> 320x180 (p=(2,2), fs=49) at
+    tap 16 take ``fused`` through 'auto', 'conv' and 'pallas' on the CPU, at
+    <= 1 LSB (u8, u16) and 4e-6 (fp32) from the JAX package."""
+    sw, sh, dw, dh = DEEP[name]
+    clip, want = deep_jax_outputs[name, bits]
+    for impl in ("auto", "conv", "pallas"):
+        cfg = api.JincConfig(target_width=dw, target_height=dh, tap=16, impl=impl)
+        r = api.JincResizer(clip.format, sw, sh, cfg, device="cpu")
+        assert r.engines == {"luma": "fused"}, impl
+    _assert_clips_close(r(clip), want, bits, f32_tol=DEEP_TOL)
 
 
 @pytest.mark.parametrize(
@@ -294,7 +346,7 @@ def test_auto_on_cpu_takes_xla_off_the_periodic_path(geom):
     sw, sh, dw, dh, tap = geom
     r = api.JincResizer(gray(8), sw, sh, api.JincConfig(dw, dh, tap=tap), device="cpu")
     assert r.engines == {"luma": "xla"}
-    assert japi.JincResizer(gray(8), sw, sh, japi.JincConfig(dw, dh, tap=tap)).engines == {
+    assert japi.JincResizer(_jfmt(gray(8)), sw, sh, japi.JincConfig(dw, dh, tap=tap)).engines == {
         "luma": "xla"
     }
 
@@ -311,7 +363,7 @@ AUTO_CUDA = [
 def test_auto_on_cuda_selects_fused_seg_gather_xla(geom, engine, cls, monkeypatch):
     """auto on a CUDA device: fused -> fused-seg -> gather -> xla. The
     appliers are stand-ins here (no card): the order is what is checked."""
-    from jincresize_tpu.operator import build_plane_operator, radius_for_tap
+    from jincresize_tpu_torch.operator import build_plane_operator, radius_for_tap
 
     made = []
     for name in ("ConvApplier", "SegConvApplier", "GatherApplier"):

@@ -10,9 +10,10 @@ import numpy as np
 import pytest
 import torch
 
-from jincresize_tpu.golden import apply_plane_numpy
-from jincresize_tpu.operator import build_plane_operator, radius_for_tap
+from jincresize_tpu import operator as joperator
 from jincresize_tpu_torch import apply_xla
+from jincresize_tpu_torch.golden import apply_plane_numpy
+from jincresize_tpu_torch.operator import build_plane_operator, radius_for_tap
 
 F32_TOL = 2e-6
 
@@ -34,6 +35,12 @@ def _op(branch):
     contract = op.pair_blocks.shape[0] * op.src_height <= 2 * op.dst_height
     assert contract == (branch == "contract")
     return op
+
+
+def _jop(branch):
+    """The JAX package's operator of the same geometry, from its own host layer."""
+    sw, sh, dw, dh, tap = BRANCHES[branch]
+    return joperator.build_plane_operator(sw, sh, dw, dh, joperator.radius_for_tap(tap))
 
 
 def _src(op, dtype, peak, clamp, seed, frames=2):
@@ -72,7 +79,7 @@ def test_resize_plane_batch_matches_jax_and_golden(branch, name, dtype, peak, cl
     assert got.dtype == np.dtype(dtype)
     want_jax = np.asarray(
         japply.resize_plane_batch(
-            japply.to_device(op),
+            japply.to_device(_jop(branch)),
             jnp.asarray(src),
             out_dtype=dtype,
             peak=peak,
@@ -95,7 +102,7 @@ def test_to_device_fields_match_jax(branch):
 
     op = _op(branch)
     dop = apply_xla.to_device(op)
-    jdop = japply.to_device(op)
+    jdop = japply.to_device(_jop(branch))
     for f in ("start_x", "start_y", "cx_idx", "cy_idx", "pair_blocks"):
         np.testing.assert_array_equal(getattr(dop, f).numpy(), np.asarray(getattr(jdop, f)))
     for s, js in zip(dop.strips, jdop.strips, strict=True):

@@ -10,10 +10,11 @@ import numpy as np
 import pytest
 import torch
 
-from jincresize_tpu.golden import apply_plane_numpy
-from jincresize_tpu.operator import build_plane_operator, radius_for_tap
-from jincresize_tpu.phase import plan_phases
+from jincresize_tpu import operator as joperator
 from jincresize_tpu_torch import apply_conv
+from jincresize_tpu_torch.golden import apply_plane_numpy
+from jincresize_tpu_torch.operator import build_plane_operator, radius_for_tap
+from jincresize_tpu_torch.phase import plan_phases
 
 F32_TOL = 2e-6
 
@@ -29,6 +30,12 @@ CASES = [
 def _op(g):
     sw, sh, dw, dh, tap = g
     return build_plane_operator(sw, sh, dw, dh, radius_for_tap(tap))
+
+
+def _jop(g):
+    """The JAX package's operator of the same geometry, from its own host layer."""
+    sw, sh, dw, dh, tap = g
+    return joperator.build_plane_operator(sw, sh, dw, dh, joperator.radius_for_tap(tap))
 
 
 def _src(op, dtype, peak, seed, frames=2):
@@ -53,7 +60,7 @@ def test_conv_applier_matches_jax_fused_and_golden(name, g, dtype, peak):
     src = _src(op, dtype, peak, seed=len(name))
     ap = apply_conv.ConvApplier(op)
     got = ap(torch.from_numpy(src), out_dtype=dtype, peak=peak).numpy()
-    jap = JaxConvApplier(op, interior="fused")
+    jap = JaxConvApplier(_jop(g), interior="fused")
     want = np.asarray(jap(jnp.asarray(src), out_dtype=dtype, peak=peak))
     golden = np.stack([apply_plane_numpy(op, s, out_dtype=dtype, peak=peak) for s in src])
     tol = F32_TOL if dtype == np.float32 else 1
@@ -87,7 +94,7 @@ def test_build_conv_operator_fields_match_jax(g):
 
     op = _op(g)
     cop = apply_conv.build_conv_operator(op)
-    jcop = japply.build_conv_operator(op)
+    jcop = japply.build_conv_operator(_jop(g))
     for f in ("kernels", "exc_x", "exc_y"):
         np.testing.assert_array_equal(getattr(cop, f).numpy(), np.asarray(getattr(jcop, f)))
     assert cop.meta == jcop.meta
@@ -147,3 +154,55 @@ def test_precision_modes():
         apply_conv.ConvApplier(op, precision="fp16")
     with pytest.raises(NotImplementedError, match="shift"):
         apply_conv.ConvApplier(op, interior="shift")
+
+
+def test_anchor_blocks_declined_takes_the_value_path():
+    """blur + quant_x=1: ``_anchor_blocks`` returns None for every full-width
+    strip, so the strip kernel declines and every strip takes the value path
+    (``strip_values_fast``), as the JAX applier's strips do."""
+    import jax.numpy as jnp
+
+    from jincresize_tpu.apply_conv import ConvApplier as JaxConvApplier
+    from jincresize_tpu_torch.kernels import strips
+
+    kw = dict(quantize_x=1, quantize_y=1, blur=0.98)
+    op = build_plane_operator(96, 64, 144, 96, radius_for_tap(3), **kw)
+    plan = plan_phases(op)
+    full = [s for s in op.strips if s.x0 == 0 and s.x1 == op.dst_width]
+    assert full and all(strips._anchor_blocks(s, plan.x, op.filter_size) is None for s in full)
+    assert strips.make_strips(op, plan) is None
+    ap = apply_conv.ConvApplier(op, plan=plan)
+    jop = joperator.build_plane_operator(96, 64, 144, 96, joperator.radius_for_tap(3), **kw)
+    jap = JaxConvApplier(jop, interior="fused")
+    assert ap.strips_spec is None and jap._strips_kfn_spec is None
+    src = _src(op, np.float32, None, seed=12, frames=1)
+    got = ap(torch.from_numpy(src)).numpy()
+    assert _maxdiff(got, np.asarray(jap(jnp.asarray(src)))) <= F32_TOL
+
+
+DEEP_CASES = [
+    ("tap16-2x-fs65-f32", (480, 270, 240, 135, 16), np.float32, None),
+    ("tap16-2/3-fs49-u8", (480, 270, 320, 180, 16), np.uint8, 255.0),
+]
+
+
+@pytest.mark.parametrize("name,g,dtype,peak", DEEP_CASES, ids=[c[0] for c in DEEP_CASES])
+def test_deep_tap_applier_matches_jax_fused(name, g, dtype, peak):
+    """Deep taps on the fused applier: interior, strip kernel and the
+    left/right strip glue at fs = 65 and 49, against the JAX fused applier
+    (interpret mode) at 4e-6 (fp32) or 1 LSB, the one-concatenate assembly
+    on both sides."""
+    import jax.numpy as jnp
+
+    from jincresize_tpu.apply_conv import ConvApplier as JaxConvApplier
+
+    op = _op(g)
+    src = _src(op, dtype, peak, seed=21, frames=1)
+    ap = apply_conv.ConvApplier(op)
+    assert ap.fi.fs == op.filter_size and op.filter_size**2 > 1200
+    assert ap.strips_spec is not None and ap._strip_plans is not None
+    jap = JaxConvApplier(_jop(g), interior="fused")
+    got = ap(torch.from_numpy(src), out_dtype=dtype, peak=peak).numpy()
+    want = np.asarray(jap(jnp.asarray(src), out_dtype=dtype, peak=peak))
+    assert ap._concat == jap._concat and ap._concat is not None
+    assert _maxdiff(got, want) <= (4e-6 if dtype == np.float32 else 1)

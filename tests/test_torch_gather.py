@@ -17,9 +17,10 @@ import numpy as np
 import pytest
 import torch
 
-from jincresize_tpu.golden import apply_plane_numpy
-from jincresize_tpu.operator import build_plane_operator, radius_for_tap
-from jincresize_tpu.phase import plan_phases, plan_phases_seg
+from jincresize_tpu import operator as joperator
+from jincresize_tpu_torch.golden import apply_plane_numpy
+from jincresize_tpu_torch.operator import build_plane_operator, radius_for_tap
+from jincresize_tpu_torch.phase import plan_phases, plan_phases_seg
 from jincresize_tpu_torch.apply_gather import GatherApplier
 from jincresize_tpu_torch.kernels import fused, gather
 
@@ -33,6 +34,12 @@ GEOMS = {"aperiodic-up": (96, 64, 167, 113, 3), "down-tap2": (120, 80, 77, 53, 2
 def _op(name):
     sw, sh, dw, dh, tap = GEOMS[name]
     return build_plane_operator(sw, sh, dw, dh, radius_for_tap(tap))
+
+
+def _jop(name):
+    """The JAX package's operator of the same geometry, from its own host layer."""
+    sw, sh, dw, dh, tap = GEOMS[name]
+    return joperator.build_plane_operator(sw, sh, dw, dh, joperator.radius_for_tap(tap))
 
 
 def _src(op, dtype, seed, frames=2, peak=255):
@@ -62,7 +69,8 @@ def jax_interiors(ops):
     out = {}
     for name, op in ops.items():
         src = _src(op, np.float32, seed=11)
-        out[name] = (src, np.asarray(make_gather_interior(op, interpret=True)(jnp.asarray(src))))
+        kfn = make_gather_interior(_jop(name), interpret=True)
+        out[name] = (src, np.asarray(kfn(jnp.asarray(src))))
     return out
 
 
@@ -85,7 +93,7 @@ def jax_applier_outputs(ops):
     from jincresize_tpu.apply_gather import GatherApplier as JaxGatherApplier
 
     op = ops["aperiodic-up"]
-    jap = JaxGatherApplier(op, interpret=True)
+    jap = JaxGatherApplier(_jop("aperiodic-up"), interpret=True)
     out = {"concat": jap._concat}
     for dtype, peak in ((np.float32, None), (np.uint8, 255.0)):
         src = _src(op, dtype, seed=5)
@@ -160,7 +168,8 @@ def test_is_supported_declines_deep_tap_and_empty_dictionary():
     deep = build_plane_operator(481, 271, 240, 135, radius_for_tap(16))
     assert deep.filter_size**2 > fused.FS2_MAX
     assert not gather.is_supported(deep)
-    assert not pallas_gather.is_supported(deep)
+    jdeep = joperator.build_plane_operator(481, 271, 240, 135, joperator.radius_for_tap(16))
+    assert not pallas_gather.is_supported(jdeep)
     with pytest.raises(ValueError, match="envelope"):
         gather.make_gather_interior(deep)
     with pytest.raises(ValueError, match="envelope"):

@@ -1,4 +1,5 @@
-"""The port imports no jax: every module, plus a tiny resize, in a fresh process."""
+"""The port imports no jax and nothing of the JAX package: every module, plus
+a tiny resize and a sharded resize, in a fresh process."""
 
 import subprocess
 import sys
@@ -11,9 +12,10 @@ import sys
 import numpy as np
 import jincresize_tpu_torch
 from jincresize_tpu_torch import (api, apply_conv, apply_conv_seg, apply_gather,
-                                  apply_strips_fast, apply_xla, sharding)
+                                  apply_strips_fast, apply_xla, bench, cache, filters,
+                                  geometry, golden, native, operator, phase, sharding)
 from jincresize_tpu_torch.kernels import _build, fused, gather, seg, strips
-from jincresize_tpu.clip import Clip, random_frame, yuv420p
+from jincresize_tpu_torch.clip import Clip, random_frame, yuv420p
 
 clip = Clip.from_frames([random_frame(yuv420p(8), 32, 24, seed=1)])
 r = api.JincResizer(clip.format, 32, 24, api.JincConfig(target_width=64, target_height=48,
@@ -29,6 +31,8 @@ assert r(clip).frames[0].planes["Y"].shape == (48, 64)
 assert all(e.startswith("sharded/") for e in r.engines.values()), r.engines
 jax_mods = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
 assert not jax_mods, jax_mods
+ref_mods = sorted(m for m in sys.modules if m == "jincresize_tpu" or m.startswith("jincresize_tpu."))
+assert not ref_mods, ref_mods
 print("ok")
 """
 
@@ -43,3 +47,14 @@ def test_port_imports_no_jax():
     )
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "ok"
+
+
+def test_port_sources_name_no_jax_package_import():
+    """No module of the port, and not chip_smoke.py, imports the JAX package."""
+    import re
+
+    pat = re.compile(r"^\s*(from|import) jincresize_tpu([. ]|$)", re.M)
+    files = sorted((ROOT / "jincresize_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    offenders = [str(f.relative_to(ROOT)) for f in files if pat.search(f.read_text())]
+    assert not offenders, offenders

@@ -6,19 +6,27 @@ plain PyTorch forms because the tensors lie on the CPU; the CUDA kernels
 themselves are checked against the same plain forms on the card by
 ``chip_smoke.py``.
 
+Each side builds its operator and plan with its own package's host layer.
+
 Tolerance: 2e-6 absolute on fp32 sources in [0, 1) -- both sides multiply in
-exact fp32 and differ only in summation order.
+exact fp32 and differ only in summation order; 4e-6 for deep taps (fs**2 >
+1200: 4225 products a pixel at fs = 65), the JAX package's deep-tap bound.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
-from jincresize_tpu.operator import build_plane_operator, radius_for_tap
-from jincresize_tpu.phase import plan_phases
+from jincresize_tpu import operator as joperator
+from jincresize_tpu import phase as jphase
 from jincresize_tpu_torch.kernels import fused, strips
+from jincresize_tpu_torch.operator import build_plane_operator, radius_for_tap
+from jincresize_tpu_torch.phase import plan_phases
 
 F32_TOL = 2e-6
+DEEP_TOL = 4e-6
 
 # test_pallas_fused.py's five geometries plus its subpixel crop.
 GEOMS = [
@@ -35,6 +43,13 @@ IDS = ["2x-tap8", "down-tap3", "2/3-tap4", "4x-tap3", "5x-tap3", "subpixel-crop"
 def _op(g, kw):
     sw, sh, dw, dh, tap = g
     return build_plane_operator(sw, sh, dw, dh, radius_for_tap(tap), **kw)
+
+
+def _jop(g, kw):
+    """The JAX package's operator and plan of the same geometry."""
+    sw, sh, dw, dh, tap = g
+    op = joperator.build_plane_operator(sw, sh, dw, dh, joperator.radius_for_tap(tap), **kw)
+    return op, jphase.plan_phases(op)
 
 
 def _src(op, seed, frames=None):
@@ -54,7 +69,8 @@ def test_fused_plain_matches_pallas_interpret(g, kw):
     plan = plan_phases(op)
     assert fused.is_supported(op, plan)
     src = _src(op, 11)
-    want = np.asarray(make_fused_interior(op, plan, interpret=True)(jnp.asarray(src)))
+    jop, jplan = _jop(g, kw)
+    want = np.asarray(make_fused_interior(jop, jplan, interpret=True)(jnp.asarray(src)))
     fi = fused.make_fused_interior(op, plan)
     got = fused.fused_interior(fi, torch.from_numpy(src)[None])[0].numpy()
     assert got.shape == want.shape == fi.out_shape
@@ -87,7 +103,7 @@ def test_strips_plain_matches_pallas_interpret(g, kw):
 
     op = _op(g, kw)
     plan = plan_phases(op)
-    jr = make_strips_interior(op, plan, interpret=True)
+    jr = make_strips_interior(*_jop(g, kw), interpret=True)
     assert jr is not None
     jfn, jpatches, jmeta = jr
     st, patches, meta = strips.make_strips(op, plan)
@@ -119,9 +135,10 @@ def test_anchor_blocks_copy_equals_original(g, kw):
 
     op = _op(g, kw)
     plan = plan_phases(op)
-    for s in _full_width_strips(op):
+    jop, jplan = _jop(g, kw)
+    for s, js in zip(_full_width_strips(op), _full_width_strips(jop), strict=True):
         a = strips._anchor_blocks(s, plan.x, op.filter_size)
-        b = pallas_strips._anchor_blocks(s, plan.x, op.filter_size)
+        b = pallas_strips._anchor_blocks(js, jplan.x, jop.filter_size)
         assert (a is None) == (b is None)
         if a is not None:
             np.testing.assert_array_equal(a[0], b[0])
@@ -140,7 +157,7 @@ def test_plan_strips_copy_equals_original(g, kw):
     op = _op(g, kw)
     plan = plan_phases(op)
     a = tsf.plan_strips(op, plan)
-    b = jsf.plan_strips(op, plan)
+    b = jsf.plan_strips(*_jop(g, kw))
     assert (a is None) == (b is None)
     for pa, pb in zip(a or [], b or []):
         for f in ("kind", "const_start", "lo", "p", "q", "anchor_start", "nblocks", "rect"):
@@ -167,24 +184,74 @@ ENVELOPE_GEOMS = [
 
 @pytest.mark.parametrize("g", ENVELOPE_GEOMS, ids=lambda g: "x".join(map(str, g)))
 def test_is_supported_covers_pallas_envelope(g):
-    """Every plan the Pallas kernel admits with fs**2 <= 1200 is admitted."""
+    """Every plan the Pallas kernel admits (deep taps included) is admitted."""
     from jincresize_tpu.kernels import pallas_fused
 
     op = _op(g, {})
     plan = plan_phases(op)
     assert plan is not None
-    if pallas_fused.is_supported(op, plan) and op.filter_size**2 <= 1200:
+    if pallas_fused.is_supported(*_jop(g, {})):
         assert fused.is_supported(op, plan)
     assert fused.smem_bytes(plan.y.p, plan.x.p, op.filter_size) <= fused.MAX_SMEM_BYTES
 
 
+DEEP_GEOMS = [(480, 270, 240, 135, 16), (480, 270, 320, 180, 16)]
+
+
 def test_deep_tap_outside_envelope():
-    op = build_plane_operator(480, 270, 240, 135, radius_for_tap(16))
+    """Deep taps (fs**2 > 1200) are inside the fused envelope now: the
+    tap-16 2x (p=1, fs=65) and 2/3 (p=(2,2), fs=49) downscales build, and
+    the plain form matches the JAX kernel in interpret mode at 4e-6."""
+    import jax.numpy as jnp
+
+    from jincresize_tpu.kernels.pallas_fused import make_fused_interior
+
+    for g, fs, p in zip(DEEP_GEOMS, (65, 49), (1, 2), strict=True):
+        op = _op(g, {})
+        plan = plan_phases(op)
+        assert op.filter_size == fs and op.filter_size**2 > fused.FS2_MAX
+        assert (plan.y.p, plan.x.p) == (p, p)
+        assert fused.is_supported(op, plan)
+        fi = fused.make_fused_interior(op, plan)
+        assert fi.fs == fs and fused.smem_bytes(p, p, fs) <= 48 * 1024
+        src = _src(op, 13)
+        got = fused.fused_interior(fi, torch.from_numpy(src)[None])[0].numpy()
+        want = np.asarray(make_fused_interior(*_jop(g, {}), interpret=True)(jnp.asarray(src)))
+        assert got.shape == want.shape == fi.out_shape
+        assert np.abs(got - want).max() <= DEEP_TOL
+
+
+@pytest.mark.parametrize("g", DEEP_GEOMS, ids=["2x-fs65", "2/3-fs49"])
+def test_deep_tap_strips_match_pallas_interpret(g):
+    """The strip kernel's plain form serves fs = 65 and 49 (anchors of
+    px * fs**2 floats) and matches the JAX strip kernel in interpret mode."""
+    import jax.numpy as jnp
+
+    from jincresize_tpu.kernels.pallas_strips import make_strips_interior
+
+    op = _op(g, {})
+    st, patches, meta = strips.make_strips(op, plan_phases(op))
+    jfn, jpatches, jmeta = make_strips_interior(*_jop(g, {}), interpret=True)
+    assert meta["strips"] == jmeta["strips"] and len(patches) == len(jpatches)
+    src = _src(op, 7)
+    want = np.asarray(jfn(jnp.asarray(src)))
+    got = strips.strips(st, torch.from_numpy(src)[None])[0].numpy()
+    for si, (y0, y1) in enumerate(meta["strips"]):
+        w = want[si * jmeta["ny_p"] : si * jmeta["ny_p"] + (y1 - y0)]
+        assert np.abs(got[si, : y1 - y0] - w).max() <= DEEP_TOL
+
+
+def test_envelope_is_shared_memory_alone():
+    """Every plan of ``plan_phases`` (cost cap py*px*fs**2 <= 32768) fits
+    the 227 KB a block may opt into; a 2/5 tap-16 plan needs the opt-in above
+    48 KB. FS2_MAX stays the gather and seg envelope only."""
+    op = _op((300, 200, 120, 80, 16), {})
     plan = plan_phases(op)
-    assert op.filter_size**2 > fused.FS2_MAX
-    assert not fused.is_supported(op, plan)
-    with pytest.raises(ValueError, match="envelope"):
-        fused.make_fused_interior(op, plan)
+    assert (plan.y.p, plan.x.p, op.filter_size) == (2, 2, 82)
+    assert 48 * 1024 < fused.smem_bytes(2, 2, 82) <= fused.MAX_SMEM_BYTES
+    assert fused.is_supported(op, plan)
+    assert fused.smem_bytes(1, 1, 181) <= fused.MAX_SMEM_BYTES  # 181**2 <= 32768
+    assert not fused.is_supported(op, type(plan)(x=plan.x, y=dataclasses.replace(plan.y, p=8)))
 
 
 def test_bf16_not_ported():

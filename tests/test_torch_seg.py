@@ -17,9 +17,11 @@ import numpy as np
 import pytest
 import torch
 
-from jincresize_tpu.golden import apply_plane_numpy
-from jincresize_tpu.operator import build_plane_operator, radius_for_tap
-from jincresize_tpu.phase import plan_phases, plan_phases_seg
+from jincresize_tpu import operator as joperator
+from jincresize_tpu import phase as jphase
+from jincresize_tpu_torch.golden import apply_plane_numpy
+from jincresize_tpu_torch.operator import build_plane_operator, radius_for_tap
+from jincresize_tpu_torch.phase import plan_phases, plan_phases_seg
 from jincresize_tpu_torch.apply_conv import _strip_values, _strip_values_banded, strip_row_bands
 from jincresize_tpu_torch.apply_conv_seg import SegConvApplier
 from jincresize_tpu_torch.apply_xla import to_device
@@ -40,6 +42,12 @@ GEOMS = {
 def _op(name):
     sw, sh, dw, dh, tap = GEOMS[name]
     return build_plane_operator(sw, sh, dw, dh, radius_for_tap(tap))
+
+
+def _jop(name):
+    """The JAX package's operator of the same geometry, from its own host layer."""
+    sw, sh, dw, dh, tap = GEOMS[name]
+    return joperator.build_plane_operator(sw, sh, dw, dh, joperator.radius_for_tap(tap))
 
 
 def _src(op, dtype, seed, frames=2):
@@ -68,8 +76,8 @@ def jax_interiors(ops):
 
     out = {}
     for name in ("1.5x-tap8", "1.5x-tap3-periodic"):
-        op = ops[name]
-        fn = make_seg_interior(op, plan_phases_seg(op), interpret=True)
+        op = _jop(name)
+        fn = make_seg_interior(op, jphase.plan_phases_seg(op), interpret=True)
         src = _src(op, np.float32, seed=4, frames=1)[0]
         out[name] = (src, np.asarray(fn(jnp.asarray(src), fn.params)))
     return out
@@ -96,7 +104,7 @@ def jax_applier_outputs(ops):
     from jincresize_tpu.apply_conv_seg import SegConvApplier as JaxSegConvApplier
 
     op = ops["1.5x-tap8"]
-    jap = JaxSegConvApplier(op, interpret=True)
+    jap = JaxSegConvApplier(_jop("1.5x-tap8"), interpret=True)
     out = {"concat": jap._concat}
     for dtype, peak in ((np.float32, None), (np.uint8, 255.0)):
         src = _src(op, dtype, seed=2)
@@ -192,8 +200,8 @@ def test_strip_row_bands_equal_jax(ops):
     from jincresize_tpu import apply_conv as japply
     from jincresize_tpu_torch import apply_conv
 
-    for op in ops.values():
-        assert apply_conv.strip_row_bands(op) == japply.strip_row_bands(op)
+    for name, op in ops.items():
+        assert apply_conv.strip_row_bands(op) == japply.strip_row_bands(_jop(name))
     tiny = build_plane_operator(6, 6, 12, 12, radius_for_tap(8))
     with pytest.raises(ValueError, match="smaller than filter_size"):
         apply_conv.strip_row_bands(tiny)

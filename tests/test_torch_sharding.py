@@ -3,7 +3,8 @@
 The JAX side runs on the 8 virtual CPU devices of ``tests/conftest.py``, its
 Pallas kernels in interpret mode, as ``tests/test_sharding.py`` runs it; the
 port's meshes are lists of ``torch.device('cpu')`` (devices may repeat), so
-its kernel wrappers take their plain forms. JAX outputs are shared through
+its kernel wrappers take their plain forms. Each side builds its operators
+and clips with its own package's host layer. JAX outputs are shared through
 module-scoped fixtures.
 
 Tolerances: 2e-6 absolute port against JAX on fp32 sources in [0, 1) (exact
@@ -19,11 +20,13 @@ import numpy as np
 import pytest
 import torch
 
-from jincresize_tpu.clip import Clip, random_frame, yuv420p
-from jincresize_tpu.golden import apply_plane_numpy
-from jincresize_tpu.operator import build_plane_operator, radius_for_tap
+from jincresize_tpu import clip as jclip
+from jincresize_tpu import operator as joperator
 from jincresize_tpu_torch import api, sharding
+from jincresize_tpu_torch.clip import Clip, random_frame, yuv420p
+from jincresize_tpu_torch.golden import apply_plane_numpy
 from jincresize_tpu_torch.kernels import gather
+from jincresize_tpu_torch.operator import build_plane_operator, radius_for_tap
 
 F32_TOL = 2e-6
 CPU = torch.device("cpu")
@@ -53,14 +56,13 @@ CASES = [
 ]
 CASE_IDS = [c[0] for c in CASES]
 # Golden bounds of tests/test_sharding.py, by interior.
-GOLDEN_TOL = {"conv-fused": 1e-6, "conv-shift": 1e-6, "seg": 2e-5, "gather": 2e-5, "gather-scan": 2e-5}
+GOLDEN_TOL = {"conv-fused": 1e-6, "seg": 2e-5, "gather": 2e-5, "gather-scan": 2e-5}
+DEEP_TOL = 4e-6
 
 # Where the port's routing differs from the JAX package's (ROADMAP queue 3):
-# (geometry, impl, n_rows) -> (JAX interior, port interior).
+# (geometry, impl, n_rows) -> (JAX interior, port interior). Deep taps route
+# as in the JAX package: both run the fused kernel on the shards.
 ROUTING_DIFFERS = {
-    # The deep-tap interior is not ported: its plain form runs instead.
-    ("deep-tap-conv", "conv", 2): ("conv-fused", "conv-shift"),
-    ("deep-tap-conv", "auto", 2): ("conv-fused", "conv-shift"),
     # The Pallas fused envelope declines the shifted local plan, the CUDA
     # kernel's (shared memory of the weights) takes it.
     ("up-160x120", "auto", 2): ("conv-shift", "conv-fused"),
@@ -88,6 +90,20 @@ def _op(name):
     return build_plane_operator(sw, sh, dw, dh, radius_for_tap(tap))
 
 
+def _jop(name):
+    """The JAX package's operator of the same geometry, from its own host layer."""
+    sw, sh, dw, dh, tap = GEOMS[name]
+    return joperator.build_plane_operator(sw, sh, dw, dh, joperator.radius_for_tap(tap))
+
+
+def _jclip(clip):
+    """The port's ``clip`` as a JAX package Clip over the same arrays."""
+    fmt = jclip.VideoFormat(**dataclasses.asdict(clip.format))
+    return jclip.Clip.from_frames(
+        [jclip.Frame(fmt, dict(f.planes), dict(f.props)) for f in clip.frames]
+    )
+
+
 def _src(op, seed, frames=None):
     shape = (op.src_height, op.src_width)
     if frames is not None:
@@ -111,13 +127,18 @@ def ops():
 
 
 @pytest.fixture(scope="module")
-def jax_outputs(ops):
+def jops():
+    return {name: _jop(name) for name in GEOMS}
+
+
+@pytest.fixture(scope="module")
+def jax_outputs(jops):
     """JAX ``make_sharded_apply`` on every case: (interior, fp32 output)."""
     from jincresize_tpu.sharding import make_sharded_apply
 
     out = {}
     for case, geom, impl, n, _ in CASES:
-        op = ops[geom]
+        op = jops[geom]
         fn, _ = make_sharded_apply(op, _jax_mesh(n), impl=impl)
         out[case] = (fn.info["interior"], np.asarray(fn(_src(op, 11))))
     return out
@@ -127,15 +148,15 @@ def jax_outputs(ops):
 
 
 @pytest.mark.parametrize("name", list(GEOMS)[:5])
-def test_plan_copies_equal_jax(ops, name):
+def test_plan_copies_equal_jax(ops, jops, name):
     from jincresize_tpu import sharding as jsh
 
-    op = ops[name]
+    op, jop = ops[name], jops[name]
     for n in (1, 2, 4, 8):
-        got, want = sharding.plan_row_shard(op, n), jsh.plan_row_shard(op, n)
+        got, want = sharding.plan_row_shard(op, n), jsh.plan_row_shard(jop, n)
         assert dataclasses.asdict(got) == dataclasses.asdict(want), n
     blocks, bid = sharding.build_uniform(op)
-    jblocks, jbid = jsh.build_uniform(op)
+    jblocks, jbid = jsh.build_uniform(jop)
     np.testing.assert_array_equal(blocks, jblocks)
     np.testing.assert_array_equal(bid, jbid)
     assert blocks.dtype == jblocks.dtype and bid.dtype == jbid.dtype
@@ -192,7 +213,7 @@ def test_collect_band_slices_the_padded_source(halo):
 
 
 @pytest.mark.parametrize("d", [0, 7])
-def test_gather_band_plain_matches_pallas_interpret(ops, d):
+def test_gather_band_plain_matches_pallas_interpret(ops, jops, d):
     """One device's band of 96x72 -> 160x120 tap 3 on 8 rows: the port's
     plain form against ``pallas_gather.make_gather_band(interpret=True)`` with
     the tables ``sharding.make_sharded_apply_gather`` gives it."""
@@ -214,13 +235,14 @@ def test_gather_band_plain_matches_pallas_interpret(ops, d):
     src = np.pad(_src(op, 5, frames=1), ((0, 0), (hu, n * ts - op.src_height + hd), (0, 0)))
     band = src[:, d * ts : d * ts + band_h]
 
-    kfn, meta = pallas_gather.make_gather_band(op, sy_loc, band_h, interpret=True)
+    jop = jops["up-160x120"]
+    kfn, meta = pallas_gather.make_gather_band(jop, sy_loc, band_h, interpret=True)
     tm, nb = meta["tm"], meta["nb"]
     pad = meta["n_rows_pad"] - td
     syl_p = np.concatenate([sy_loc[d], np.repeat(sy_loc[d, -1:], pad)])
     cy_p = np.concatenate([cy[d], np.repeat(cy[d, -1:], pad)])
     y0 = np.array([syl_p[b * tm : (b + 1) * tm].min() for b in range(nb)])
-    expand, wt, _, _ = pallas_gather.expand_weight_planes(op)
+    expand, wt, _, _ = pallas_gather.expand_weight_planes(jop)
     want = np.asarray(
         kfn(
             jnp.asarray(band[0]),
@@ -313,18 +335,29 @@ def test_sharded_apply_matches_golden(ops, goldens, case, n):
 
 
 def test_deep_tap_conv_shift_matches_golden(ops):
-    """Deep taps (fs**2 > FS2_MAX) on 2 rows: the fused kernel's plain form
-    on the shifted local plan, at the JAX deep-tap bound."""
-    op = ops["deep-tap-conv"]
-    ap = sharding.ShardedApplier(op, _mesh(2))
-    assert ap.interior == "conv-shift" and ap.effective_precision == "fp32"
-    src = _src(op, 5)
-    out = ap(torch.from_numpy(src)).numpy()
-    assert np.abs(out - apply_plane_numpy(op, src)).max() <= 4e-6
+    """Deep taps (fs**2 > 1200) run the fused kernel on every shard
+    (``conv-fused``; there is no ``conv-shift`` interior): tap-16 2x (fs 65)
+    and 2/3 (fs 49) downscales on 2 rows against the golden, and at twice
+    the size (each shard holds fs rows) on 4 rows against the single-device
+    fused applier, at the JAX deep-tap bound."""
+    from jincresize_tpu_torch.apply_conv import ConvApplier
+
+    for op in (ops["deep-tap-conv"], build_plane_operator(480, 270, 320, 180, radius_for_tap(16))):
+        ap = sharding.ShardedApplier(op, _mesh(2))
+        assert ap.interior == "conv-fused" and ap.effective_precision == "fp32"
+        src = _src(op, 5)
+        out = ap(torch.from_numpy(src)).numpy()
+        assert np.abs(out - apply_plane_numpy(op, src)).max() <= DEEP_TOL
+    for dw, dh in ((480, 270), (640, 360)):
+        op = build_plane_operator(960, 540, dw, dh, radius_for_tap(16))
+        ap = sharding.ShardedApplier(op, _mesh(4), precision="fp32_u8src")
+        assert ap.interior == "conv-fused" and ap.effective_precision == "fp32_u8src"
+        src = torch.from_numpy(_src(op, 6))
+        assert float((ap(src) - ConvApplier(op)(src)).abs().max()) <= DEEP_TOL
 
 
 @pytest.mark.parametrize("name", list(GEOMS))
-def test_routing_matches_jax(ops, name):
+def test_routing_matches_jax(ops, jops, name):
     """``info['interior']`` equals the JAX package's for every impl on 1, 2,
     4 and 8 row shards, except where ROADMAP records a difference."""
     from jincresize_tpu.sharding import make_sharded_apply as jax_make
@@ -333,7 +366,7 @@ def test_routing_matches_jax(ops, name):
     for n in (1, 2, 4, 8):
         for impl in ("auto", "conv", "seg", "gather"):
             try:
-                want = jax_make(op, _jax_mesh(n), impl=impl)[0].info["interior"]
+                want = jax_make(jops[name], _jax_mesh(n), impl=impl)[0].info["interior"]
             except ValueError:
                 want = None
             try:
@@ -436,9 +469,10 @@ def test_resizer_on_mesh_matches_jax(impl):
     cfg = api.JincConfig(target_width=192, target_height=144, impl=impl)
     r = api.JincResizer(clip.format, 96, 72, cfg, frame0=clip.frames[0], device="cpu", mesh=_mesh(8))
     jcfg = japi.JincConfig(target_width=192, target_height=144, impl=impl)
-    jr = japi.JincResizer(clip.format, 96, 72, jcfg, frame0=clip.frames[0], mesh=_jax_mesh(8))
+    jc = _jclip(clip)
+    jr = japi.JincResizer(jc.format, 96, 72, jcfg, frame0=jc.frames[0], mesh=_jax_mesh(8))
     assert r.engines == jr.engines == {"luma": "sharded/conv-fused", "chroma": "sharded/gather"}
-    got, want = r(clip), jr(clip)
+    got, want = r(clip), jr(jc)
     for fg, fw in zip(got.frames, want.frames):
         fg.validate()
         assert fg.props == fw.props
@@ -455,7 +489,7 @@ def test_mesh_with_other_impl_raises():
 
     clip = Clip.from_frames([random_frame(yuv420p(8), 32, 24, seed=1)])
     with pytest.raises(japi.JincError) as je:
-        japi.jinc_resize(clip, 64, 48, impl="xla", mesh=_jax_mesh(2))
+        japi.jinc_resize(_jclip(clip), 64, 48, impl="xla", mesh=_jax_mesh(2))
     with pytest.raises(api.JincError) as te:
         api.jinc_resize(clip, 64, 48, impl="xla", device="cpu", mesh=_mesh(2))
     assert str(te.value) == str(je.value)
