@@ -23,8 +23,11 @@ Phases (each raises on failure; nothing catches it):
    96x72 -> 160x120 tap 3 (8 shards), a multi-hop and a replicated downscale
    (8 shards) and the full 1920x1080 -> 3740x2104 tap-8 luma plane (4
    shards): 2e-6 absolute for fp32 sources in [0, 1) (4e-6 for deep taps,
-   fs**2 > 1200), <= 1 LSB after ``finalize`` for u8/u16; every launch
-   counted;
+   fs**2 > 1200), <= 1 LSB after ``finalize`` for u8/u16; the ``out_only``
+   probe against ``torch.zeros`` at (8, 4320, 7680) and on a ragged
+   (2, 100, 300) plane (0); every non-default thread block of the fused
+   kernel against the default on three of the conv cases, one of them tap 16
+   (0); every launch counted;
 3. end to end, one path after another, each with the launch counts set to 0
    just before and read just after, on 4-frame yuv420p8 clips:
    3840x2160 -> 7680x4320 tap 8 (periodic: ``fused``), 2560x1440 -> 3840x2160
@@ -39,8 +42,23 @@ Phases (each raises on failure; nothing catches it):
    periodic and the deep-tap (``sharded/conv-fused``) and drifted
    (``sharded/seg``) clips, each <= 1 LSB against its single-card engine; on
    a machine with several cards, the aperiodic clip on a mesh of distinct
-   cards too. ``fused_interior_plain`` must be called 0 times in the phase;
-4. timing -- CUDA-event medians of each kernel and its plain form on 8-frame
+   cards too; then the paths of the tools slice: a 2-frame yuv420p8 chain
+   1920x1080 -> 3840x2160 -> 7680x4320 tap 3 through ``jinc_resize_chain``
+   (one composed operator a plane, ``fused``; <= 1 LSB against the same
+   composed operators on ``impl='xla'``, host composition time printed), the
+   CLI on a 2-frame 4K -> 8K tap-8 yuv420p8 ``.npz`` in this process and as
+   ``python -m jincresize_tpu_torch`` (exit 0, fused on both planes, 0 LSB
+   against the API), ``entry.entry()`` and ``entry.dryrun_multichip(4)``
+   on four shards of ``cuda:0``. ``fused_interior_plain`` must be called 0
+   times in the phase;
+4. timing -- every tool of ``jincresize_tpu_torch.tools`` in this process at
+   reduced repetitions, each with the launch counts set to 0 before and read
+   after (``device_loop_timing`` is the probe's main path; the fused tile
+   sweep must give max |err| 0 for every shape); one 4-frame 4K -> 8K
+   ``JincResizer`` call inside ``metrics.device_trace`` (``torch.profiler``):
+   the ten device operations with the most CUDA time, the summed HtoD and
+   DtoH copies and the device's idle share over the call's span; then
+   CUDA-event medians of each kernel and its plain form on 8-frame
    fp32 luma batches of each path (the band kernel summed over the four
    shards of the aperiodic plane), each beside its bound (operations or
    bytes over the H100's fp32 and HBM peaks), cuDNN's ``conv2d`` computing
@@ -48,8 +66,8 @@ Phases (each raises on failure; nothing catches it):
    the kernel, 4e-6), the seg and gather appliers on the same 1440p -> 4K
    plane, each path's end-to-end ms/frame with its upload / device /
    download split (the sharded aperiodic path beside the single-card one),
-   and ``python -m jincresize_tpu_torch.bench`` in its three modes, run in
-   this process.
+   ``python -m jincresize_tpu_torch.bench`` in its three modes, run in
+   this process, and the probe beside its bound and ``torch.zeros``.
 
 Prints the kernels' JSON line, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
@@ -61,9 +79,11 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from dataclasses import replace
 from pathlib import Path
@@ -125,6 +145,14 @@ F32_TOL = 2e-6  # exact fp32 products on both sides; only the summation order di
 DEEP_TOL = 4e-6  # fs**2 > 1200 (4225 products a pixel at fs=65): the JAX deep-tap bound
 ORACLE_SAMPLES = 2000
 DEEP_ORACLE_SAMPLES = 128  # the scalar oracle costs ~45 ms a sample at fs=65
+# The chain: 1080p -> 4K -> 8K tap 3 (2x then 2x), two frames.
+CHAIN = ((1920, 1080), (3840, 2160), (7680, 4320))
+CHAIN_SMALL = ((960, 540), (1920, 1080), (3840, 2160))  # if composing takes over 60 s
+CHAIN_TAP = 3
+# Fused-kernel thread blocks checked against the default: on these CASES.
+TILE_CASES = ("2x upscale qx=1", "5/2 upscale exceptions", "tap16 2/5 down fs=82 105KB")
+PROBE_SHAPES = [((8, 4320, 7680), (48, 256)), ((2, 100, 300), (48, 256))]
+TOOL_REPS = 5  # back-to-back calls per timing in the tools' runs
 # H100 SXM peaks (NVIDIA's data sheet, at 700 W): fp32 outside the tensor
 # cores, and HBM3. A kernel's bound is the larger of its operations and its
 # bytes (each input read once, each output written once) over these.
@@ -192,20 +220,26 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import numpy as np
 
-    from jincresize_tpu_torch import bench, sharding
+    from jincresize_tpu_torch import bench, cli, metrics, sharding
+    from jincresize_tpu_torch import entry as entry_mod
     from jincresize_tpu_torch.clip import Clip, gray, random_frame, yuv420p, yuv444p
     from jincresize_tpu_torch.geometry import chroma_crop
-    from jincresize_tpu_torch.golden import reference_sample_pixels
+    from jincresize_tpu_torch.golden import apply_plane_numpy, reference_sample_pixels
     from jincresize_tpu_torch.operator import build_plane_operator, radius_for_tap
     from jincresize_tpu_torch.phase import plan_phases, plan_phases_seg
-    from jincresize_tpu_torch.api import JincConfig, JincResizer, jinc_resize
+    from jincresize_tpu_torch.api import ChainResizer, JincConfig, JincResizer, jinc_resize
+    from jincresize_tpu_torch.api import jinc_resize_chain
     from jincresize_tpu_torch.apply_gather import GatherApplier
     from jincresize_tpu_torch.apply_xla import finalize, torch_dtype
     from jincresize_tpu_torch.kernels import _build
     from jincresize_tpu_torch.kernels import fused as fused_k
     from jincresize_tpu_torch.kernels import gather as gather_k
+    from jincresize_tpu_torch.kernels import probe
     from jincresize_tpu_torch.kernels import seg as seg_k
     from jincresize_tpu_torch.kernels import strips as strips_k
+    from jincresize_tpu_torch.tools import (assemble_breakdown, bench_gather,
+                                            device_loop_timing, fused_tile_sweep,
+                                            streaming_pipeline)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -216,10 +250,15 @@ def main() -> int:
         "gather": gather_k.gather_interior,
         "seg": seg_k.seg_interior,
         "gather_band": gather_k.gather_band,
+        "out_only": probe.out_only,
     }
 
     def counts():
         return {k: w.launches for k, w in wrappers.items()}
+
+    def zero_counts():
+        for w in wrappers.values():
+            w.launches = 0
 
     # ---------------------------------------------------------------- phase 1
     card = card_line()
@@ -338,6 +377,35 @@ def main() -> int:
               f"err={worst:.3g}{'' if bits == 32 else ' LSB'}")
         return worst
 
+    def check_tiles(name, op, rng, frames=2):
+        """Every non-default thread block of the fused kernel against the
+        default on fp32 sources: the same sums in the same order, so 0."""
+        fi = fused_k.make_fused_interior(op, plan_phases(op), dev)
+        src = rand_src(op, 32, rng, frames)
+        ref = fused_k.fused_interior(fi, src)
+        errs = {}
+        for tile in fused_k.TILES[1:]:
+            errs["{}x{}".format(*tile)] = float((fused_k.fused_interior(fi, src, tile) - ref).abs().max())
+        torch.cuda.synchronize()
+        print(f"[2] {name:28s} fused thread blocks vs 32x8 (smem "
+              f"{fused_k.smem_bytes(fi.py, fi.px, fi.fs)} B): max |err| {errs}")
+        assert all(v == 0 for v in errs.values()), (name, errs)
+        tiles_checked.append(name)
+
+    def check_probe(shape, tile):
+        """The out_only kernel against its plain form on a tensor filled
+        with non-zeros; returns the max |err| (must be 0)."""
+        buf = torch.full(shape, 7.0, device=dev)
+        before = counts()
+        probe.out_only(buf, tile)
+        torch.cuda.synchronize()
+        assert counts() == {**before, "out_only": before["out_only"] + 1}, shape
+        err = float((buf - probe.out_only_plain(shape, dev)).abs().max())
+        grid = -(-shape[1] // tile[0]) * -(-shape[2] // tile[1])
+        print(f"[2] out_only {shape} tiles {tile} ({grid} blocks a frame): max |err| {err}")
+        assert err == 0, (shape, err)
+        return err
+
     def against_golden(name, fmt, r, cfg, sw, sh):
         """The whole applier through the public API (upload, dtype casts,
         fixups, assembly, finalize) against the host golden."""
@@ -354,6 +422,10 @@ def main() -> int:
     rng = np.random.default_rng(2026)
     max_err = dict.fromkeys(wrappers, 0.0)
     covered = dict.fromkeys(wrappers, 0)
+    tiles_checked = []
+    for shape, tile in PROBE_SHAPES:
+        max_err["out_only"] = max(max_err["out_only"], check_probe(shape, tile))
+        covered["out_only"] += 1
     deep_err = dict.fromkeys(("fused", "strips"), 0.0)
     for name, sw, sh, dw, dh, tap, bits, kw in CASES:
         kw = dict(kw)
@@ -373,6 +445,8 @@ def main() -> int:
                         if deep:
                             deep_err[k] = max(deep_err[k], v)
         against_golden(name, fmt, r, cfg, sw, sh)
+        if name in TILE_CASES:
+            check_tiles(name, r.op_luma, rng)
 
     for name, kind, sw, sh, dw, dh, tap in INTERIOR_CASES:
         cfg = JincConfig(target_width=dw, target_height=dh, tap=tap, impl=kind)
@@ -447,6 +521,7 @@ def main() -> int:
         if bits == 32:
             max_err["gather_band"] = max(max_err["gather_band"], err)
     assert all(covered.values()), covered
+    assert sorted(tiles_checked) == sorted(TILE_CASES), tiles_checked
 
     # ---------------------------------------------------------------- phase 3
     def oracle_check(tag, pclip, out, pr, sw, sh, dw, dh, tap=TAP, n_samples=ORACLE_SAMPLES):
@@ -506,15 +581,14 @@ def main() -> int:
     n_planes = len(fmt.plane_names)
     expect = conv_expect(resizer)
     assert expect["strips"] > 0, "the strip kernel declined every 4K->8K plane"
-    for w in wrappers.values():
-        w.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     out = jinc_resize(clip, DST_W, DST_H, tap=TAP, device=DEVICE, operator_cache=False)
     torch.cuda.synchronize()
     launches = counts()
     print(f"[3] jinc_resize 4x 3840x2160 yuv420p8 -> 7680x4320 tap8 in "
           f"{time.perf_counter() - t0:.1f} s (construction included); launches {launches}")
-    assert launches == {**expect, "gather": 0, "seg": 0, "gather_band": 0}, (launches, expect)
+    assert launches == {**dict.fromkeys(wrappers, 0), **expect}, (launches, expect)
 
     ref = jinc_resize(clip, DST_W, DST_H, tap=TAP, device=DEVICE, impl="xla", operator_cache=False)
     against("fused engine", out, ref)
@@ -528,8 +602,7 @@ def main() -> int:
         pr, pclip = paths[key]
         sw, sh, dw, dh = DRIFT if key == "drift" else APERIODIC
         assert pr.engines == {"luma": engine, "chroma": engine}, pr.engines
-        for w in wrappers.values():
-            w.launches = 0
+        zero_counts()
         t0 = time.perf_counter()
         pout = pr(pclip)
         torch.cuda.synchronize()
@@ -547,8 +620,7 @@ def main() -> int:
     deep_geo = "{}x{}->{}x{}".format(*DEEP)
     assert deep_r.engines == {"luma": "fused", "chroma": "fused"}, deep_r.engines
     deep_expect = conv_expect(deep_r)
-    for w in wrappers.values():
-        w.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     dout = deep_r(dclip)
     torch.cuda.synchronize()
@@ -588,8 +660,7 @@ def main() -> int:
         sr = JincResizer(fmt, sw, sh, cfg, frame0=sclip.frames[0], device=dev, mesh=mesh)
         built = time.perf_counter() - t0
         assert sr.engines == {"luma": f"sharded/{interior}", "chroma": f"sharded/{interior}"}, sr.engines
-        for w in wrappers.values():
-            w.launches = 0
+        zero_counts()
         t0 = time.perf_counter()
         sout = sr(sclip)
         torch.cuda.synchronize()
@@ -618,6 +689,118 @@ def main() -> int:
                 "single-card gather engine")
     else:
         print("[3] one visible card: the mesh of distinct cards was not run")
+
+    zeros = dict.fromkeys(wrappers, 0)
+    (ROOT / "build").mkdir(exist_ok=True)
+
+    # A chain of two 2x stages, composed on the host into one operator a
+    # plane. The composed operators are cached in a fresh directory, so the
+    # first construction composes and the later ones load; the chain runs
+    # through jinc_resize_chain and is held to the same composed operators on
+    # impl='xla'.
+    (csw, csh), *chain_dst = CHAIN
+    chain_geo = " -> ".join(f"{w}x{h}" for w, h in CHAIN)
+    cclip = Clip.from_frames([random_frame(fmt, csw, csh, seed=500 + i) for i in range(2)])
+    stages = [dict(target_width=w, target_height=h, tap=CHAIN_TAP) for w, h in chain_dst]
+    old_cache = os.environ.get("JINCRESIZE_TORCH_CACHE_DIR")
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as cache_dir:
+        os.environ["JINCRESIZE_TORCH_CACHE_DIR"] = cache_dir
+        try:
+            t0 = time.perf_counter()
+            cr = ChainResizer(fmt, csw, csh, [JincConfig(**st) for st in stages],
+                              frame0=cclip.frames[0], device=dev)  # fmt: skip
+            print(f"[3] chain {chain_geo} tap{CHAIN_TAP}: host composition "
+                  f"{time.perf_counter() - t0:.1f} s (stage operators built and composed); "
+                  f"composed fs luma {cr.op_luma.filter_size} chroma {cr.op_chroma.filter_size}; "
+                  f"engines {cr.engines}")
+            assert cr.stages, "the first chain construction must compose"
+            assert cr.engines == {"luma": "fused", "chroma": "fused"}, cr.engines
+            cexpect = conv_expect(cr)
+            zero_counts()
+            t0 = time.perf_counter()
+            cout = jinc_resize_chain(cclip, stages, device=DEVICE)
+            torch.cuda.synchronize()
+            got = counts()
+            print(f"[3] jinc_resize_chain 2x {chain_geo} yuv420p8 tap{CHAIN_TAP} in "
+                  f"{time.perf_counter() - t0:.1f} s (composed operators loaded); launches {got}")
+            assert got == {**zeros, **cexpect}, (got, cexpect)
+            cref = ChainResizer(fmt, csw, csh, [JincConfig(**st, impl="xla") for st in stages],
+                                frame0=cclip.frames[0], device=dev)  # fmt: skip
+            assert not cref.stages, "the reference chain must load the composed operators"
+            against("chain (fused engine)", cout, cref(cclip),
+                    "the same composed operators on impl='xla'")
+        finally:
+            if old_cache is None:
+                del os.environ["JINCRESIZE_TORCH_CACHE_DIR"]
+            else:
+                os.environ["JINCRESIZE_TORCH_CACHE_DIR"] = old_cache
+    del cr, cref, cout, cclip
+
+    # The CLI on the first two frames of the 4K clip, in this process
+    # (launches counted) and as ``python -m jincresize_tpu_torch``: both must
+    # write the API's output of phase 3, bit for bit.
+    torch.cuda.empty_cache()  # room for the second process
+    api_out = {n: np.stack([f.planes[n] for f in out.frames[:2]]) for n in fmt.plane_names}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as cdir:
+        cdir = Path(cdir)
+        np.savez(cdir / "in.npz", _props=np.array(json.dumps(clip.frames[0].props)),
+                 **{n: np.stack([f.planes[n] for f in clip.frames[:2]]) for n in fmt.plane_names})
+        flags = ["--width", str(DST_W), "--height", str(DST_H), "--tap", str(TAP), "--no-cache"]
+        zero_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main([str(cdir / "in.npz"), str(cdir / "main.npz"), *flags])
+        torch.cuda.synchronize()
+        got = counts()
+        print(f"[3] cli.main 2x {SRC_W}x{SRC_H} -> {DST_W}x{DST_H} tap{TAP} .npz in "
+              f"{time.perf_counter() - t0:.1f} s: rc {rc}; launches {got}")
+        assert rc == 0 and got == {**zeros, **expect}, (rc, got, expect)
+        t0 = time.perf_counter()
+        sub = subprocess.run(
+            [sys.executable, "-m", "jincresize_tpu_torch", str(cdir / "in.npz"),
+             str(cdir / "sub.npz"), *flags],
+            cwd=ROOT, capture_output=True, text=True, timeout=600,
+        )  # fmt: skip
+        print(f"[3] python -m jincresize_tpu_torch in {time.perf_counter() - t0:.1f} s: "
+              f"rc {sub.returncode}")
+        assert sub.returncode == 0, sub.stderr[-4000:]
+        for tag, line, name in (("cli.main", buf.getvalue(), "main.npz"),
+                                ("python -m jincresize_tpu_torch", sub.stdout, "sub.npz")):
+            line = line.strip().splitlines()[-1]
+            with np.load(cdir / name) as z:
+                d = max(int(np.abs(z[n].astype(np.int64) - api_out[n].astype(np.int64)).max())
+                        for n in fmt.plane_names)  # fmt: skip
+            print(f"[3] {tag}: {line!r}; max {d} LSB against jinc_resize")
+            assert "engines: luma=fused,chroma=fused" in line and d == 0, (tag, line, d)
+    del api_out
+
+    # The entry points of entry.py: the one-card step against the host golden, and the
+    # mesh dry run on four shards of the card against the host golden.
+    zero_counts()
+    efn, (esrc,) = entry_mod.entry()
+    eout = efn(esrc)
+    torch.cuda.synchronize()
+    got = counts()
+    sw, sh, dw, dh, tap = entry_mod.STEP
+    ewant = apply_plane_numpy(build_plane_operator(sw, sh, dw, dh, radius_for_tap(tap)),
+                              esrc.cpu().numpy())  # fmt: skip
+    eerr = float(np.abs(eout.cpu().numpy() - ewant).max())
+    print(f"[3] entry() {sw}x{sh} -> {dw}x{dh} tap{tap}: out {tuple(eout.shape)} max |err| "
+          f"{eerr:.3g} against the host golden; launches {got}")
+    assert tuple(eout.shape) == (dh, dw) and eerr <= F32_TOL, eerr
+    assert got["fused"] == 1 and got == {**zeros, "fused": 1, "strips": got["strips"]}, got
+    zero_counts()
+    mout = entry_mod.dryrun_multichip(N_SHARDS, devices=[dev] * N_SHARDS)
+    got = counts()
+    sw, sh, dw, dh, tap = entry_mod.DRYRUN
+    mop = build_plane_operator(sw, sh, dw, dh, radius_for_tap(tap))
+    msrc = np.random.default_rng(0).random((mout.shape[0], sh, sw), dtype=np.float32)
+    merr = max(float(np.abs(mout[i].cpu().numpy() - apply_plane_numpy(mop, msrc[i])).max())
+               for i in range(mout.shape[0]))  # fmt: skip
+    print(f"[3] dryrun_multichip({N_SHARDS}) on {N_SHARDS} shards of {dev}: out "
+          f"{tuple(mout.shape)} max |err| {merr:.3g} against the host golden; launches {got}")
+    assert merr <= F32_TOL and sum(got.values()) > 0, (merr, got)
     plain_calls = fused_k.fused_interior_plain.calls
     print(f"[3] fused_interior_plain called {plain_calls} times in phase 3")
     assert plain_calls == 0, plain_calls
@@ -689,6 +872,63 @@ def main() -> int:
         return bound_ms(2 * st.fs**2 * out_px, nbytes + 4 * F * st.n_strips * st.ny_max * st.px * st.nxb)
 
     card = card_line()
+
+    def run_tool(mod, argv, kernels):
+        """One tool's ``main`` in this process, its stdout echoed, the launch
+        counts set to 0 before and read after; every kernel in ``kernels``
+        must have been launched. Returns (result, launches)."""
+        name = mod.__name__.rsplit(".", 1)[1]
+        zero_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = mod.main(argv)
+        torch.cuda.synchronize()
+        got = counts()
+        for line in buf.getvalue().splitlines():
+            print(f"[4] {name}: {line}")
+        print(f"[4] {name} {' '.join(argv)} ({time.perf_counter() - t0:.1f} s): launches {got}")
+        assert all(got[k] > 0 for k in kernels), (name, kernels, got)
+        return res, got
+
+    reps = ["--reps", str(TOOL_REPS)]
+    # device_loop_timing is the probe kernel's main path.
+    _, got = run_tool(device_loop_timing, reps, ("out_only", "fused", "strips"))
+    launches["out_only"] = got["out_only"]
+    sweep, _ = run_tool(fused_tile_sweep, reps, ("fused",))
+    assert all(v["err"] == 0 for v in sweep.values()), sweep
+    run_tool(assemble_breakdown, reps, ("fused", "strips"))
+    res, _ = run_tool(bench_gather, ["--geometry", "4k", "--impl", "seg", "--check", "--iters", "1"],
+                      ("seg",))  # fmt: skip
+    assert res["engine"] == "fused-seg" and res["check_lsb"] <= 1, res
+    res, _ = run_tool(bench_gather, ["--geometry", "4k", "--impl", "gather", "--iters", "1"],
+                      ("gather",))  # fmt: skip
+    assert res["engine"] == "gather", res
+    res, _ = run_tool(streaming_pipeline, [], ("fused",))
+    assert res["value"] > 0, res
+
+    # One 4-frame 4K -> 8K call of the resizer a caller keeps, under
+    # torch.profiler: where the call's device time goes.
+    resizer(clip)
+    torch.cuda.synchronize()
+    with metrics.device_trace(str(ROOT / "build" / "trace")):
+        resizer(clip)
+        torch.cuda.synchronize()
+    trace = ROOT / "build" / "trace" / "trace.json"
+    ops = metrics.device_time_by_op(trace)
+    busy, span = metrics.device_busy(trace)
+    print(f"[4] torch.profiler: one JincResizer call, {E2E_FRAMES}x {SRC_W}x{SRC_H} yuv420p8 -> "
+          f"{DST_W}x{DST_H} tap{TAP}: {busy:.3f} ms of device operations in "
+          f"{sum(n for _, n in ops.values())} launches over a {span:.3f} ms span "
+          f"(device idle {1 - busy / span:.1%} of it) [{card}]")
+    for name, (t, n) in list(ops.items())[:10]:
+        print(f"[4]   {t:10.3f} ms {n:4d}x  {name[:110]}")
+    htod = sum(t for name, (t, _) in ops.items() if "HtoD" in name)
+    dtoh = sum(t for name, (t, _) in ops.items() if "DtoH" in name)
+    print(f"[4]   memcpy HtoD {htod:.3f} ms, DtoH {dtoh:.3f} ms, the rest "
+          f"{busy - htod - dtoh:.3f} ms [{card}]")
+    assert htod > 0 and dtoh > 0 and any("fused_interior" in k for k in ops), list(ops)[:10]
+
     app = resizer._applier_luma
     tsrc = torch.from_numpy(
         rng.random((TIMING_FRAMES, SRC_H, SRC_W), dtype=np.float32)
@@ -855,6 +1095,28 @@ def main() -> int:
         print(f"[4] python -m jincresize_tpu_torch.bench {' '.join(mode)} --iters 2 "
               f"({time.perf_counter() - t0:.1f} s): {json.dumps(res)}")
 
+    # The probe on an 8-frame 4K -> 8K output batch beside its bound (the
+    # output's bytes once) and torch.zeros of the same shape (a memset).
+    pbuf = torch.empty((TIMING_FRAMES, DST_H, DST_W), device=dev)
+    probe_runs = (
+        ("out_only_plain", lambda: probe.out_only_plain(pbuf.shape, dev)),
+        ("out_only", lambda: probe.out_only(pbuf)),
+        ("torch.zeros", lambda: torch.zeros(pbuf.shape, device=dev)),
+    )
+    probe_ms = {}
+    for order in (probe_runs, probe_runs[::-1]):
+        for k, fn in order:
+            probe_ms.setdefault(k, []).append(cuda_ms(fn, 20))
+    for k, v in probe_ms.items():
+        ms[k] = statistics.median(v)
+    bounds["out_only"] = bound_ms(0, pbuf.numel() * pbuf.element_size())
+    b, by = bounds["out_only"]
+    print(f"[4] out_only {ms['out_only']:.3f} ms per {tuple(pbuf.shape)} batch "
+          f"({ms['out_only'] / TIMING_FRAMES:.4f} ms/frame), plain form {ms['out_only_plain']:.3f} ms, "
+          f"torch.zeros {ms['torch.zeros']:.3f} ms; bound {b:.3f} ms ({by}): kernel at "
+          f"{b / ms['out_only']:.1%} of it [{card}]")
+    del pbuf
+
     # cuDNN's conv2d (TF32 off) against the kernel, checked after every
     # number is printed.
     for k, v in lib_err.items():
@@ -927,6 +1189,19 @@ def main() -> int:
             "bound_ms": bounds["gather_band"][0],
             "bound_by": bounds["gather_band"][1],
             "library_ms": None,
+        },
+        {
+            "name": "out_only",
+            "route": "cuda",
+            "source": "jincresize_tpu_torch/csrc/out_only.cu",
+            "replaces": "tools/profiling/device_loop_timing.py:47",
+            "launches": launches["out_only"],
+            "max_abs_err": max_err["out_only"],
+            "ms": ms["out_only"],
+            "plain_ms": ms["out_only_plain"],
+            "bound_ms": bounds["out_only"][0],
+            "bound_by": bounds["out_only"][1],
+            "library_ms": ms["torch.zeros"],
         },
     ]
     print(json.dumps({"kernels": kernels}))

@@ -34,22 +34,26 @@ their engine or raise; ``'pallas'`` runs the first hand-written engine of
 ``'auto'`` with a ``mesh``, runs the sharded engine on every plane; with no
 mesh it takes ``sharding.make_mesh`` over every visible device of the
 resizer's device type. A mesh with any other ``impl`` raises ``JincError``.
-``ChainResizer`` and the CLI are not ported.
+
+``ChainResizer`` / ``jinc_resize_chain`` compose a chain of resizes into one
+operator per plane (``compose.compose``), which re-enters the same engine
+selection.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import asdict, dataclass, replace
 
 import numpy as np
 import torch
 
 from .clip import Clip, Frame, VideoFormat
 from .filters import build_lut
-from .geometry import chroma_crop
+from .geometry import build_plane_geometry, chroma_crop
 from .golden import apply_plane_numpy
+from .metrics import logger
 from .operator import PlaneOperator, build_plane_operator, radius_for_tap
-from .phase import plan_phases, plan_phases_seg
+from .phase import geometry_is_periodic, plan_phases, plan_phases_seg
 
 from . import apply_xla
 from .apply_conv import ConvApplier
@@ -240,11 +244,7 @@ class JincResizer:
             raise JincError(
                 "JincResize: mesh is only valid with impl='sharded' or 'auto'."
             )
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "JincResize: device='cuda' requested but no CUDA device is visible."
-            )
+        self.device = apply_xla.resolve_device(device)
         self.fmt = fmt
         self.src_width = width
         self.src_height = height
@@ -324,6 +324,20 @@ class JincResizer:
                 blur=blur,
                 pos_precision=pos_precision,
             )
+        # Luma geometry kwargs, kept for the drift hint.
+        self._luma_geometry = dict(
+            src_width=width,
+            src_height=height,
+            dst_width=tw,
+            dst_height=th,
+            radius=radius,
+            crop_left=crop_left,
+            crop_top=crop_top,
+            crop_width=crop_width,
+            crop_height=crop_height,
+            quantize_x=cfg.quant_x,
+            quantize_y=cfg.quant_y,
+        )
         self._init_engines(mesh)
 
         # Float-source clamp per plane (SIMD semantics unless opt==0).
@@ -373,6 +387,29 @@ class JincResizer:
             setattr(self, f"_applier_{plane}", app)
             setattr(self, f"_dev_{plane}", dev)
             self.engines[plane] = eng
+        self._maybe_drift_hint()
+
+    def _maybe_drift_hint(self) -> None:
+        """Log when float32 position drift kept a rational geometry off the
+        fused kernel: with float64 positions it would plan periodic."""
+        cfg = self.cfg
+        geo = getattr(self, "_luma_geometry", None)
+        if (
+            geo is None
+            or cfg.impl != "auto"
+            or cfg.pos_precision != "f32"
+            or self.engines.get("luma") not in ("gather", "xla")
+        ):
+            return
+        # dists=False: the probe needs only classes, starts and borders.
+        if geometry_is_periodic(build_plane_geometry(pos_dtype="f64", dists=False, **geo)):
+            logger.info(
+                "geometry is quasi-periodic: float32 position drift forced the %s "
+                "path; impl='seg' (the segment-periodic kernel, at bit parity) or "
+                "pos_precision='f64' (documented non-parity mode, exactly periodic) "
+                "would run this request on a faster kernel.",
+                self.engines["luma"],
+            )
 
     # ------------------------------------------------------------------ plane
     def _plane_op(self, name: str):
@@ -486,6 +523,148 @@ def jinc_resize(
         clip.format, clip.width, clip.height, cfg, frame0=frame0, device=device, mesh=mesh
     )
     return resizer(clip)
+
+
+class ChainResizer(JincResizer):
+    """Composed multi-stage resizer: one operator for a whole chain.
+
+    The per-stage operators are composed on the host (``compose.compose``)
+    into one banded operator per plane, so a frame takes one pass with no
+    intermediate rounding, and the composed operator goes through the same
+    engine selection as a single stage (fused, seg, gather or sharded).
+    Composed operators are cached under ``cache.default_cache_dir()``, keyed
+    by the whole chain and the plane.
+    """
+
+    def __init__(
+        self,
+        fmt: VideoFormat,
+        width: int,
+        height: int,
+        cfgs: list[JincConfig],
+        frame0: Frame | None = None,
+        device="cuda",
+        mesh=None,
+    ):
+        if not cfgs:
+            raise JincError("JincResize: chain needs at least one stage.")
+        from . import compose as compose_mod
+        from .cache import default_cache_dir, geometry_key, load_operator, save_operator
+
+        # cplace resolves once, from the first stage (later stages would read
+        # the _ChromaLocation prop the previous stage wrote: the same value).
+        cpl = _resolve_cplace(cfgs[0], fmt, frame0)
+        for cfg in cfgs:
+            _validate(cfg)
+        last = cfgs[-1]
+        self.device = apply_xla.resolve_device(device)
+
+        # Composed-operator cache: keyed by the full stage chain and the plane.
+        cache_paths = {}
+        if all(c.operator_cache for c in cfgs):
+
+            def _desc(c: JincConfig) -> dict:
+                d = asdict(c)
+                # Drop everything that does not affect coefficients.
+                for k in (
+                    "impl",
+                    "precision",
+                    "operator_cache",
+                    "threads",
+                    "opt",
+                    "initial_capacity",
+                    "initial_factor",
+                    "float_clamp",
+                    "cplace",
+                ):
+                    d.pop(k, None)
+                if d.get("pos_precision") == "f32":
+                    d.pop("pos_precision")
+                return d
+
+            base = dict(
+                chain=[_desc(c) for c in cfgs],
+                cplace=cpl,
+                src=[width, height],
+                sub=[fmt.sub_w, fmt.sub_h],
+                family=fmt.family,
+            )
+            for plane in ("luma", "chroma"):
+                key = geometry_key(plane=plane, **base)
+                cache_paths[plane] = default_cache_dir() / f"chain_{key}.npz"
+
+        def _load(plane):
+            p = cache_paths.get(plane)
+            if p is not None and p.exists():
+                try:
+                    return load_operator(p)
+                except Exception:
+                    pass  # corrupt cache entry: compose again
+            return None
+
+        def _compose(plane, attr):
+            op = getattr(self.stages[0], attr)
+            for r in self.stages[1:]:
+                op = compose_mod.compose(op, getattr(r, attr))
+            if cache_paths:
+                try:
+                    save_operator(op, cache_paths[plane])
+                except OSError:
+                    pass  # cache write failure is non-fatal
+            return op
+
+        need_chroma = fmt.family == "YUV" and fmt.is_subsampled
+        composed_luma = _load("luma")
+        composed_chroma = _load("chroma") if need_chroma else None
+        self.stages = []
+        if composed_luma is None or (need_chroma and composed_chroma is None):
+            # Stage resizers are built engine-less (impl='numpy'): only their
+            # operators are used. cplace is pinned to the resolved value so
+            # the chroma siting matches chained execution.
+            w, h = width, height
+            for cfg in cfgs:
+                r = JincResizer(
+                    fmt, w, h, replace(cfg, impl="numpy", cplace=cpl), device=self.device
+                )
+                self.stages.append(r)
+                w, h = cfg.target_width, cfg.target_height
+            if composed_luma is None:
+                composed_luma = _compose("luma", "op_luma")
+            if need_chroma and composed_chroma is None:
+                composed_chroma = _compose("chroma", "op_chroma")
+
+        # Adopt the final stage's identity, then install the composed
+        # operators and select engines exactly like a single-stage resizer.
+        self.fmt = fmt
+        self.src_width = width
+        self.src_height = height
+        self.cfg = last
+        self.cplace = cpl
+        self.peak = fmt.peak
+        self.op_luma = composed_luma
+        self.op_chroma = composed_chroma
+        self._init_engines(mesh)
+        clamp = last.float_clamp
+        if clamp is None:
+            clamp = last.opt != 0
+        self._float_clamp = clamp and fmt.bits == 32
+
+
+def jinc_resize_chain(clip: Clip, stages: list[dict], device="cuda", mesh=None) -> Clip:
+    """Run a chain of resizes as ONE composed operator pass.
+
+    ``stages`` is a list of ``jinc_resize`` keyword dicts (each needs
+    ``target_width``/``target_height``). Equal to nested ``jinc_resize`` calls
+    for float clips, minus the intermediate passes; for integer clips it
+    skips the intermediate round/clamp (a documented deviation from running
+    the stages separately).
+    """
+    cfgs = [JincConfig(**s) for s in stages]
+    frame0 = clip.frames[0] if len(clip.frames) else None
+    r = ChainResizer(
+        clip.format, clip.width, clip.height, cfgs, frame0=frame0, device=device, mesh=mesh
+    )
+    return r(clip)
 
 
 def _alias(tap: int):

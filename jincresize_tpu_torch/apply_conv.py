@@ -32,8 +32,8 @@ import torch
 from .operator import PlaneOperator
 from .phase import PhasePlan, build_conv_kernels, plan_phases
 
-from .apply_strips_fast import plan_strips, strip_values_fast
-from .apply_xla import DevicePlaneOperator, finalize, source_f32, to_device
+from .apply_strips_fast import plan_strips, strip_values_fast, window_indices
+from .apply_xla import DevicePlaneOperator, finalize, resolve_device, source_f32, to_device
 from .kernels import fused as fused_k
 from .kernels import strips as strips_k
 
@@ -53,9 +53,10 @@ class ConvOperator:
 
 
 def build_conv_operator(
-    op: PlaneOperator, plan: PhasePlan | None = None, device="cpu"
+    op: PlaneOperator, plan: PhasePlan | None = None, device="cuda"
 ) -> ConvOperator | None:
     """Compile a PlaneOperator into its phase-conv form; None if aperiodic."""
+    device = resolve_device(device)
     if plan is None:
         plan = plan_phases(op)
     if plan is None:
@@ -267,8 +268,9 @@ class ConvApplier:
         plan: PhasePlan | None = None,
         interior: str = "fused",
         precision: str = "fp32",
-        device="cpu",
+        device="cuda",
     ):
+        self.device = resolve_device(device)
         if precision not in ("fp32", "bf16", "fp32_u8src"):
             raise ValueError(f"ConvApplier: unknown precision {precision!r}")
         if interior != "fused":
@@ -277,7 +279,6 @@ class ConvApplier:
                 "fused kernel interior exists in this package"
             )
         self.precision = precision
-        self.device = torch.device(device)
         if plan is None:
             plan = plan_phases(op)
         if plan is None:
@@ -288,6 +289,8 @@ class ConvApplier:
         self.cop = build_conv_operator(op, plan, self.device)
         self.fs = op.filter_size
         self._strip_plans = plan_strips(op, plan)
+        if self._strip_plans is not None:
+            self._strip_idx = window_indices(self.cop.dop, self._strip_plans)
         self.strips_spec = None
         self._setup_strip_kernel(op, plan)
         self._concat = self._frame_classification(op)
@@ -299,7 +302,7 @@ class ConvApplier:
             return [
                 (rect, acc)
                 for _, rect, acc in strip_values_fast(
-                    dop, self._strip_plans, src_f, only=only
+                    dop, self._strip_plans, self._strip_idx, src_f, only=only
                 )
             ]
         return [

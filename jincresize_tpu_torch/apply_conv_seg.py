@@ -20,7 +20,7 @@ from .phase import SegPhasePlan, plan_phases_seg
 
 from .apply_conv import _cols_subset, _rows_subset, banded_strip_values, strip_row_bands
 from .apply_gather import assemble, concat, strips_frame_interior
-from .apply_xla import finalize, source_f32, to_device
+from .apply_xla import finalize, resolve_device, source_f32, to_device
 from .kernels import seg as seg_k
 
 f32 = torch.float32
@@ -41,8 +41,9 @@ class SegConvApplier:
         op: PlaneOperator,
         plan: SegPhasePlan | None = None,
         precision: str = "fp32",
-        device="cpu",
+        device="cuda",
     ):
+        self.device = resolve_device(device)
         if precision not in ("fp32", "bf16", "fp32_u8src"):
             raise ValueError(f"SegConvApplier: unknown precision {precision!r}")
         if plan is None:
@@ -53,7 +54,6 @@ class SegConvApplier:
             raise ValueError("SegConvApplier: geometry outside kernel envelope")
         self.op = op
         self.plan = plan
-        self.device = torch.device(device)
         self.interior = "fused-seg"
         self.precision = precision
         self.effective_precision = precision

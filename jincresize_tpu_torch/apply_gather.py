@@ -15,7 +15,7 @@ import torch
 from .operator import PlaneOperator
 
 from .apply_conv import banded_strip_values, strip_row_bands
-from .apply_xla import finalize, source_f32, to_device
+from .apply_xla import finalize, resolve_device, source_f32, to_device
 from .kernels import gather as gather_k
 
 f32 = torch.float32
@@ -73,11 +73,11 @@ class GatherApplier:
     geometry is outside the kernel envelope.
     """
 
-    def __init__(self, op: PlaneOperator, device="cpu"):
+    def __init__(self, op: PlaneOperator, device="cuda"):
+        self.device = resolve_device(device)
         if not gather_k.is_supported(op):
             raise ValueError("GatherApplier: geometry outside kernel envelope")
         self.op = op
-        self.device = torch.device(device)
         self.interior = "gather"
         self.effective_precision = "fp32"  # fp32 FMA throughout, no precision modes
         self.gi = gather_k.make_gather_interior(op, self.device)

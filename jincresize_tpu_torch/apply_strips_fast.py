@@ -116,31 +116,43 @@ def _window_index(
     return idx
 
 
-def strip_values_fast(dop, strip_plans, src_f, only=None):
+def window_indices(dop, strip_plans) -> list[torch.Tensor]:
+    """Every strip's window starts on its free axis (``_window_index``), on
+    the operator's device. Built once per applier: the anchors come from the
+    host, and a host-to-device copy per call would wait for the stream."""
+    out = []
+    for sp in strip_plans:
+        y0, y1, x0, x1 = sp.rect
+        if sp.kind in ("top", "bottom"):
+            out.append(_window_index(sp, x1 - x0, x0, dop.start_x))
+        else:
+            out.append(_window_index(sp, y1 - y0, y0, dop.start_y))
+    return out
+
+
+def strip_values_fast(dop, strip_plans, idxs, src_f, only=None):
     """Compute strip value blocks from one source band per strip.
 
-    ``src_f`` is (F, H, W) float32. Returns [(index, (y0, y1, x0, x1),
-    values (F, ny, nx))]; ``only`` (tuple of indices into dop.strips)
-    restricts which strips are computed -- used when the strip kernel
-    already covered the rest.
+    ``src_f`` is (F, H, W) float32; ``idxs`` are the strips'
+    ``window_indices``. Returns [(index, (y0, y1, x0, x1), values (F, ny,
+    nx))]; ``only`` (tuple of indices into dop.strips) restricts which
+    strips are computed -- used when the strip kernel already covered the
+    rest.
     """
     fs = dop.filter_size
     out = []
-    for i, (s, sp) in enumerate(zip(dop.strips, strip_plans)):
+    for i, (s, sp, idx) in enumerate(zip(dop.strips, strip_plans, idxs)):
         if only is not None and i not in only:
             continue
-        y0, y1, x0, x1 = sp.rect
         c = sp.const_start
         if sp.kind in ("top", "bottom"):
             band = src_f[:, c : c + fs, :]  # (F, fs_ly, W)
             S = band.unfold(2, fs, 1)  # (F, fs_ly, U, fs_lx)
-            idx = _window_index(sp, x1 - x0, x0, dop.start_x)
             vec = S[:, :, idx, :]  # (F, fs_ly, nx, fs_lx)
             acc = torch.einsum("fkxl,yxkl->fyx", vec, s.blocks)
         else:
             band = src_f[:, :, c : c + fs]  # (F, H, fs_lx)
             S = band.unfold(1, fs, 1)  # (F, U, fs_lx, fs_ly)
-            idx = _window_index(sp, y1 - y0, y0, dop.start_y)
             vec = S[:, idx]  # (F, ny, fs_lx, fs_ly)
             acc = torch.einsum("fylk,yxkl->fyx", vec, s.blocks)
         out.append((i, sp.rect, acc))

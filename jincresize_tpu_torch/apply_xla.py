@@ -32,6 +32,18 @@ def torch_dtype(dtype) -> torch.dtype:
     return _TORCH_DTYPES[np.dtype(dtype)]
 
 
+def resolve_device(device) -> torch.device:
+    """``torch.device(device)``; a CUDA device without a visible GPU raises
+    (the port's entry points run on the card unless asked for the CPU, and
+    never fall back to it)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "JincResize: device='cuda' requested but no CUDA device is visible."
+        )
+    return device
+
+
 @dataclass(frozen=True)
 class DeviceStrip:
     """Device-resident border strip (static rectangle, per-pixel blocks)."""
@@ -60,8 +72,9 @@ class DevicePlaneOperator:
     filter_size: int = 0
 
 
-def to_device(op: PlaneOperator, device="cpu") -> DevicePlaneOperator:
+def to_device(op: PlaneOperator, device="cuda") -> DevicePlaneOperator:
     """Carry a host-built PlaneOperator's arrays to ``device``."""
+    device = resolve_device(device)
 
     def t(a, dtype=None):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(device)

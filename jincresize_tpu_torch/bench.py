@@ -119,9 +119,7 @@ def main(argv=None, size: tuple[int, int, int, int] | None = None) -> dict:
             "precision='bf16' (one-pass bf16 interior) is not ported yet "
             "(ROADMAP, still to port #2)"
         )
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("bench: device='cuda' requested but no CUDA device is visible")
+    device = apply_xla.resolve_device(args.device)
     sw, sh, dw, dh, tap = geometry(args)
     if size is not None:
         sw, sh, dw, dh = size

@@ -48,6 +48,10 @@ MAX_SMEM_BYTES = 232448
 # The gather and seg kernels' envelope (fs**2 <= 1200, as the JAX gather
 # kernel's); the fused kernel has none beyond its shared memory.
 FS2_MAX = 1200
+# The kernel's (x, y) thread-block shapes (compile-time constants of
+# csrc/fused_interior.cu); every engine runs the first.
+TILES = ((32, 8), (32, 4), (32, 16), (64, 4), (16, 16))
+DEFAULT_TILE = TILES[0]
 
 
 def _odd_stride(n: int) -> int:
@@ -169,13 +173,16 @@ def fused_interior_plain(fi: FusedInterior, src_f: torch.Tensor) -> torch.Tensor
 fused_interior_plain.calls = 0
 
 
-def fused_interior(fi: FusedInterior, src_f: torch.Tensor) -> torch.Tensor:
+def fused_interior(fi: FusedInterior, src_f: torch.Tensor, tile=DEFAULT_TILE) -> torch.Tensor:
     """Fused interior of ``src_f`` (F, H, W) float32 in destination layout.
 
     On a CPU tensor this is ``fused_interior_plain``. On a CUDA tensor it
     launches ``csrc/fused_interior.cu`` (counted in ``fused_interior.launches``)
-    or raises; it never falls back.
+    or raises; it never falls back. ``tile`` is the kernel's (x, y) thread
+    block, one of ``TILES``; every shape gives the same result.
     """
+    if tuple(tile) not in TILES:
+        raise ValueError(f"fused_interior: tile {tile} is not one of {TILES}")
     if src_f.device.type == "cpu":
         return fused_interior_plain(fi, src_f)
     if src_f.device.type != "cuda":
@@ -193,7 +200,7 @@ def fused_interior(fi: FusedInterior, src_f: torch.Tensor) -> torch.Tensor:
         rc = _build.library().jt_fused_interior(
             src_f.data_ptr(), fi.w.data_ptr(), fi.offs.data_ptr(), out.data_ptr(),
             F, H, W, fi.py, fi.px, fi.qy, fi.qx, fi.base_y, fi.base_x,
-            fi.nyb, fi.nxb, fi.fs, fi.wstride, _build.stream_of(src_f),
+            fi.nyb, fi.nxb, fi.fs, fi.wstride, *tile, _build.stream_of(src_f),
         )  # fmt: skip
     _build.check(rc, "jt_fused_interior")
     fused_interior.launches += 1

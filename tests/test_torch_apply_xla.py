@@ -70,7 +70,7 @@ def test_resize_plane_batch_matches_jax_and_golden(branch, name, dtype, peak, cl
     op = _op(branch)
     src = _src(op, dtype, peak, clamp, seed=len(name) + len(branch))
     got = apply_xla.resize_plane_batch(
-        apply_xla.to_device(op),
+        apply_xla.to_device(op, "cpu"),
         torch.from_numpy(src),
         out_dtype=dtype,
         peak=peak,
@@ -101,7 +101,7 @@ def test_to_device_fields_match_jax(branch):
     from jincresize_tpu import apply_xla as japply
 
     op = _op(branch)
-    dop = apply_xla.to_device(op)
+    dop = apply_xla.to_device(op, "cpu")
     jdop = japply.to_device(_jop(branch))
     for f in ("start_x", "start_y", "cx_idx", "cy_idx", "pair_blocks"):
         np.testing.assert_array_equal(getattr(dop, f).numpy(), np.asarray(getattr(jdop, f)))
@@ -117,7 +117,7 @@ def test_fully_border_geometry_keeps_zero_dictionary():
     dictionary keeps the gathers shape-valid and strips own every pixel."""
     op = build_plane_operator(6, 5, 12, 10, radius_for_tap(3))
     assert op.pair_blocks.size == 0
-    dop = apply_xla.to_device(op)
+    dop = apply_xla.to_device(op, "cpu")
     assert tuple(dop.pair_blocks.shape) == (1, 1, op.filter_size, op.filter_size)
     assert not dop.pair_blocks.any()
     src = _src(op, np.float32, None, None, seed=9, frames=1)
@@ -140,7 +140,7 @@ def test_single_plane_equals_batch():
     """A 2-D source is one frame; the batched einsums may sum in another
     order, so the bound is the fp32 one."""
     op = _op("contract")
-    dop = apply_xla.to_device(op)
+    dop = apply_xla.to_device(op, "cpu")
     src = torch.from_numpy(_src(op, np.float32, None, None, seed=4, frames=3))
     batch = apply_xla.apply_plane(dop, src)
     for f in range(3):

@@ -58,7 +58,7 @@ def test_conv_applier_matches_jax_fused_and_golden(name, g, dtype, peak):
 
     op = _op(g)
     src = _src(op, dtype, peak, seed=len(name))
-    ap = apply_conv.ConvApplier(op)
+    ap = apply_conv.ConvApplier(op, device="cpu")
     got = ap(torch.from_numpy(src), out_dtype=dtype, peak=peak).numpy()
     jap = JaxConvApplier(_jop(g), interior="fused")
     want = np.asarray(jap(jnp.asarray(src), out_dtype=dtype, peak=peak))
@@ -77,10 +77,10 @@ def test_conv_applier_matches_jax_fused_and_golden(name, g, dtype, peak):
 def test_exceptions_take_concat_assembly():
     """160x120 -> 400x300 (5/2) has x- and y-exceptions and takes the
     one-concatenate assembly; 320x180 -> 480x270 takes the paste path."""
-    ap = apply_conv.ConvApplier(_op((160, 120, 400, 300, 3)))
+    ap = apply_conv.ConvApplier(_op((160, 120, 400, 300, 3)), device="cpu")
     assert ap._concat is not None
     assert ap.cop.exc_x.shape[0] and ap.cop.exc_y.shape[0]
-    assert apply_conv.ConvApplier(_op((320, 180, 480, 270, 3)))._concat is None
+    assert apply_conv.ConvApplier(_op((320, 180, 480, 270, 3)), device="cpu")._concat is None
 
 
 @pytest.mark.parametrize(
@@ -93,7 +93,7 @@ def test_build_conv_operator_fields_match_jax(g):
     from jincresize_tpu import apply_conv as japply
 
     op = _op(g)
-    cop = apply_conv.build_conv_operator(op)
+    cop = apply_conv.build_conv_operator(op, device="cpu")
     jcop = japply.build_conv_operator(_jop(g))
     for f in ("kernels", "exc_x", "exc_y"):
         np.testing.assert_array_equal(getattr(cop, f).numpy(), np.asarray(getattr(jcop, f)))
@@ -111,15 +111,15 @@ def test_build_conv_operator_fields_match_jax(g):
 def test_build_conv_operator_aperiodic_is_none():
     op = build_plane_operator(48, 32, 72, 50, radius_for_tap(3))
     assert plan_phases(op) is None
-    assert apply_conv.build_conv_operator(op) is None
+    assert apply_conv.build_conv_operator(op, device="cpu") is None
     with pytest.raises(ValueError, match="aperiodic"):
-        apply_conv.ConvApplier(op)
+        apply_conv.ConvApplier(op, device="cpu")
 
 
 def test_float_clamp_min_and_single_plane():
     op = _op((64, 48, 128, 96, 8))
     src = (_src(op, np.float32, None, seed=3, frames=1)[0] - np.float32(0.5)) * 3
-    ap = apply_conv.ConvApplier(op)
+    ap = apply_conv.ConvApplier(op, device="cpu")
     got = ap(torch.from_numpy(src), float_clamp_min=-0.5).numpy()
     want = apply_plane_numpy(op, src, float_clamp_min=-0.5)
     assert got.shape == want.shape
@@ -133,7 +133,7 @@ def test_strip_kernel_declined_uses_strip_values_fast():
     op = build_plane_operator(
         96, 64, 144, 96, radius_for_tap(3), quantize_x=1, quantize_y=1, blur=0.98
     )
-    ap = apply_conv.ConvApplier(op)
+    ap = apply_conv.ConvApplier(op, device="cpu")
     assert ap.strips_spec is None
     src = _src(op, np.float32, None, seed=8, frames=1)
     got = ap(torch.from_numpy(src)).numpy()[0]
@@ -144,16 +144,16 @@ def test_precision_modes():
     op = _op((64, 48, 128, 96, 8))
     src = torch.from_numpy(_src(op, np.uint8, 255.0, seed=6, frames=1))
     a, b = (
-        apply_conv.ConvApplier(op, precision=prec)(src, out_dtype=np.uint8, peak=255.0)
+        apply_conv.ConvApplier(op, precision=prec, device="cpu")(src, out_dtype=np.uint8, peak=255.0)
         for prec in ("fp32", "fp32_u8src")
     )
     assert torch.equal(a, b)  # the u8-source mode runs the same exact kernel
     with pytest.raises(NotImplementedError, match="bf16"):
-        apply_conv.ConvApplier(op, precision="bf16")
+        apply_conv.ConvApplier(op, precision="bf16", device="cpu")
     with pytest.raises(ValueError, match="unknown precision"):
-        apply_conv.ConvApplier(op, precision="fp16")
+        apply_conv.ConvApplier(op, precision="fp16", device="cpu")
     with pytest.raises(NotImplementedError, match="shift"):
-        apply_conv.ConvApplier(op, interior="shift")
+        apply_conv.ConvApplier(op, interior="shift", device="cpu")
 
 
 def test_anchor_blocks_declined_takes_the_value_path():
@@ -171,7 +171,7 @@ def test_anchor_blocks_declined_takes_the_value_path():
     full = [s for s in op.strips if s.x0 == 0 and s.x1 == op.dst_width]
     assert full and all(strips._anchor_blocks(s, plan.x, op.filter_size) is None for s in full)
     assert strips.make_strips(op, plan) is None
-    ap = apply_conv.ConvApplier(op, plan=plan)
+    ap = apply_conv.ConvApplier(op, plan=plan, device="cpu")
     jop = joperator.build_plane_operator(96, 64, 144, 96, joperator.radius_for_tap(3), **kw)
     jap = JaxConvApplier(jop, interior="fused")
     assert ap.strips_spec is None and jap._strips_kfn_spec is None
@@ -198,7 +198,7 @@ def test_deep_tap_applier_matches_jax_fused(name, g, dtype, peak):
 
     op = _op(g)
     src = _src(op, dtype, peak, seed=21, frames=1)
-    ap = apply_conv.ConvApplier(op)
+    ap = apply_conv.ConvApplier(op, device="cpu")
     assert ap.fi.fs == op.filter_size and op.filter_size**2 > 1200
     assert ap.strips_spec is not None and ap._strip_plans is not None
     jap = JaxConvApplier(_jop(g), interior="fused")

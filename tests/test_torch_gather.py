@@ -108,7 +108,7 @@ def jax_applier_outputs(ops):
 def test_gather_applier_matches_jax_and_golden(dtype, peak, ops, jax_applier_outputs):
     op = ops["aperiodic-up"]
     src, want = jax_applier_outputs[np.dtype(dtype).name]
-    ap = GatherApplier(op)
+    ap = GatherApplier(op, device="cpu")
     assert ap._concat == jax_applier_outputs["concat"]
     got = ap(torch.from_numpy(src), out_dtype=dtype, peak=peak).numpy()
     golden = np.stack([apply_plane_numpy(op, s, out_dtype=dtype, peak=peak) for s in src])
@@ -130,7 +130,7 @@ def test_gather_applier_matches_jax_and_golden(dtype, peak, ops, jax_applier_out
 def test_gather_applier_matches_golden(name, dtype, peak, ops):
     op = ops[name]
     src = _src(op, dtype, seed=13, peak=int(peak or 1))
-    got = GatherApplier(op)(torch.from_numpy(src), out_dtype=dtype, peak=peak).numpy()
+    got = GatherApplier(op, device="cpu")(torch.from_numpy(src), out_dtype=dtype, peak=peak).numpy()
     golden = np.stack([apply_plane_numpy(op, s, out_dtype=dtype, peak=peak) for s in src])
     tol = 2e-6 * max(1.0, float(np.abs(golden).max())) if dtype == np.float32 else 1
     assert _maxdiff(got, golden) <= tol
@@ -138,7 +138,7 @@ def test_gather_applier_matches_golden(name, dtype, peak, ops):
 
 def test_gather_batch_matches_per_frame(ops):
     op = ops["aperiodic-up"]
-    ap = GatherApplier(op)
+    ap = GatherApplier(op, device="cpu")
     src = torch.from_numpy(_src(op, np.float32, seed=3, frames=3))
     batch = ap(src)
     gi = gather.make_gather_interior(op)
@@ -173,7 +173,7 @@ def test_is_supported_declines_deep_tap_and_empty_dictionary():
     with pytest.raises(ValueError, match="envelope"):
         gather.make_gather_interior(deep)
     with pytest.raises(ValueError, match="envelope"):
-        GatherApplier(deep)
+        GatherApplier(deep, device="cpu")
     border_only = build_plane_operator(8, 8, 16, 16, radius_for_tap(8))
     assert border_only.pair_blocks.size == 0
     assert not gather.is_supported(border_only)

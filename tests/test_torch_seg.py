@@ -119,7 +119,7 @@ def jax_applier_outputs(ops):
 def test_seg_applier_matches_jax_and_golden(dtype, peak, ops, jax_applier_outputs):
     op = ops["1.5x-tap8"]
     src, want = jax_applier_outputs[np.dtype(dtype).name]
-    ap = SegConvApplier(op)
+    ap = SegConvApplier(op, device="cpu")
     assert ap.interior == "fused-seg"
     assert ap._concat == jax_applier_outputs["concat"]
     got = ap(torch.from_numpy(src), out_dtype=dtype, peak=peak).numpy()
@@ -138,7 +138,7 @@ def test_seg_exception_case_matches_golden(dtype, ops):
     op = ops["2.5x-exceptions"]
     plan = plan_phases_seg(op)
     assert len(plan.x.exceptions) > 0
-    ap = SegConvApplier(op, plan=plan)
+    ap = SegConvApplier(op, plan=plan, device="cpu")
     assert not ap._concat
     peak = 255.0 if dtype == np.uint8 else 1023.0
     src = _src(op, dtype, seed=3)
@@ -149,7 +149,7 @@ def test_seg_exception_case_matches_golden(dtype, ops):
 
 def test_seg_batch_matches_per_frame(ops):
     op = ops["1.5x-tap3-periodic"]
-    ap = SegConvApplier(op)
+    ap = SegConvApplier(op, device="cpu")
     src = torch.from_numpy(_src(op, np.float32, seed=6, frames=5))
     batch = ap(src)
     si = ap.si
@@ -182,7 +182,7 @@ def test_tile_windows_cover_every_read(name, ops):
 def test_strip_values_banded_equals_strip_values(ops):
     """Every strip of a seg geometry: the banded form equals the full-height one."""
     op = ops["1.5x-tap8"]
-    dop = to_device(op)
+    dop = to_device(op, "cpu")
     bands = strip_row_bands(op)
     src = torch.from_numpy(_src(op, np.float32, seed=9))
     kinds = set()
@@ -215,28 +215,28 @@ def test_is_supported_declines_deep_tap():
     with pytest.raises(ValueError, match="envelope"):
         seg.make_seg_interior(op, plan)
     with pytest.raises(ValueError, match="envelope"):
-        SegConvApplier(op, plan=plan)
+        SegConvApplier(op, plan=plan, device="cpu")
 
 
 def test_applier_declines_aperiodic_geometry():
     op = build_plane_operator(400, 220, 601, 331, radius_for_tap(3))
     assert plan_phases(op) is None and plan_phases_seg(op) is None
     with pytest.raises(ValueError, match="segment-periodic"):
-        SegConvApplier(op)
+        SegConvApplier(op, device="cpu")
 
 
 def test_precision_modes(ops):
     op = ops["1.5x-tap3-periodic"]
     src = torch.from_numpy(_src(op, np.uint8, seed=8, frames=1))
     a, b = (
-        SegConvApplier(op, precision=prec)(src, out_dtype=np.uint8, peak=255.0)
+        SegConvApplier(op, precision=prec, device="cpu")(src, out_dtype=np.uint8, peak=255.0)
         for prec in ("fp32", "fp32_u8src")
     )
     assert torch.equal(a, b)  # the u8-source mode runs the same exact kernel
     with pytest.raises(NotImplementedError, match="bf16"):
-        SegConvApplier(op, precision="bf16")
+        SegConvApplier(op, precision="bf16", device="cpu")
     with pytest.raises(ValueError, match="unknown precision"):
-        SegConvApplier(op, precision="fp16")
+        SegConvApplier(op, precision="fp16", device="cpu")
 
 
 def test_wrapper_never_falls_back_off_cpu(ops):
