@@ -25,9 +25,12 @@ Phases (each raises on failure; nothing catches it):
    shards): 2e-6 absolute for fp32 sources in [0, 1) (4e-6 for deep taps,
    fs**2 > 1200), <= 1 LSB after ``finalize`` for u8/u16; the ``out_only``
    probe against ``torch.zeros`` at (8, 4320, 7680) and on a ragged
-   (2, 100, 300) plane (0); every non-default thread block of the fused
-   kernel against the default on three of the conv cases, one of them tap 16
-   (0); every launch counted;
+   (2, 100, 300) plane (0); the narrow shape of
+   the fused kernel against the default on three of the conv cases, one of
+   them tap 16 (0); the 4K -> 8K fp32 luma plane through its applier under
+   ``torch.set_float32_matmul_precision('high')`` against the default run
+   (2e-6: the port's glue sums in float64 einsums, which no float32 matmul
+   setting reaches); every launch counted;
 3. end to end, one path after another, each with the launch counts set to 0
    just before and read just after, on 4-frame yuv420p8 clips:
    3840x2160 -> 7680x4320 tap 8 (periodic: ``fused``), 2560x1440 -> 3840x2160
@@ -53,9 +56,10 @@ Phases (each raises on failure; nothing catches it):
    times in the phase;
 4. timing -- every tool of ``jincresize_tpu_torch.tools`` in this process at
    reduced repetitions, each with the launch counts set to 0 before and read
-   after (``device_loop_timing`` is the probe's main path; the fused tile
-   sweep must give max |err| 0 for every shape); one 4-frame 4K -> 8K
-   ``JincResizer`` call inside ``metrics.device_trace`` (``torch.profiler``):
+   after (``device_loop_timing`` is the probe's main path; the fused shape
+   sweep must give max |err| 0 for every shape at both main geometries);
+   one 4-frame 4K -> 8K ``JincResizer`` call inside ``metrics.device_trace``
+   (``torch.profiler``):
    the ten device operations with the most CUDA time, the summed HtoD and
    DtoH copies and the device's idle share over the call's span; then
    CUDA-event medians of each kernel and its plain form on 8-frame
@@ -63,11 +67,14 @@ Phases (each raises on failure; nothing catches it):
    shards of the aperiodic plane), each beside its bound (operations or
    bytes over the H100's fp32 and HBM peaks), cuDNN's ``conv2d`` computing
    the fused interior at 4K -> 8K and at 4K -> 1080p tap 16 (checked against
-   the kernel, 4e-6), the seg and gather appliers on the same 1440p -> 4K
-   plane, each path's end-to-end ms/frame with its upload / device /
-   download split (the sharded aperiodic path beside the single-card one),
-   ``python -m jincresize_tpu_torch.bench`` in its three modes, run in
-   this process, and the probe beside its bound and ``torch.zeros``.
+   the kernel, 4e-6), the fused kernel's ms/frame, share of its bound and
+   ratio to cuDNN's time at both, the full-size 2/3 3840x2160 -> 2560x1440
+   tap-16 plan once (against its plain form, 0), the seg and gather
+   appliers on the same 1440p -> 4K plane, each path's end-to-end ms/frame
+   with its upload / device / download split (the sharded aperiodic path
+   beside the single-card one), ``python -m jincresize_tpu_torch.bench`` in
+   its three modes, run in this process, and the probe beside its bound and
+   ``torch.zeros``, in one order and the other.
 
 Prints the kernels' JSON line, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
@@ -110,11 +117,11 @@ CASES = [
      {"src_left": 0.3, "src_top": 0.3, "pos_precision": "f64"}),
     ("5/2 upscale exceptions", 160, 120, 400, 300, 3, 32, {}),
     # Deep taps (fs**2 > 1200): the two tap-16 cases of tests/tpu_smoke.py and
-    # a 2/5 downscale whose (4, 82, 82) weight set takes 105 KB of shared
+    # a 2/5 downscale whose four (84, 84) kernels take 113 KB of shared
     # memory (the kernel's opt-in above 48 KB). Each is also checked on fp32.
     ("tap16 2x down p=1 fs=65", 480, 270, 240, 135, 16, 8, {"fmt": "gray"}),
     ("tap16 2/3 down p=2 fs=49", 480, 270, 320, 180, 16, 8, {"fmt": "gray"}),
-    ("tap16 2/5 down fs=82 105KB", 300, 200, 120, 80, 16, 8, {"fmt": "gray"}),
+    ("tap16 2/5 down fs=82 113KB", 300, 200, 120, 80, 16, 8, {"fmt": "gray"}),
 ]  # fmt: skip
 # (name, kernel, src_w, src_h, dst_w, dst_h, tap): tests/test_apply_gather.py
 # (aperiodic upscale, tap-2 downscale) and tests/test_apply_conv_seg.py
@@ -139,6 +146,7 @@ DRIFT = (2560, 1440, 3840, 2160)  # 1.5x: drifted under f32 positions, seg on bo
 APERIODIC = (1920, 1080, 3740, 2104)  # 1.947x: 256x256 classes, gather on both planes
 DEEP = (3840, 2160, 1920, 1080)  # tap-16 2x downscale: p=1, q=2, fs=65 on both planes
 DEEP_TAP = 16
+THIRDS = (2560, 1440)  # 3840x2160 -> 2560x1440 tap 16: the 2/3 plan, timed once
 E2E_FRAMES = 4
 TIMING_FRAMES = 8
 F32_TOL = 2e-6  # exact fp32 products on both sides; only the summation order differs
@@ -149,10 +157,11 @@ DEEP_ORACLE_SAMPLES = 128  # the scalar oracle costs ~45 ms a sample at fs=65
 CHAIN = ((1920, 1080), (3840, 2160), (7680, 4320))
 CHAIN_SMALL = ((960, 540), (1920, 1080), (3840, 2160))  # if composing takes over 60 s
 CHAIN_TAP = 3
-# Fused-kernel thread blocks checked against the default: on these CASES.
-TILE_CASES = ("2x upscale qx=1", "5/2 upscale exceptions", "tap16 2/5 down fs=82 105KB")
+# Fused-kernel shapes checked against the default: on these CASES.
+SHAPE_CASES = ("2x upscale qx=1", "5/2 upscale exceptions", "tap16 2/5 down fs=82 113KB")
 PROBE_SHAPES = [((8, 4320, 7680), (48, 256)), ((2, 100, 300), (48, 256))]
 TOOL_REPS = 5  # back-to-back calls per timing in the tools' runs
+PROBE_REPS = 10  # back-to-back calls a sample of the probe and torch.zeros
 # H100 SXM peaks (NVIDIA's data sheet, at 700 W): fp32 outside the tensor
 # cores, and HBM3. A kernel's bound is the larger of its operations and its
 # bytes (each input read once, each output written once) over these.
@@ -193,8 +202,9 @@ def tensor_bytes(*objs, skip=()) -> int:
     return total
 
 
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Median milliseconds of ``fn()`` over ``iters`` CUDA-event timed calls."""
+def cuda_ms(fn, iters: int, warmup: int = 2, reps: int = 1) -> float:
+    """Median milliseconds a call of ``fn()`` over ``iters`` CUDA-event
+    samples of ``reps`` back-to-back calls each."""
     import torch
 
     for _ in range(warmup):
@@ -204,10 +214,11 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(reps):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / reps)
     return statistics.median(times)
 
 
@@ -377,20 +388,21 @@ def main() -> int:
               f"err={worst:.3g}{'' if bits == 32 else ' LSB'}")
         return worst
 
-    def check_tiles(name, op, rng, frames=2):
-        """Every non-default thread block of the fused kernel against the
-        default on fp32 sources: the same sums in the same order, so 0."""
+    def check_shapes(name, op, rng, frames=2):
+        """The fused kernel's narrow shape against the default on fp32
+        sources: the same sums in the same order, so 0."""
         fi = fused_k.make_fused_interior(op, plan_phases(op), dev)
         src = rand_src(op, 32, rng, frames)
         ref = fused_k.fused_interior(fi, src)
         errs = {}
-        for tile in fused_k.TILES[1:]:
-            errs["{}x{}".format(*tile)] = float((fused_k.fused_interior(fi, src, tile) - ref).abs().max())
+        for shape in fused_k.SHAPES[1:]:
+            got = fused_k.fused_interior(fi, src, shape)
+            errs[fused_k.shape_name(shape)] = float((got - ref).abs().max())
         torch.cuda.synchronize()
-        print(f"[2] {name:28s} fused thread blocks vs 32x8 (smem "
-              f"{fused_k.smem_bytes(fi.py, fi.px, fi.fs)} B): max |err| {errs}")
-        assert all(v == 0 for v in errs.values()), (name, errs)
-        tiles_checked.append(name)
+        print(f"[2] {name:28s} fused shapes vs {fused_k.shape_name(fi.shape)} (smem "
+              f"{fi.layout().smem_bytes} B, {fi.g} phases a block): max |err| {errs}")
+        assert fi.shape == fused_k.DEFAULT_SHAPE and all(v == 0 for v in errs.values()), (name, errs)
+        shapes_checked.append(name)
 
     def check_probe(shape, tile):
         """The out_only kernel against its plain form on a tensor filled
@@ -422,7 +434,7 @@ def main() -> int:
     rng = np.random.default_rng(2026)
     max_err = dict.fromkeys(wrappers, 0.0)
     covered = dict.fromkeys(wrappers, 0)
-    tiles_checked = []
+    shapes_checked = []
     for shape, tile in PROBE_SHAPES:
         max_err["out_only"] = max(max_err["out_only"], check_probe(shape, tile))
         covered["out_only"] += 1
@@ -445,8 +457,8 @@ def main() -> int:
                         if deep:
                             deep_err[k] = max(deep_err[k], v)
         against_golden(name, fmt, r, cfg, sw, sh)
-        if name in TILE_CASES:
-            check_tiles(name, r.op_luma, rng)
+        if name in SHAPE_CASES:
+            check_shapes(name, r.op_luma, rng)
 
     for name, kind, sw, sh, dw, dh, tap in INTERIOR_CASES:
         cfg = JincConfig(target_width=dw, target_height=dh, tap=tap, impl=kind)
@@ -480,6 +492,23 @@ def main() -> int:
     for k, v in errs.items():
         covered[k] += 1
         max_err[k] = max(max_err[k], v)
+    # The caller's matmul precision does not reach the port's fp32 results:
+    # the 4K -> 8K fp32 luma plane under 'high' (TF32 matmuls) against the
+    # default run, and the caller's setting is back after the call.
+    f32_src = rand_src(resizer.op_luma, 32, rng, 2)
+    want = resizer._applier_luma(f32_src)
+    prec = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        got = resizer._applier_luma(f32_src)
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision(prec)
+    tf32_err = float((got - want).abs().max())
+    print(f"[2] 3840x2160->7680x4320 tap8 fp32 luma under matmul precision 'high' vs the "
+          f"default run: max |err| {tf32_err:.3g} (bound {F32_TOL:g})")
+    assert tf32_err <= F32_TOL, tf32_err
+    del f32_src, want, got
 
     # The deep-tap path: 4K -> 1080p tap 16 (fs = 65) on the same kernels.
     t0 = time.perf_counter()
@@ -521,7 +550,7 @@ def main() -> int:
         if bits == 32:
             max_err["gather_band"] = max(max_err["gather_band"], err)
     assert all(covered.values()), covered
-    assert sorted(tiles_checked) == sorted(TILE_CASES), tiles_checked
+    assert sorted(shapes_checked) == sorted(SHAPE_CASES), shapes_checked
 
     # ---------------------------------------------------------------- phase 3
     def oracle_check(tag, pclip, out, pr, sw, sh, dw, dh, tap=TAP, n_samples=ORACLE_SAMPLES):
@@ -985,6 +1014,7 @@ def main() -> int:
     deep_bounds = {"deep_fused": fused_bound(dapp.fi, tsrc_deep)}
     if dapp.strips_spec is not None:
         deep_bounds["deep_strips"] = strips_bound(dapp.strips_spec, tsrc_deep)
+    bounds.update(deep_bounds)
     for k, _ in deep_runs:
         print(f"[4] {k:17s} {deep_ms[k]:10.3f} ms per {TIMING_FRAMES}-frame fp32 {deep_geo} tap16 "
               f"luma batch ({deep_ms[k] / TIMING_FRAMES:.3f} ms/frame) [{card}]")
@@ -999,6 +1029,27 @@ def main() -> int:
     )
     del tsrc_deep
     e2e(f"fused {deep_geo} tap16 ", deep_r, dclip, DEEP[2] * DEEP[3])
+    for geo, k in (("4K->8K tap8", "fused"), (f"{deep_geo} tap16", "deep_fused")):
+        print(f"[4] fused interior {geo}: {ms[k] / TIMING_FRAMES:.4f} ms/frame, "
+              f"{bounds[k][0] / ms[k]:.1%} of its bound, {ms[k] / ms[k + '_conv2d']:.4f}x "
+              f"cuDNN conv2d's time in this run [{card}]")
+
+    # The full-size 2/3 plan (p=(2,2), q=(3,3), fs=49): the fused kernel
+    # once against its plain form on an 8-frame fp32 4K -> 1440p tap-16 batch.
+    op23 = build_plane_operator(DEEP[0], DEEP[1], *THIRDS, radius_for_tap(DEEP_TAP))
+    plan23 = plan_phases(op23)
+    fi23 = fused_k.make_fused_interior(op23, plan23, dev)
+    tsrc23 = torch.from_numpy(rng.random((TIMING_FRAMES, DEEP[1], DEEP[0]), dtype=np.float32)).to(dev)
+    err23 = float((fused_k.fused_interior(fi23, tsrc23)
+                   - fused_k.fused_interior_plain(fi23, tsrc23)).abs().max())  # fmt: skip
+    ms23 = cuda_ms(lambda: fused_k.fused_interior(fi23, tsrc23), 10)
+    b23, by23 = fused_bound(fi23, tsrc23)
+    print(f"[4] fused interior {DEEP[0]}x{DEEP[1]}->{THIRDS[0]}x{THIRDS[1]} tap16 p=({plan23.y.p},"
+          f"{plan23.x.p}) q=({plan23.y.q},{plan23.x.q}) fs={op23.filter_size}: "
+          f"{ms23 / TIMING_FRAMES:.4f} ms/frame, bound {b23 / TIMING_FRAMES:.4f} ({by23}), "
+          f"{b23 / ms23:.1%} of it, max |err| vs plain {err23} [{card}]")
+    assert err23 == 0, err23
+    del tsrc23, fi23
 
     # The new paths: each kernel and its plain form on its own path's luma
     # plane, the gather kernel on the drifted plane too, and the two
@@ -1096,25 +1147,33 @@ def main() -> int:
               f"({time.perf_counter() - t0:.1f} s): {json.dumps(res)}")
 
     # The probe on an 8-frame 4K -> 8K output batch beside its bound (the
-    # output's bytes once) and torch.zeros of the same shape (a memset).
+    # output's bytes once) and torch.zeros of the same shape (a memset), in
+    # one order and then the other. A sample is
+    # PROBE_REPS back-to-back calls between two events: the device's time,
+    # not the host's launch (ctypes and PyTorch's dispatcher differ there;
+    # device_loop_timing measures that cost).
     pbuf = torch.empty((TIMING_FRAMES, DST_H, DST_W), device=dev)
-    probe_runs = (
+    probe_runs = [
         ("out_only_plain", lambda: probe.out_only_plain(pbuf.shape, dev)),
         ("out_only", lambda: probe.out_only(pbuf)),
         ("torch.zeros", lambda: torch.zeros(pbuf.shape, device=dev)),
-    )
+    ]
     probe_ms = {}
-    for order in (probe_runs, probe_runs[::-1]):
-        for k, fn in order:
-            probe_ms.setdefault(k, []).append(cuda_ms(fn, 20))
+    for i, order in enumerate((probe_runs, probe_runs[::-1])):
+        got = {k: cuda_ms(fn, 7, reps=PROBE_REPS) for k, fn in order}
+        for k, v in got.items():
+            probe_ms.setdefault(k, []).append(v)
+        print(f"[4] probe order {i + 1}: " + ", ".join(f"{k} {v:.4f}" for k, v in got.items())
+              + f" ms per {tuple(pbuf.shape)} batch; out_only / torch.zeros "
+              f"{got['out_only'] / got['torch.zeros']:.4f} [{card}]")
     for k, v in probe_ms.items():
         ms[k] = statistics.median(v)
     bounds["out_only"] = bound_ms(0, pbuf.numel() * pbuf.element_size())
     b, by = bounds["out_only"]
-    print(f"[4] out_only {ms['out_only']:.3f} ms per {tuple(pbuf.shape)} batch "
-          f"({ms['out_only'] / TIMING_FRAMES:.4f} ms/frame), plain form {ms['out_only_plain']:.3f} ms, "
-          f"torch.zeros {ms['torch.zeros']:.3f} ms; bound {b:.3f} ms ({by}): kernel at "
-          f"{b / ms['out_only']:.1%} of it [{card}]")
+    print(f"[4] out_only {ms['out_only']:.4f} ms per {tuple(pbuf.shape)} "
+          f"batch ({ms['out_only'] / TIMING_FRAMES:.4f} ms/frame), plain form "
+          f"{ms['out_only_plain']:.4f} ms, torch.zeros {ms['torch.zeros']:.4f} ms; bound {b:.4f} ms "
+          f"({by}): kernel at {b / ms['out_only']:.1%} of it [{card}]")
     del pbuf
 
     # cuDNN's conv2d (TF32 off) against the kernel, checked after every

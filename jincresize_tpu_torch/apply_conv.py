@@ -6,7 +6,7 @@ correlation in which every (row-phase, column-phase) pair owns one (fs, fs)
 coefficient block; ``kernels/fused.py`` computes it in destination layout.
 Full-width top/bottom strips run on ``kernels/strips.py``; exception rows and
 columns (float32 position drift) and the left/right strips are patched with
-small gathers and einsums. When the strips exactly frame the interior, the
+small gathers and tap sums. When the strips exactly frame the interior, the
 canvas is assembled with one concatenate. ``strip_row_bands`` and
 ``banded_strip_values`` serve the gather and segment-periodic appliers'
 strips from each strip's source row band (``_strip_values_banded``).
@@ -18,8 +18,11 @@ are not an engine here: every periodic plan, deep taps (fs = 49, 65 at tap
 plan's top/bottom strips (``kernels.strips._anchor_blocks`` finds the anchor
 pattern too broken), the strips take the value path, as in the JAX package.
 
-The einsums here contract small tap dimensions in float32; they assume
-PyTorch's default ``torch.backends.cuda.matmul.allow_tf32 = False``.
+No float32 matmul runs here, so a caller's TF32 or bf16 float32-matmul
+setting does not reach the glue: where the windows are already gathered one
+a pixel, their taps are summed as elementwise float32 products; where one
+window serves many pixels' blocks, the contraction runs as a float64 einsum
+rounded to float32 (``apply_xla.einsum64``), which no such setting reaches.
 """
 
 from __future__ import annotations
@@ -33,7 +36,8 @@ from .operator import PlaneOperator
 from .phase import PhasePlan, build_conv_kernels, plan_phases
 
 from .apply_strips_fast import plan_strips, strip_values_fast, window_indices
-from .apply_xla import DevicePlaneOperator, finalize, resolve_device, source_f32, to_device
+from .apply_xla import (DevicePlaneOperator, einsum64, finalize, resolve_device, source_f32,
+                        to_device)
 from .kernels import fused as fused_k
 from .kernels import strips as strips_k
 
@@ -114,7 +118,7 @@ def _cols_subset(dop: DevicePlaneOperator, src_f, sel) -> torch.Tensor:
         Prow = P[:, rows]  # (F, dst_h, m, fs)
         panex = dop.pair_blocks[:, cxs, ly, :]  # (n_uy, m, fs)
         Wrow = panex[dop.cy_idx]  # (dst_h, m, fs)
-        acc += torch.einsum("fymk,ymk->fym", Prow, Wrow)
+        acc += (Prow * Wrow).sum(-1)
     return acc
 
 
@@ -130,11 +134,11 @@ def _rows_subset(dop: DevicePlaneOperator, src_f, sel) -> torch.Tensor:
     P = S[:, :, cols].reshape(F, m, fs, dop.dst_width, fs)  # (F, m, k, w, l)
     pane_sel = dop.pair_blocks[dop.cy_idx[sel]]  # (m, n_ux, fs, fs)
     Wm = pane_sel[:, dop.cx_idx]  # (m, w, fs, fs)
-    return torch.einsum("fmkwl,mwkl->fmw", P, Wm)
+    return (P.permute(0, 1, 3, 2, 4) * Wm).sum((-2, -1))
 
 
 def _strip_values(dop: DevicePlaneOperator, src_f, s) -> torch.Tensor:
-    """Per-pixel border strip apply: (F, ny, nx) via one im2col + einsum."""
+    """Per-pixel border strip apply: (F, ny, nx) via one im2col and tap sums."""
     fs = dop.filter_size
     F, H, W = src_f.shape
     taps = torch.arange(fs, device=src_f.device)
@@ -142,7 +146,7 @@ def _strip_values(dop: DevicePlaneOperator, src_f, s) -> torch.Tensor:
     P = src_f[:, :, cols]  # (F, H, nx, fs)
     rows = torch.clamp(dop.start_y[s.y0 : s.y1][:, None] + taps[None, :], 0, H - 1)
     G = P[:, rows]  # (F, ny, k, nx, l)
-    return torch.einsum("fykxl,yxkl->fyx", G, s.blocks)
+    return (G.permute(0, 1, 3, 2, 4) * s.blocks).sum((-2, -1))
 
 
 def _strip_values_banded(
@@ -171,11 +175,11 @@ def _strip_values_banded(
     if const_sy:
         # Every strip row shares one window start (the clamped top/bottom
         # border strips): the vertical taps are a static slice.
-        return torch.einsum("fkxl,yxkl->fyx", P[:, :fs], s.blocks)
+        return einsum64("fkxl,yxkl->fyx", P[:, :fs], s.blocks)
     taps = torch.arange(fs, device=src_f.device)
     rows = (dop.start_y[s.y0 : s.y1] - y_min)[:, None] + taps[None, :]
     G = P[:, rows]  # (F, ny, k, nx, l)
-    return torch.einsum("fykxl,yxkl->fyx", G, s.blocks)
+    return (G.permute(0, 1, 3, 2, 4) * s.blocks).sum((-2, -1))
 
 
 def banded_strip_values(dop: DevicePlaneOperator, bands: dict, src_f) -> dict:
@@ -221,7 +225,7 @@ def _strip_cols_patch(src_f, sy_const: int, fs: int, cols_sx, blocks_sel):
     band = src_f[:, sy_const : sy_const + fs, :]
     cidx = torch.clamp(cols_sx[:, None] + taps[None, :], 0, W - 1)  # (m, fs)
     P = band[:, :, cidx]  # (F, fs, m, fs)
-    return torch.einsum("fkml,ymkl->fym", P, blocks_sel)
+    return einsum64("fkml,ymkl->fym", P, blocks_sel)
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,8 @@ each strip follows the interior's periodic pattern with exceptions. A strip
 therefore touches only an (fs x W) or (H x fs) source band: all its windows
 come from one sliding-window view of that band, picked per destination
 coordinate by the pattern (and by the operator's starts at exceptions), and
-one einsum against the per-pixel strip blocks gives the strip.
+one einsum against the per-pixel strip blocks (``apply_xla.einsum64``)
+gives the strip.
 
 In the fused engine the top/bottom strips run on ``kernels/strips.py``; this
 module computes the left/right strips (and any strip the kernel declines).
@@ -19,6 +20,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from .apply_xla import einsum64
 
 
 @dataclass(frozen=True)
@@ -149,11 +152,11 @@ def strip_values_fast(dop, strip_plans, idxs, src_f, only=None):
             band = src_f[:, c : c + fs, :]  # (F, fs_ly, W)
             S = band.unfold(2, fs, 1)  # (F, fs_ly, U, fs_lx)
             vec = S[:, :, idx, :]  # (F, fs_ly, nx, fs_lx)
-            acc = torch.einsum("fkxl,yxkl->fyx", vec, s.blocks)
+            acc = einsum64("fkxl,yxkl->fyx", vec, s.blocks)
         else:
             band = src_f[:, :, c : c + fs]  # (F, H, fs_lx)
             S = band.unfold(1, fs, 1)  # (F, U, fs_lx, fs_ly)
             vec = S[:, idx]  # (F, ny, fs_lx, fs_ly)
-            acc = torch.einsum("fylk,yxkl->fyx", vec, s.blocks)
+            acc = einsum64("fylk,yxkl->fyx", vec, s.blocks)
         out.append((i, sp.rect, acc))
     return out

@@ -44,6 +44,19 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def einsum64(equation: str, *operands: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` over float64 copies of ``operands``, rounded to
+    float32: the glue's contractions where one gathered window serves many
+    pixels' blocks (summed elementwise, their products would be that many
+    times the window's size). A float32 matmul follows process-wide
+    settings (``torch.set_float32_matmul_precision``,
+    ``torch.backends.cuda.matmul.allow_tf32``: TF32 on the card, bf16 on
+    the CPU); a float64 one follows none, so no caller's setting reaches
+    the port's fp32 results and no global state is touched. The sums are
+    then exact to the last float32 rounding."""
+    return torch.einsum(equation, *(t.double() for t in operands)).float()
+
+
 @dataclass(frozen=True)
 class DeviceStrip:
     """Device-resident border strip (static rectangle, per-pixel blocks)."""
@@ -145,9 +158,10 @@ def apply_plane(
         # Class-contraction variant: contract the horizontal taps once per row
         # class over source rows, then gather each destination row's (class,
         # source row) pair.
+        P64 = P.double()  # converted once, not by each einsum64
         for ly in range(fs):
             panex = dop.pair_blocks[:, dop.cx_idx, ly, :]  # (n_uy, dst_w, fs)
-            T = torch.einsum("fhwk,cwk->fchw", P, panex)
+            T = einsum64("fhwk,cwk->fchw", P64, panex)
             rows = torch.clamp(dop.start_y + ly, 0, H - 1)
             flat = dop.cy_idx * H + rows
             acc += T.reshape(F, n_uy * H, dop.dst_width)[:, flat]
@@ -162,9 +176,7 @@ def apply_plane(
                 dop.start_y[s.y0 : s.y1, None] + taps[None, :], 0, H - 1
             )
             G = Ps[:, rows_s]  # (F, ny, k, nx, l)
-            acc[:, s.y0 : s.y1, s.x0 : s.x1] = torch.einsum(
-                "fykxl,yxkl->fyx", G, s.blocks
-            )
+            acc[:, s.y0 : s.y1, s.x0 : s.x1] = (G.permute(0, 1, 3, 2, 4) * s.blocks).sum((-2, -1))
         return acc
 
     for ly in range(fs):
@@ -174,7 +186,7 @@ def apply_plane(
         Wrow = panex[dop.cy_idx]  # (dst_h, dst_w, fs)
         for s in dop.strips:
             Wrow[s.y0 : s.y1, s.x0 : s.x1] = s.blocks[:, :, ly, :]
-        acc += torch.einsum("fywk,ywk->fyw", Prow, Wrow)
+        acc += (Prow * Wrow).sum(-1)
     return acc
 
 

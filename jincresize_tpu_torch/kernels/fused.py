@@ -4,28 +4,54 @@
 ``make_fused_interior``/``_fused_kernel``: it computes the whole periodic
 interior of a phase plan directly in destination layout ``(F, py*nyb,
 px*nxb)`` (the block that belongs at ``canvas[ylo:, xlo:]``). The CUDA kernel
-is ``csrc/fused_interior.cu``: one thread per output pixel, the ``(py*px, fs,
-fs)`` weight set staged in shared memory, fp32 FMA accumulation.
+is ``csrc/fused_interior.cu``.
 
-What bounds it on an H100: each output pixel costs ``fs**2`` FMAs, each with
-one L1-cached source load and one shared-memory weight load, so the simple
-form is bound by load-issue rate, not by HBM (4K->8K tap 8 reads 33 MB and
-writes 133 MB per frame but issues 9.6 G loads). Reusing a staged source tile
-across a thread's neighbours is the next step.
+What bounds it on an H100: each output pixel costs ``Kh*Kw`` fp32 FMAs
+(``fs**2`` plus the phases' offset padding), 9.6 G FMAs a frame at 4K->8K
+tap 8 and 8.8 G at 4K->1080p tap 16, against 67 TFLOP/s of fp32 FMA; its
+bytes (33 MB in, 133 MB out at 4K->8K) take a sixth of that time. So the
+kernel is bound by FMA issue, and the design keeps every other instruction
+rare beside the FMAs:
+
+* all phases share one window: each phase's (fs, fs) block is placed at its
+  source offset in a zero-padded ``(Kh, Kw)`` kernel (``build_conv_kernels``,
+  the plain form's own kernels), so output (i, j) of every phase reads the
+  source from ``(base_y + qy*i, base_x + qx*j)``;
+* a block computes ``C`` anchor rows by ``TX*R`` anchor columns of one group
+  of ``G`` phases (``G`` = 4 where the phase count allows, else 1). It
+  streams its source window through shared memory once, row by row, in a
+  double-buffered ring of ``ch`` rows a stage (4-byte ``cp.async``; zeros
+  past the plane);
+* a thread holds ``R`` consecutive anchors of ``C`` rows for all ``G``
+  phases in registers (``R*C*G`` = 32 accumulators). For each staged source
+  row and chunk of 8 taps it loads its register window (``qx*(R-1) + 8``
+  values, as 16-byte loads) once and the chunk's weights of each of its
+  rows (``8*G`` floats, one 16-byte load per 4, at one address for the whole
+  block: a shared-memory broadcast), then runs ``8*R*C*G`` FMAs; the rows
+  are padded every 32 floats, so the lanes' 16-byte window loads hit
+  distinct banks;
+* the accumulators go through shared memory to coalesced output rows.
+
+Every output is one ``fmaf`` chain over its ``(Kh, Kw)`` kernel in row-major
+order, the plain form's order (the zero taps of the offset padding add
+exact zeros), so the kernel equals ``fused_interior_plain`` bit for bit.
+``layout`` keeps in Python the arithmetic that places a block's staged
+window and a thread's register window; the tests check it on the CPU.
 
 TPU workarounds of the Pallas kernel that this one drops:
 
-* the ``split3`` 0/1 scatter-matmul column-phase interleave -- a GPU thread
-  stores to any column, so the output is written interleaved directly;
-* ``residue_planes`` -- Mosaic cannot lower lane-strided slices; a GPU thread
-  reads column ``qx*j + c`` directly;
+* the ``split3`` 0/1 scatter-matmul column-phase interleave -- the block
+  writes interleaved output rows directly;
+* ``residue_planes`` -- Mosaic cannot lower lane-strided slices; a thread
+  reads its strided anchors from its register window;
 * the ``wsplit3`` bf16 weight split -- fp32 FMA is already exact, so
   ``precision='fp32_u8src'`` runs the same fp32 kernel;
-* ``_choose_tmb``, ``_vmem_bytes`` and ``VMEM_BUDGET`` -- no row-band tiling
-  against a VMEM budget; the envelope is the shared-memory size of the weights;
+* ``_choose_tmb``, ``_vmem_bytes`` and ``VMEM_BUDGET`` -- the row band is
+  ``C`` anchor rows, and shared memory holds one phase group's weights and
+  a ring of source rows, not the band;
 * the Mosaic deep-tap envelope (``py*px <= 4``, ``fs**2 <= 4500``,
-  ``JINCRESIZE_FUSED_FS2_MAX``) -- the kernel reads ``fs`` at run time, so a
-  deep tap (fs = 49 or 65 at tap 16) is the same loop, only longer;
+  ``JINCRESIZE_FUSED_FS2_MAX``) -- the kernel reads ``Kh`` and ``Kw`` at run
+  time, so a deep tap (fs = 49 or 65 at tap 16) is the same loop, only longer;
 * the ``JINCRESIZE_DEEP_FUSED_MIN_PIXELS`` output-size gate
   (``jincresize_tpu/apply_conv.py``), which exists because a Mosaic compile
   takes minutes -- a deep-tap plan takes this kernel at every output size.
@@ -48,23 +74,157 @@ MAX_SMEM_BYTES = 232448
 # The gather and seg kernels' envelope (fs**2 <= 1200, as the JAX gather
 # kernel's); the fused kernel has none beyond its shared memory.
 FS2_MAX = 1200
-# The kernel's (x, y) thread-block shapes (compile-time constants of
-# csrc/fused_interior.cu); every engine runs the first.
-TILES = ((32, 8), (32, 4), (32, 16), (64, 4), (16, 16))
-DEFAULT_TILE = TILES[0]
+# The kernel's shapes (compile-time constants of csrc/fused_interior.cu):
+# (threads a block, R anchors a thread along x, C*G accumulator rows a
+# thread). A thread of a G-phase group holds C = CG // G anchor rows, so
+# R*CG accumulators whatever the phase count. Every main-path plan runs the
+# default; the narrow block stages rows a quarter as long, for the plans
+# with a large step q whose default window row does not fit (``fit_shape``).
+DEFAULT_SHAPE = (128, 4, 8)
+NARROW_SHAPE = (32, 4, 8)
+SHAPES = (DEFAULT_SHAPE, NARROW_SHAPE)
+CHUNK = 8  # taps of a register window (csrc/fused_interior.cu kChunk)
+# Shared memory a block aims to stay under: a window that does not fit
+# whole streams through the ring in stages of a few rows, so that one
+# stage's copies overlap the last one's FMAs (faster on the card than one
+# stage of the whole window); a plan whose weights alone pass it streams
+# one row a stage.
+SMEM_TARGET = 40 * 1024
 
 
-def _odd_stride(n: int) -> int:
-    """Per-phase stride of a weight set: odd, so phases hit distinct banks."""
-    return n if n % 2 else n + 1
+def shape_name(shape) -> str:
+    return "{}t r{} cg{}".format(*shape)
+
+
+def _skew(x: int) -> int:
+    """Physical offset of window column ``x`` in a staged row: 4 floats of
+    padding after every 32, so lanes ``qx*R`` columns apart hit distinct
+    banks with 16-byte loads."""
+    return x + 4 * (x >> 5)
+
+
+@dataclass(frozen=True)
+class Layout:
+    """How the kernel tiles one plan (mirrors ``csrc/fused_interior.cu``)."""
+
+    tx: int  # threads a block
+    r: int  # anchors a thread along x
+    c: int  # anchor rows a thread (and a block)
+    g: int  # phases a thread (a block's phase group)
+    ngroups: int  # phase groups: gridDim.z = frames * ngroups
+    kh: int  # kernel rows: fs + max(offs_y)
+    kw: int  # kernel columns: fs + max(offs_x)
+    kwp: int  # weight row stride, kw rounded up to 4
+    qx_mode: int  # compile-time qx of the register window (1, 2), else 0
+    nr: int  # source rows of a block's window: qy*(c - 1) + kh
+    sw: int  # source columns staged: qx*(tx*r - 1) + kw
+    swp: int  # floats a staged row takes (padded, skewed)
+    ch: int  # rows a ring stage
+    slots: int  # staged rows held at once
+    smem_bytes: int
+
+    @property
+    def bj(self) -> int:
+        """Anchor columns of a block."""
+        return self.tx * self.r
+
+
+def layout(
+    py: int, px: int, qy: int, qx: int, kh: int, kw: int, shape=DEFAULT_SHAPE, g: int | None = None
+) -> Layout:
+    """The kernel's tiling of a plan with ``(Kh, Kw)`` kernels under
+    ``shape``, ``g`` phases a block (default 4 where the phases split so)."""
+    tx, r, cg = shape
+    nph = py * px
+    if g is None:
+        g = 4 if nph % 4 == 0 else 1
+    c = cg // g
+    kwp = -(-kw // 4) * 4
+    nr = qy * (c - 1) + kh
+    sw = qx * (tx * r - 1) + kw
+    # Window loads of a chunk reach qx*(r - 1) + CHUNK columns past a
+    # thread's first, rounded up to 16-byte loads.
+    swa = -(-(sw + 4) // 4) * 4
+    swp = _skew(swa) + 4
+    wfloats = kh * kwp * g
+    bjp = tx * r + (tx * r) // 32 + 1
+    tile = c * g * bjp
+    row_bytes = swp * 4
+    room = SMEM_TARGET - wfloats * 4
+    if nr * row_bytes <= room:
+        ch, slots = nr, nr
+    else:
+        ch = max(1, room // (2 * row_bytes))
+        ch = min(ch, nr)
+        slots = nr if ch >= nr else 2 * ch
+    smem = (wfloats + max(slots * swp, tile)) * 4
+    return Layout(
+        tx=tx, r=r, c=c, g=g, ngroups=nph // g, kh=kh, kw=kw, kwp=kwp,
+        qx_mode=qx if qx in (1, 2) else 0, nr=nr, sw=sw, swp=swp, ch=ch, slots=slots,
+        smem_bytes=smem,
+    )  # fmt: skip
+
+
+def plan_layout(op: PlaneOperator, plan: PhasePlan, shape=DEFAULT_SHAPE) -> Layout:
+    fs = op.filter_size
+    kh = fs + int(plan.y.offsets.max())
+    kw = fs + int(plan.x.offsets.max())
+    return layout(plan.y.p, plan.x.p, plan.y.q, plan.x.q, kh, kw, shape)
+
+
+def block_origin(lay: Layout, qy: int, qx: int, base_y: int, base_x: int, by: int, bx: int):
+    """Source (row, column) of block (by, bx)'s staged window, and its first
+    anchor (row, column): anchors ``i0 + c``, ``j0 + t*R + r``."""
+    i0, j0 = by * lay.c, bx * lay.bj
+    return base_y + qy * i0, base_x + qx * j0, i0, j0
+
+
+def thread_window(lay: Layout, qx: int, t: int, b0: int, taps: int = CHUNK) -> range:
+    """Window columns (relative to the block's staged window) that thread
+    ``t`` loads for the chunk of ``taps`` taps from ``b0``: with a
+    compile-time qx (``qx_mode``) one run of 16-byte loads from
+    ``qx*R*t + b0``, else ``qx*r + b`` for each anchor."""
+    x0 = qx * lay.r * t + b0
+    if lay.qx_mode and taps == CHUNK:
+        return range(x0, x0 + -(-(qx * (lay.r - 1) + CHUNK) // 4) * 4)
+    return range(x0, x0 + qx * (lay.r - 1) + taps)
+
+
+def fit_shape(py: int, px: int, qy: int, qx: int, kh: int, kw: int):
+    """(shape, g) a plan runs: the default shape with 4 phases a block where
+    the phases split so, else the narrow one (shorter staged rows), then
+    both with one phase a block (a quarter of the weights), whichever first
+    fits the shared memory; None if none fits."""
+    for g in dict.fromkeys((4 if py * px % 4 == 0 else 1, 1)):
+        for shape in SHAPES:
+            if layout(py, px, qy, qx, kh, kw, shape, g).smem_bytes <= MAX_SMEM_BYTES:
+                return shape, g
+    return None
+
+
+def smem_bytes(op: PlaneOperator, plan: PhasePlan, shape=DEFAULT_SHAPE) -> int:
+    """Shared memory a block of the kernel takes on ``plan``: one phase
+    group's weights and the larger of the source ring and the output tile."""
+    return plan_layout(op, plan, shape).smem_bytes
+
+
+def is_supported(op: PlaneOperator, plan: PhasePlan) -> bool:
+    """Envelope: one block of some shape fits the shared memory.
+
+    ``phase.plan_phases`` caps ``py*px*fs**2`` at 32768; shared memory holds
+    one phase group's weights (at most 4 phases) and a ring of source rows,
+    so every plan it returns is admitted, deep taps included; the check
+    keeps the kernel honest if that cap ever moves.
+    """
+    lay = plan_layout(op, plan)
+    return fit_shape(plan.y.p, plan.x.p, plan.y.q, plan.x.q, lay.kh, lay.kw) is not None
 
 
 @dataclass(frozen=True)
 class FusedInterior:
     """Device operator of the fused interior for one phase plan."""
 
-    w: torch.Tensor  # (py*px, wstride) f32: phase ry*px+rx's (fs, fs) block, flat
-    offs: torch.Tensor  # (py + px,) int32: [offs_y..., offs_x...]
+    w: torch.Tensor  # (ngroups, Kh, kwp, G) f32: phase g*G + e's kernel at [g, :, :Kw, e]
     kernels: torch.Tensor  # (py*px, Kh, Kw) f32: phase.build_conv_kernels (plain form)
     py: int
     px: int
@@ -75,25 +235,16 @@ class FusedInterior:
     nyb: int
     nxb: int
     fs: int
-    wstride: int
+    shape: tuple  # the kernel shape engines launch (fit_shape)
+    g: int  # phases a block (fit_shape; the layout of w)
 
     @property
     def out_shape(self) -> tuple[int, int]:
         return self.py * self.nyb, self.px * self.nxb
 
-
-def smem_bytes(py: int, px: int, fs: int) -> int:
-    return py * px * _odd_stride(fs * fs) * 4
-
-
-def is_supported(op: PlaneOperator, plan: PhasePlan) -> bool:
-    """Envelope: the weight set fits one block's shared memory.
-
-    ``phase.plan_phases`` caps ``py*px*fs**2`` at 32768, i.e. 128 KB of
-    weights, so every plan it returns is admitted, deep taps included; the
-    shared-memory check keeps the kernel honest if that cap ever moves.
-    """
-    return smem_bytes(plan.y.p, plan.x.p, op.filter_size) <= MAX_SMEM_BYTES
+    def layout(self, shape=None) -> Layout:
+        _, kh, kw = self.kernels.shape
+        return layout(self.py, self.px, self.qy, self.qx, kh, kw, shape or self.shape, self.g)
 
 
 def make_fused_interior(
@@ -110,32 +261,29 @@ def make_fused_interior(
         )
     if precision not in ("fp32", "fp32_u8src"):
         raise ValueError(f"make_fused_interior: unknown precision {precision!r}")
-    if not is_supported(op, plan):
-        raise ValueError("make_fused_interior: plan outside the kernel envelope")
-    fs = op.filter_size
-    py, px = plan.y.p, plan.x.p
-    wstride = _odd_stride(fs * fs)
-    w = np.zeros((py * px, wstride), dtype=np.float32)
-    for ry in range(py):
-        for rx in range(px):
-            blk = op.pair_blocks[plan.y.anchor_cls[ry], plan.x.anchor_cls[rx]]
-            w[ry * px + rx, : fs * fs] = blk.reshape(-1)
-    offs = np.concatenate([plan.y.offsets, plan.x.offsets]).astype(np.int32)
     K = build_conv_kernels(op, plan)[:, 0]
+    nph, kh, kw = K.shape
+    fit = fit_shape(plan.y.p, plan.x.p, plan.y.q, plan.x.q, kh, kw)
+    if fit is None:
+        raise ValueError("make_fused_interior: plan outside the kernel envelope")
+    shape, g = fit
+    lay = layout(plan.y.p, plan.x.p, plan.y.q, plan.x.q, kh, kw, shape, g)
+    w = np.zeros((lay.ngroups, g, kh, lay.kwp), dtype=np.float32)
+    w[..., :kw] = K.reshape(lay.ngroups, g, kh, kw)
     return FusedInterior(
-        w=torch.from_numpy(w).to(device),
-        offs=torch.from_numpy(offs).to(device),
+        w=torch.from_numpy(np.ascontiguousarray(w.transpose(0, 2, 3, 1))).to(device),
         kernels=torch.from_numpy(K).to(device),
-        py=py,
-        px=px,
+        py=plan.y.p,
+        px=plan.x.p,
         qy=plan.y.q,
         qx=plan.x.q,
         base_y=plan.y.base,
         base_x=plan.x.base,
         nyb=plan.y.nblocks,
         nxb=plan.x.nblocks,
-        fs=fs,
-        wstride=wstride,
+        fs=op.filter_size,
+        shape=shape,
+        g=g,
     )
 
 
@@ -173,16 +321,18 @@ def fused_interior_plain(fi: FusedInterior, src_f: torch.Tensor) -> torch.Tensor
 fused_interior_plain.calls = 0
 
 
-def fused_interior(fi: FusedInterior, src_f: torch.Tensor, tile=DEFAULT_TILE) -> torch.Tensor:
+def fused_interior(fi: FusedInterior, src_f: torch.Tensor, shape=None) -> torch.Tensor:
     """Fused interior of ``src_f`` (F, H, W) float32 in destination layout.
 
     On a CPU tensor this is ``fused_interior_plain``. On a CUDA tensor it
     launches ``csrc/fused_interior.cu`` (counted in ``fused_interior.launches``)
-    or raises; it never falls back. ``tile`` is the kernel's (x, y) thread
-    block, one of ``TILES``; every shape gives the same result.
+    or raises; it never falls back. ``shape`` is the kernel's (threads,
+    R, C*G), one of ``SHAPES`` (default ``fi.shape``); every shape gives the
+    same result.
     """
-    if tuple(tile) not in TILES:
-        raise ValueError(f"fused_interior: tile {tile} is not one of {TILES}")
+    shape = tuple(shape or fi.shape)
+    if shape not in SHAPES:
+        raise ValueError(f"fused_interior: shape {shape} is not one of {SHAPES}")
     if src_f.device.type == "cpu":
         return fused_interior_plain(fi, src_f)
     if src_f.device.type != "cuda":
@@ -191,16 +341,22 @@ def fused_interior(fi: FusedInterior, src_f: torch.Tensor, tile=DEFAULT_TILE) ->
         raise ValueError("fused_interior: src must be a contiguous (F, H, W) float32 tensor")
     if fi.w.device != src_f.device:
         raise ValueError("fused_interior: operator and source on different devices")
+    lay = fi.layout(shape)
+    if lay.smem_bytes > MAX_SMEM_BYTES:
+        raise ValueError(f"fused_interior: shape {shape} needs {lay.smem_bytes} B of shared memory")
     F, H, W = src_f.shape
     hout, wout = fi.out_shape
     out = torch.empty((F, hout, wout), dtype=torch.float32, device=src_f.device)
     if F == 0:
         return out
+    if F * lay.ngroups > 65535 or -(-fi.nyb // lay.c) > 65535:
+        raise ValueError("fused_interior: grid too large (frames x phase groups or anchor rows)")
     with torch.cuda.device(src_f.device):
         rc = _build.library().jt_fused_interior(
-            src_f.data_ptr(), fi.w.data_ptr(), fi.offs.data_ptr(), out.data_ptr(),
-            F, H, W, fi.py, fi.px, fi.qy, fi.qx, fi.base_y, fi.base_x,
-            fi.nyb, fi.nxb, fi.fs, fi.wstride, *tile, _build.stream_of(src_f),
+            src_f.data_ptr(), fi.w.data_ptr(), out.data_ptr(),
+            F, H, W, fi.py, fi.px, fi.qy, fi.qx, fi.base_y, fi.base_x, fi.nyb, fi.nxb,
+            lay.kh, lay.kw, lay.kwp, lay.g, lay.ngroups, lay.ch, lay.slots, lay.swp,
+            *shape, _build.stream_of(src_f),
         )  # fmt: skip
     _build.check(rc, "jt_fused_interior")
     fused_interior.launches += 1

@@ -4,12 +4,14 @@
 ``tools/profiling/device_loop_timing.py`` (``out_only_call`` -> ``kern``, a
 ``pallas_call`` that writes a zero (48, 256) block per grid step). The CUDA
 kernel is ``csrc/out_only.cu``: one block per ``tile`` of an (F, H, W)
-float32 tensor, frames on ``gridDim.z``, float4 stores where the width
-allows. Nothing is read, so its bound is the output's bytes over the card's
-memory rate, and its time against ``torch.zeros`` of the same shape (a
-memset) is what a launch pays per tile. At (8, 4320, 7680) with the default
-(48, 256) tiles the grid has 2700 blocks a frame, as the TPU probe has grid
-steps.
+float32 tensor, frames on ``gridDim.z``. Nothing is read, so its bound is
+the output's bytes over the card's memory rate, and its time against
+``torch.zeros`` of the same shape (a memset) is what a launch pays per
+tile. At (8, 4320, 7680) with the default (48, 256) tiles the grid has 2700
+blocks a frame, as the TPU probe has grid steps.
+
+A block of 1024 threads writes its tile as a 2-D map, 64 float4 lanes by
+16 rows, with streaming stores and no division per store.
 """
 
 from __future__ import annotations

@@ -33,11 +33,17 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..apply_xla import einsum64
 from ..operator import BorderStrip, PlaneOperator
 from ..phase import PhasePlan
 
 from . import _build
-from .fused import MAX_SMEM_BYTES, _odd_stride
+from .fused import MAX_SMEM_BYTES
+
+
+def _odd_stride(n: int) -> int:
+    """Per-phase stride of an anchor set: odd, so phases hit distinct banks."""
+    return n if n % 2 else n + 1
 
 
 def _anchor_blocks(
@@ -209,7 +215,7 @@ def strips_plain(st: Strips, src_f: torch.Tensor) -> torch.Tensor:
         band = src_p[:, row0 : row0 + fs]
         band = torch.nn.functional.pad(band, (0, 0, 0, fs - band.shape[1]))
         P = band[:, :, st.cols]  # (F, fs_ly, nxb, px, fs_lx)
-        vals = torch.einsum("fkjrl,mrkl->fmjr", P, A[si, :ny])
+        vals = einsum64("fkjrl,mrkl->fmjr", P, A[si, :ny])
         out[:, si, :ny] = vals.reshape(F, ny, st.nxb * st.px)
     return out
 

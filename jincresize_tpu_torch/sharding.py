@@ -281,18 +281,30 @@ def patch_values(
 
 
 def scan_values(
-    band: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor, bid: torch.Tensor, blocks: torch.Tensor
+    band: torch.Tensor,
+    sy: torch.Tensor,
+    sx: torch.Tensor,
+    bid: torch.Tensor,
+    blocks: torch.Tensor,
+    last_row: int,
 ) -> torch.Tensor:
     """The JAX package's ``_local_apply``: the ``fs**2``-step uniform
-    gather-MAC over (F, len(sy), len(sx)) pixels, window rows and columns
-    clipped to the band, the products of each tap row formed at once and
-    added one tap after another in (ly, lx) order."""
+    gather-MAC over (F, len(sy), len(sx)) pixels, the products of each tap
+    row formed at once and added one tap after another in (ly, lx) order.
+
+    Window columns are clipped to the plane and window rows to band row
+    ``last_row``, the last real source row: rows of the band below it are
+    the zero padding of an uneven split, and the golden clamps to the last
+    source row. (The JAX package clips to the band's last row, padding
+    included, which is off where the filter is taller than the source.)
+    """
     F, band_h, W = band.shape
     fs = blocks.shape[1]
+    last_row = min(last_row, band_h - 1)
     cols = torch.clamp(sx[:, None] + torch.arange(fs, device=band.device), 0, W - 1)
     acc = torch.zeros((F, sy.shape[0], sx.shape[0]), dtype=f32, device=band.device)
     for ly in range(fs):
-        rows = band[:, torch.clamp(sy + ly, 0, band_h - 1)]  # (F, k, W)
+        rows = band[:, torch.clamp(sy + ly, 0, last_row)]  # (F, k, W)
         prod = rows[:, :, cols] * blocks[:, ly][bid]  # (F, k, m, fs)
         for lx in range(fs):
             acc += prod[..., lx]
@@ -479,6 +491,19 @@ def _uniform_on(op: PlaneOperator):
     return bid, functools.cache(lambda dev: torch.from_numpy(blocks_all).to(dev))
 
 
+def _rows_in_source(op: PlaneOperator) -> bool:
+    """Every destination row's window ``[start_y, start_y + fs)`` lies in the
+    real source rows. The band kernel, the conv-fused and seg interiors and
+    the patches read the band without a row clamp, and the band of an uneven
+    split ends in zero padding, so they take only such operators; the
+    scan-gather clamps to the last source row and takes the rest. The
+    builder's windows end at the last source row or start at row 0
+    (``geometry.build_axis_geometry``), so this fails only where the filter
+    is taller than the source, and then no row is interior either."""
+    sy = op.start_y.astype(np.int64)
+    return not len(sy) or (int(sy.min()) >= 0 and int(sy.max()) + op.filter_size <= op.src_height)
+
+
 def _border_cols(op: PlaneOperator, lo: int, hi: int, exceptions=()) -> np.ndarray:
     cols = set(range(0, lo)) | set(range(hi, op.dst_width)) | {int(v) for v in exceptions}
     return np.asarray(sorted(cols), dtype=np.int64)
@@ -494,7 +519,7 @@ def make_sharded_apply_gather(
     their classes clipped into the dictionary) into its canvas; border rows
     and columns are patched.
     """
-    if not gather_k.is_supported(op):
+    if not gather_k.is_supported(op) or not _rows_in_source(op):
         return None
     n = mesh.n_rows
     plan = plan_row_shard(op, n)
@@ -557,8 +582,10 @@ def make_sharded_apply_scan(
         sy = _long(op.start_y[r0:r1].astype(np.int64) - base, dev)
         sx, bid_d, blocks = _long(op.start_x, dev), _long(bid[r0:r1], dev), blocks_on(dev)
 
+        last_row = op.src_height - 1 - base
+
         def interior(band, canvas):
-            canvas[:] = scan_values(band, sy, sx, bid_d, blocks)
+            canvas[:] = scan_values(band, sy, sx, bid_d, blocks, last_row)
 
         return Shard(r0, r1, op.dst_width, interior, None, None)
 
@@ -583,7 +610,7 @@ def make_sharded_apply_conv(
     columns patched. The guards and halos are the JAX package's.
     """
     pplan = plan_phases(op)
-    if pplan is None:
+    if pplan is None or not _rows_in_source(op):
         return None
     n = mesh.n_rows
     splan = plan_row_shard(op, n)
@@ -670,7 +697,7 @@ def make_sharded_apply_seg(
     falls through to the gather paths).
     """
     plan = plan_phases_seg(op)
-    if plan is None or not seg_k.is_supported(op, plan):
+    if plan is None or not seg_k.is_supported(op, plan) or not _rows_in_source(op):
         return None
     n = mesh.n_rows
     fs = op.filter_size

@@ -96,7 +96,7 @@ def main(argv=None, size=None) -> dict:
 
     ms = sum(calls_ms(lambda: fn(src_t), device, R) for _ in range(args.iters)) / args.iters
     dt = ms / 1e3 / args.frames
-    print(f"impl={args.impl} frames={args.frames}: {dt * 1e3:.2f} ms/frame "
+    print(f"impl={args.impl} frames={args.frames}: {dt * 1e3:.4f} ms/frame "
           f"({dw * dh / dt / 1e9:.2f} Gpx/s device)")
     return {"impl": args.impl, "engine": engine, "frames": args.frames,
             "ms_per_frame": dt * 1e3, "gpx_per_s": dw * dh / dt / 1e9,

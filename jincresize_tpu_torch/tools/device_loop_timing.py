@@ -65,10 +65,10 @@ def main(argv=None, size=None) -> dict:
     for key, (name, fn) in rows.items():
         ms = calls_ms(fn, device, R)
         res[f"{key}_ms"] = ms
-        line = f"{name:40s} {ms / F:7.3f} ms/frame ({R} back-to-back calls, {ms:.1f} ms/call)"
+        line = f"{name:40s} {ms / F:8.4f} ms/frame ({R} back-to-back calls, {ms:.4f} ms/call)"
         if key in graphs:
             g = graphs[key]
-            line += f"; one graph replay {g / F:.3f} ms/frame, host {ms - g:+.3f} ms/call"
+            line += f"; one graph replay {g / F:.4f} ms/frame, host {ms - g:+.4f} ms/call"
         print(line)
     for key in ("out_only", "fused"):
         res[f"{key}_graph_ms"] = graphs.get(key)

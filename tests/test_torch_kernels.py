@@ -192,7 +192,7 @@ def test_is_supported_covers_pallas_envelope(g):
     assert plan is not None
     if pallas_fused.is_supported(*_jop(g, {})):
         assert fused.is_supported(op, plan)
-    assert fused.smem_bytes(plan.y.p, plan.x.p, op.filter_size) <= fused.MAX_SMEM_BYTES
+    assert fused.smem_bytes(op, plan) <= fused.MAX_SMEM_BYTES
 
 
 DEEP_GEOMS = [(480, 270, 240, 135, 16), (480, 270, 320, 180, 16)]
@@ -213,7 +213,7 @@ def test_deep_tap_outside_envelope():
         assert (plan.y.p, plan.x.p) == (p, p)
         assert fused.is_supported(op, plan)
         fi = fused.make_fused_interior(op, plan)
-        assert fi.fs == fs and fused.smem_bytes(p, p, fs) <= 48 * 1024
+        assert fi.fs == fs and fused.smem_bytes(op, plan) <= fused.MAX_SMEM_BYTES
         src = _src(op, 13)
         got = fused.fused_interior(fi, torch.from_numpy(src)[None])[0].numpy()
         want = np.asarray(make_fused_interior(*_jop(g, {}), interpret=True)(jnp.asarray(src)))
@@ -244,14 +244,18 @@ def test_deep_tap_strips_match_pallas_interpret(g):
 def test_envelope_is_shared_memory_alone():
     """Every plan of ``plan_phases`` (cost cap py*px*fs**2 <= 32768) fits
     the 227 KB a block may opt into; a 2/5 tap-16 plan needs the opt-in above
-    48 KB. FS2_MAX stays the gather and seg envelope only."""
+    48 KB (one 4-phase group of (84, 84) kernels: 113 KB). FS2_MAX stays the
+    gather and seg envelope only."""
     op = _op((300, 200, 120, 80, 16), {})
     plan = plan_phases(op)
     assert (plan.y.p, plan.x.p, op.filter_size) == (2, 2, 82)
-    assert 48 * 1024 < fused.smem_bytes(2, 2, 82) <= fused.MAX_SMEM_BYTES
+    assert 48 * 1024 < fused.smem_bytes(op, plan) <= fused.MAX_SMEM_BYTES
     assert fused.is_supported(op, plan)
-    assert fused.smem_bytes(1, 1, 181) <= fused.MAX_SMEM_BYTES  # 181**2 <= 32768
-    assert not fused.is_supported(op, type(plan)(x=plan.x, y=dataclasses.replace(plan.y, p=8)))
+    # 181**2 <= 32768: one phase of (181, 181) at a 1/8 downscale.
+    assert fused.layout(1, 1, 8, 8, 181, 181).smem_bytes <= fused.MAX_SMEM_BYTES
+    # A window row of 512*127 floats (254 KB) even in the narrowest block.
+    wide = dataclasses.replace(plan.x, q=512)
+    assert not fused.is_supported(op, type(plan)(x=wide, y=plan.y))
 
 
 def test_bf16_not_ported():
@@ -338,3 +342,86 @@ def test_gather_band_kernel_is_built_and_bound():
     sig = _build._SIGNATURES["jt_gather_band"]
     assert sig == [_build._P] * 7 + [_build._I] * 9 + [_build._P]
     assert "jt_gather_band(" in (_build.CSRC / "gather_band.cu").read_text()
+
+
+# Reduced planes whose plans have the (p, q, fs, offsets) of the full-size
+# ones: 3840x2160 -> 7680x4320 tap 8, -> 1920x1080 tap 16 and -> 2560x1440
+# tap 16 (2/3), and the 2/5 tap-16 plan of chip_smoke.py.
+LAYOUT_PLANS = {
+    "4k-8k": ((480, 270, 960, 540, 8), (2, 1, 17, (0, 0))),
+    "4k-1080p-tap16": ((480, 270, 240, 135, 16), (1, 2, 65, (0,))),
+    "4k-1440p-tap16": ((480, 270, 320, 180, 16), (2, 3, 49, (0, 2))),
+    "2/5-tap16": ((300, 200, 120, 80, 16), (2, 5, 82, (0, 2))),
+}
+
+
+@pytest.mark.parametrize("shape", fused.SHAPES, ids=fused.shape_name)
+@pytest.mark.parametrize("name", list(LAYOUT_PLANS))
+def test_fused_layout_covers_every_read(name, shape):
+    """The kernel's tiling (``fused.layout``): every tap of every output a
+    thread owns comes from the block's staged window (inside the real
+    columns, not its padding) and from the register window the thread
+    loads for that tap's chunk; the staged rows keep distinct ring slots
+    while two stages are resident; every skewed address stays inside its
+    row and 16-byte loads stay aligned."""
+    g, (p, q, fs, offs) = LAYOUT_PLANS[name]
+    op = _op(g, {})
+    plan = plan_phases(op)
+    assert (plan.y.p, plan.x.p, plan.y.q, plan.x.q, op.filter_size) == (p, p, q, q, fs)
+    assert tuple(plan.y.offsets) == tuple(plan.x.offsets) == offs
+    fi = fused.make_fused_interior(op, plan)
+    lay = fi.layout(shape)
+    nph, kh, kw = fi.kernels.shape
+    assert fi.shape == fused.DEFAULT_SHAPE and fi.g == (4 if nph % 4 == 0 else 1)
+    assert (lay.kh, lay.kw, lay.g * lay.ngroups, lay.c * lay.g) == (kh, kw, nph, shape[2])
+    assert tuple(fi.w.shape) == (lay.ngroups, kh, lay.kwp, lay.g)
+    # Rows: anchor row c of a block reads window rows q*c + a, a < kh.
+    rows = q * np.arange(lay.c)[:, None] + np.arange(kh)
+    assert rows.min() == 0 and rows.max() == lay.nr - 1
+    for k in range(-(-lay.nr // lay.ch)):  # stages k and k + 1 are resident together
+        live = np.arange(k * lay.ch, min(lay.nr, (k + 2) * lay.ch))
+        assert len(set(live % lay.slots)) == len(live)
+    # Columns: thread t's anchor r reads window column q*(R*t + r) + b.
+    full = kw // fused.CHUNK * fused.CHUNK
+    for t in range(lay.tx):
+        for b in range(kw):
+            b0, taps = (b // fused.CHUNK * fused.CHUNK, fused.CHUNK) if b < full else (b, 1)
+            win = fused.thread_window(lay, q, t, b0, taps)
+            xs = q * (lay.r * t + np.arange(lay.r)) + b
+            assert win.start <= xs.min() and xs.max() < win.stop, (t, b)
+            assert xs.max() < lay.sw
+            last = win.stop - 1
+            assert fused._skew(last) < lay.swp
+            if lay.qx_mode and taps == fused.CHUNK:
+                assert win.start % 4 == 0 and fused._skew(win.start) % 4 == 0
+    assert lay.swp % 4 == 0 and lay.kwp % 4 == 0
+    # Blocks: the staged window of block (by, bx) starts at the reads of its
+    # first anchor, and every anchor of the plan has one block.
+    row0, col0, i0, j0 = fused.block_origin(lay, q, q, fi.base_y, fi.base_x, 3, 1)
+    assert (row0, col0) == (fi.base_y + q * i0, fi.base_x + q * j0) == (
+        fi.base_y + q * 3 * lay.c, fi.base_x + q * lay.bj)
+    assert lay.smem_bytes <= fused.MAX_SMEM_BYTES
+
+
+def test_fused_shared_memory_of_every_admitted_plan():
+    """``plan_phases`` caps py*px*fs**2 at 32768; for every such (p, fs) with
+    phase offsets up to q and steps q <= 32, a shape fits the 227 KB a block
+    may opt into (the default, else the narrow one), and so do both
+    shapes at the four plans of ``LAYOUT_PLANS``; the narrow shape serves
+    only plans with a wide window row (a large step q)."""
+    worst = 0
+    for py in (1, 2, 3, 4, 5, 8):
+        for px in (1, 2, 3, 4, 5, 8):
+            fs_max = int((32768 // (py * px)) ** 0.5)
+            for fs in sorted({3, 7, 17, fs_max // 2, fs_max}):
+                for q in range(1, 33):
+                    k = fs + min(q, fs) - 1
+                    fit = fused.fit_shape(py, px, q, q, k, k)
+                    assert fit is not None, (py, px, q, fs)
+                    worst = max(worst, fused.layout(py, px, q, q, k, k, *fit).smem_bytes)
+    assert 48 * 1024 < worst <= fused.MAX_SMEM_BYTES
+    assert fused.fit_shape(1, 1, 32, 32, 145, 145) == (fused.NARROW_SHAPE, 1)
+    for (p, q, fs, offs) in (v[1] for v in LAYOUT_PLANS.values()):
+        for shape in fused.SHAPES:
+            lay = fused.layout(p, p, q, q, fs + max(offs), fs + max(offs), shape)
+            assert lay.smem_bytes <= fused.MAX_SMEM_BYTES

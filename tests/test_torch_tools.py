@@ -79,11 +79,11 @@ def test_fused_tiles_agree_and_unknown_tiles_raise():
     fi = fused_k.make_fused_interior(op, plan_phases(op))
     src = torch.from_numpy(np.random.default_rng(0).random((2, 32, 48), dtype=np.float32))
     ref = fused_k.fused_interior(fi, src)
-    assert fused_k.TILES[0] == fused_k.DEFAULT_TILE == (32, 8)
-    for tile in fused_k.TILES:
-        assert torch.equal(fused_k.fused_interior(fi, src, tile), ref)
-    with pytest.raises(ValueError, match="tile"):
-        fused_k.fused_interior(fi, src, (8, 8))
+    assert fused_k.SHAPES == (fused_k.DEFAULT_SHAPE, fused_k.NARROW_SHAPE) == ((128, 4, 8), (32, 4, 8))
+    for shape in fused_k.SHAPES:
+        assert torch.equal(fused_k.fused_interior(fi, src, shape), ref)
+    with pytest.raises(ValueError, match="shape"):
+        fused_k.fused_interior(fi, src, (32, 8))
 
 
 # tool -> (argv, regex of its last stdout line)
@@ -93,8 +93,8 @@ TOOLS = {
         r"full ConvApplier call\s+[\d.]+ ms/frame \(1 back-to-back calls, [\d.]+ ms/call\)",
     ),
     "fused_tile_sweep": (
-        fused_tile_sweep, ["--frames", "2", "--reps", "1"],
-        r"tile 16x16\s+[\d.]+ ms/frame  err=0\.0e\+00  \[cpu\]",
+        fused_tile_sweep, ["--geometry", "4k-8k", "--frames", "2", "--reps", "1"],
+        r"4k-8k shape 32t r4 cg8\s+[\d.]+ ms/frame  err=0\.0e\+00  \[cpu\]",
     ),
     "assemble_breakdown": (
         assemble_breakdown, ["--frames", "2", "--reps", "1"],
@@ -212,14 +212,15 @@ def test_entries_default_to_the_card(monkeypatch):
 
 def test_probe_kernel_is_built_and_bound():
     """The probe's source and C signature (one pointer, five sizes, the
-    stream); the fused kernel's signature carries the tile; a tensor neither
-    on the CPU nor on a CUDA device is refused, with no launch counted."""
+    stream); the fused kernel's signature carries the shape and its ring; a
+    tensor neither on the CPU nor on a CUDA device is refused, with no
+    launch counted."""
     from jincresize_tpu_torch.kernels import _build
 
     assert "out_only.cu" in {p.name for p in _build._sources()}
     assert _build._SIGNATURES["jt_out_only"] == [_build._P] + [_build._I] * 5 + [_build._P]
     assert "jt_out_only(" in (_build.CSRC / "out_only.cu").read_text()
-    assert _build._SIGNATURES["jt_fused_interior"] == [_build._P] * 4 + [_build._I] * 15 + [_build._P]
+    assert _build._SIGNATURES["jt_fused_interior"] == [_build._P] * 3 + [_build._I] * 22 + [_build._P]
     with pytest.raises(RuntimeError, match="unsupported device"):
         probe.out_only(torch.empty((1, 8, 8), device="meta"))
     assert probe.out_only.launches == 0
