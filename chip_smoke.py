@@ -17,13 +17,17 @@ Phases (each raises on failure; nothing catches it):
    a tap-16 2/5 downscale whose weights take 105 KB of shared memory, the
    full 3840x2160 -> 7680x4320 tap-8 and 3840x2160 -> 1920x1080 tap-16 luma
    planes; the gather and seg kernels on the geometries of
-   ``tests/test_apply_gather.py`` and ``tests/test_apply_conv_seg.py`` and on
-   the full 2560x1440 -> 3840x2160 and 1920x1080 -> 3740x2104 tap-8 luma
-   planes; the sharded engine's band kernel on every row shard of
-   96x72 -> 160x120 tap 3 (8 shards), a multi-hop and a replicated downscale
-   (8 shards) and the full 1920x1080 -> 3740x2104 tap-8 luma plane (4
-   shards): 2e-6 absolute for fp32 sources in [0, 1) (4e-6 for deep taps,
-   fs**2 > 1200), <= 1 LSB after ``finalize`` for u8/u16; the ``out_only``
+   ``tests/test_apply_gather.py`` and ``tests/test_apply_conv_seg.py`` (the
+   gather kernel at F = 1, 2, 3, 4 and 8 frames, every frames-a-thread
+   instance and a ragged group) and on the full 2560x1440 -> 3840x2160 and
+   1920x1080 -> 3740x2104 tap-8 luma planes and the 3840x2160 -> 1366x768
+   tap-16 luma plane (fs 92); the sharded engine's band kernel on every row
+   shard of 96x72 -> 160x120 tap 3 (8 shards), a multi-hop and a replicated
+   downscale (8 shards; F = 1, 2, 3, 4, 8) and the full 1920x1080 ->
+   3740x2104 tap-8 and 3840x2160 -> 1366x768 tap-16 luma planes (4 shards):
+   0 for the gather and band kernels (their plain forms sum in the kernels'
+   order), else 2e-6 absolute for fp32 sources in [0, 1) (4e-6 for deep
+   taps, fs**2 > 1200), <= 1 LSB after ``finalize`` for u8/u16; the ``out_only``
    probe against ``torch.zeros`` at (8, 4320, 7680) and on a ragged
    (2, 100, 300) plane (0); the narrow shape of
    the fused kernel against the default on three of the conv cases, one of
@@ -35,15 +39,18 @@ Phases (each raises on failure; nothing catches it):
    just before and read just after, on 4-frame yuv420p8 clips:
    3840x2160 -> 7680x4320 tap 8 (periodic: ``fused``), 2560x1440 -> 3840x2160
    tap 8 (drifted 1.5x: ``fused-seg``), 1920x1080 -> 3740x2104 tap 8
-   (aperiodic: ``gather``) and 3840x2160 -> 1920x1080 tap 16 (deep taps:
-   ``fused``), each <= 1 LSB against the port's plain engine
+   (aperiodic: ``gather``), 3840x2160 -> 1920x1080 tap 16 (deep taps:
+   ``fused``) and 3840x2160 -> 1366x768 tap 16 (deep aperiodic, fs 92:
+   ``gather``, where the JAX package's envelope takes ``xla``), each <= 1
+   LSB against the port's plain engine
    (``impl='xla'``) on the card and against the scalar oracle
    ``golden.reference_sample_pixels`` on sampled pixels (borders and corners
    included); then the sharded engine on four row shards of ``cuda:0``:
    the aperiodic clip (``sharded/gather``, 12 band-kernel launches, <= 1 LSB
    against the single-card engine and the oracle) and 2-frame runs of the
-   periodic and the deep-tap (``sharded/conv-fused``) and drifted
-   (``sharded/seg``) clips, each <= 1 LSB against its single-card engine; on
+   periodic and the deep-tap (``sharded/conv-fused``), drifted
+   (``sharded/seg``) and deep aperiodic (``sharded/gather``) clips, each
+   <= 1 LSB against its single-card engine; on
    a machine with several cards, the aperiodic clip on a mesh of distinct
    cards too; then the paths of the tools slice: a 2-frame yuv420p8 chain
    1920x1080 -> 3840x2160 -> 7680x4320 tap 3 through ``jinc_resize_chain``
@@ -70,9 +77,15 @@ Phases (each raises on failure; nothing catches it):
    the kernel, 4e-6), the fused kernel's ms/frame, share of its bound and
    ratio to cuDNN's time at both, the full-size 2/3 3840x2160 -> 2560x1440
    tap-16 plan once (against its plain form, 0), the seg and gather
-   appliers on the same 1440p -> 4K plane, each path's end-to-end ms/frame
+   appliers on the same 1440p -> 4K plane, the gather and band kernels on
+   the 8-frame 4K -> 1366x768 tap-16 luma batch beside their bounds (each
+   plain form once, its output held to the kernel's: 0), the gather and
+   band kernels' ms/frame at 1080p -> 3740x2104 beside the previous kernels',
+   each path's
+   end-to-end ms/frame
    with its upload / device / download split (the sharded aperiodic path
-   beside the single-card one), ``python -m jincresize_tpu_torch.bench`` in
+   beside the single-card one; the deep aperiodic clip under ``auto`` beside
+   ``impl='xla'``), ``python -m jincresize_tpu_torch.bench`` in
    its three modes, run in this process, and the probe beside its bound and
    ``torch.zeros``, in one order and the other.
 
@@ -146,6 +159,10 @@ DRIFT = (2560, 1440, 3840, 2160)  # 1.5x: drifted under f32 positions, seg on bo
 APERIODIC = (1920, 1080, 3740, 2104)  # 1.947x: 256x256 classes, gather on both planes
 DEEP = (3840, 2160, 1920, 1080)  # tap-16 2x downscale: p=1, q=2, fs=65 on both planes
 DEEP_TAP = 16
+# tap-16 2.8125x downscale to a laptop and streaming size: aperiodic columns,
+# fs=92 on both planes, gather (the JAX package's envelope sends it to xla).
+DEEP_APERIODIC = (3840, 2160, 1366, 768)
+GATHER_FRAMES = (1, 2, 3, 4, 8)  # every frames-a-thread instance, a ragged group (3) included
 THIRDS = (2560, 1440)  # 3840x2160 -> 2560x1440 tap 16: the 2/3 plan, timed once
 E2E_FRAMES = 4
 TIMING_FRAMES = 8
@@ -153,6 +170,11 @@ F32_TOL = 2e-6  # exact fp32 products on both sides; only the summation order di
 DEEP_TOL = 4e-6  # fs**2 > 1200 (4225 products a pixel at fs=65): the JAX deep-tap bound
 ORACLE_SAMPLES = 2000
 DEEP_ORACLE_SAMPLES = 128  # the scalar oracle costs ~45 ms a sample at fs=65
+DEEP_APER_ORACLE_SAMPLES = 32  # ~90 ms a sample at fs=92
+# The previous gather and band kernels' ms/frame (one pixel a thread, the
+# class-minor dictionary) on the 8-frame 1080p -> 3740x2104 tap-8 luma batch
+# (PERF.md kernel table, H100 80GB HBM3, 700 W), printed beside this run's.
+PREV_MS_PER_FRAME = {"gather": 1.345, "gather_band": 1.093}
 # The chain: 1080p -> 4K -> 8K tap 3 (2x then 2x), two frames.
 CHAIN = ((1920, 1080), (3840, 2160), (7680, 4320))
 CHAIN_SMALL = ((960, 540), (1920, 1080), (3840, 2160))  # if composing takes over 60 s
@@ -355,9 +377,10 @@ def main() -> int:
         assert counts() == {**before, kind: before[kind] + 1}, (name, before, counts())
         assert torch.isfinite(got).all(), name
         err = err_of(got, ref, bits)
-        assert err <= (F32_TOL if bits == 32 else 1), (name, kind, err)
+        # The gather kernel sums in the plain form's order: exact.
+        assert err <= (0 if kind == "gather" else F32_TOL if bits == 32 else 1), (name, kind, err)
         print(f"[2] {name:34s} {kind:6s} {info} classes={op.pair_blocks.shape[:2]} "
-              f"fs={op.filter_size} err={err:.3g}{'' if bits == 32 else ' LSB'}")
+              f"fs={op.filter_size} F={frames} err={err:.3g}{'' if bits == 32 else ' LSB'}")
         return err
 
     def check_band(name, op, n_rows, bits, rng, frames=2):
@@ -381,10 +404,10 @@ def main() -> int:
             assert counts() == {**before, "gather_band": before["gather_band"] + 1}, name
             assert torch.isfinite(got).all(), name
             err = err_of(got, ref, bits)
-            assert err <= (F32_TOL if bits == 32 else 1), (name, err)
+            assert err == 0, (name, err)  # the plain form's order: exact
             worst = max(worst, err)
         print(f"[2] {name:34s} band   shards={n_rows} hops=({plan.hops_up},{plan.hops_dn}) "
-              f"replicated={plan.replicate_src} fs={op.filter_size} "
+              f"replicated={plan.replicate_src} fs={op.filter_size} F={frames} "
               f"err={worst:.3g}{'' if bits == 32 else ' LSB'}")
         return worst
 
@@ -464,8 +487,9 @@ def main() -> int:
         cfg = JincConfig(target_width=dw, target_height=dh, tap=tap, impl=kind)
         r = JincResizer(gray(8), sw, sh, cfg, device=dev)
         assert r.engines == {"luma": {"seg": "fused-seg", "gather": "gather"}[kind]}, r.engines
-        for bits in (32, 8):
-            err = check_interior(kind, name, r.op_luma, bits, rng)
+        runs = [(32, f) for f in (GATHER_FRAMES if kind == "gather" else (2,))] + [(8, 2)]
+        for bits, frames in runs:
+            err = check_interior(kind, name, r.op_luma, bits, rng, frames)
             covered[kind] += 1
             if bits == 32:
                 max_err[kind] = max(max_err[kind], err)
@@ -473,8 +497,8 @@ def main() -> int:
 
     for name, sw, sh, dw, dh, tap, n_rows in BAND_CASES:
         op = build_plane_operator(sw, sh, dw, dh, radius_for_tap(tap))
-        for bits in (32, 8):
-            err = check_band(name, op, n_rows, bits, rng)
+        for bits, frames in [(32, f) for f in GATHER_FRAMES] + [(8, 2)]:
+            err = check_band(name, op, n_rows, bits, rng, frames)
             covered["gather_band"] += 1
             if bits == 32:
                 max_err["gather_band"] = max(max_err["gather_band"], err)
@@ -549,6 +573,23 @@ def main() -> int:
         covered["gather_band"] += 1
         if bits == 32:
             max_err["gather_band"] = max(max_err["gather_band"], err)
+
+    # The deep aperiodic plane: 4K -> 1366x768 tap 16 (fs = 92), the gather
+    # kernel on two frames and the band kernel on its four row shards.
+    t0 = time.perf_counter()
+    dasw, dash, dadw, dadh = DEEP_APERIODIC
+    deep_aper_geo = f"{dasw}x{dash}->{dadw}x{dadh}"
+    aclip = Clip.from_frames([random_frame(fmt, dasw, dash, seed=600 + i) for i in range(E2E_FRAMES)])
+    aper_cfg = JincConfig(dadw, dadh, tap=DEEP_TAP, operator_cache=False)
+    deep_aper_r = JincResizer(fmt, dasw, dash, aper_cfg, frame0=aclip.frames[0], device=dev)
+    print(f"[2] {deep_aper_geo} tap16 resizer built in {time.perf_counter() - t0:.1f} s "
+          f"(host operator build + upload); engines {deep_aper_r.engines}")
+    err = check_interior("gather", f"{deep_aper_geo} tap16 luma", deep_aper_r.op_luma, 32, rng)
+    covered["gather"] += 1
+    max_err["gather"] = max(max_err["gather"], err)
+    err = check_band(f"{deep_aper_geo} tap16 luma", deep_aper_r.op_luma, N_SHARDS, 32, rng)
+    covered["gather_band"] += 1
+    max_err["gather_band"] = max(max_err["gather_band"], err)
     assert all(covered.values()), covered
     assert sorted(shapes_checked) == sorted(SHAPE_CASES), shapes_checked
 
@@ -665,10 +706,32 @@ def main() -> int:
                  n_samples=DEEP_ORACLE_SAMPLES)
     del dref
 
+    # The deep aperiodic path: 4K -> 1366x768 tap 16 through the resizer a
+    # caller keeps, the gather kernel launched once a plane (the JAX
+    # package's auto takes xla here).
+    assert deep_aper_r.engines == {"luma": "gather", "chroma": "gather"}, deep_aper_r.engines
+    zero_counts()
+    t0 = time.perf_counter()
+    aout = deep_aper_r(aclip)
+    torch.cuda.synchronize()
+    got = counts()
+    print(f"[3] JincResizer 4x {deep_aper_geo} yuv420p8 tap16 (gather) in "
+          f"{time.perf_counter() - t0:.1f} s; launches {got}")
+    assert got == {**dict.fromkeys(wrappers, 0), "gather": n_planes}, got
+    launches["gather"] += got["gather"]
+    t0 = time.perf_counter()
+    aref = JincResizer(fmt, dasw, dash, replace(aper_cfg, impl="xla"), device=dev)(aclip)
+    torch.cuda.synchronize()
+    print(f"[3] the same clip on impl='xla' in {time.perf_counter() - t0:.1f} s (construction included)")
+    against("deep aperiodic gather engine", aout, aref)
+    oracle_check("tap16 gather ", aclip, aout, deep_aper_r, *DEEP_APERIODIC, tap=DEEP_TAP,
+                 n_samples=DEEP_APER_ORACLE_SAMPLES)
+    del aref
+
     # The sharded engine on N_SHARDS row shards of the card, through the
     # resizer a caller keeps: the aperiodic clip (band kernel), then two
-    # frames of the periodic and the deep-tap (fused kernel) and the drifted
-    # (seg kernel) clip.
+    # frames of the periodic and the deep-tap (fused kernel), the drifted
+    # (seg kernel) and the deep aperiodic (band kernel) clip.
     mesh = sharding.make_mesh(n_rows=N_SHARDS, devices=[dev] * N_SHARDS)
     sharded = {}
     for key, interior, kind, sclip, ref_out in (
@@ -679,13 +742,15 @@ def main() -> int:
          Clip.from_frames(dout.frames[:2])),
         ("drift", "seg", "seg", Clip.from_frames(paths["drift"][1].frames[:2]),
          Clip.from_frames(pouts["drift"].frames[:2])),
+        ("deep-aperiodic", "gather", "gather_band", Clip.from_frames(aclip.frames[:2]),
+         Clip.from_frames(aout.frames[:2])),
     ):  # fmt: skip
-        sw, sh, dw, dh = {"aperiodic": APERIODIC, "drift": DRIFT, "deep": DEEP}.get(
-            key, (SRC_W, SRC_H, DST_W, DST_H)
-        )
+        sw, sh, dw, dh = {"aperiodic": APERIODIC, "drift": DRIFT, "deep": DEEP,
+                          "deep-aperiodic": DEEP_APERIODIC}.get(key, (SRC_W, SRC_H, DST_W, DST_H))
+        deep_key = key.startswith("deep")
         t0 = time.perf_counter()
-        cfg = JincConfig(dw, dh, tap=DEEP_TAP if key == "deep" else TAP, impl="sharded",
-                         operator_cache=key != "deep")  # no 2.4 GB cache file for one use
+        cfg = JincConfig(dw, dh, tap=DEEP_TAP if deep_key else TAP, impl="sharded",
+                         operator_cache=not deep_key)  # no GB-sized cache file for one use
         sr = JincResizer(fmt, sw, sh, cfg, frame0=sclip.frames[0], device=dev, mesh=mesh)
         built = time.perf_counter() - t0
         assert sr.engines == {"luma": f"sharded/{interior}", "chroma": f"sharded/{interior}"}, sr.engines
@@ -698,9 +763,11 @@ def main() -> int:
               f"{N_SHARDS} row shards of {dev} (sharded/{interior}) in "
               f"{time.perf_counter() - t0:.1f} s (built in {built:.1f} s); launches {got}")
         assert got == {**dict.fromkeys(wrappers, 0), kind: N_SHARDS * n_planes}, got
-        if key == "aperiodic":
-            launches["gather_band"] = got["gather_band"]
-        single = {"aperiodic": "gather", "drift": "fused-seg"}.get(key, "fused")
+        if kind == "gather_band":
+            launches["gather_band"] += got["gather_band"]
+        single = {"aperiodic": "gather", "drift": "fused-seg", "deep-aperiodic": "gather"}.get(
+            key, "fused"
+        )
         against(f"sharded/{interior} engine", sout, ref_out, f"single-card {single} engine")
         if key == "aperiodic":
             oracle_check("sharded/gather ", sclip, sout, sr, sw, sh, dw, dh)
@@ -835,10 +902,11 @@ def main() -> int:
     assert plain_calls == 0, plain_calls
 
     # ---------------------------------------------------------------- phase 4
-    def e2e(tag, pr, pclip, plane_px):
+    def e2e(tag, pr, pclip, plane_px, split_too=True):
         """End-to-end ms/frame of ``pr(pclip)`` and where a call's time goes:
         the per-plane steps of JincResizer's batched path, each closed by a
-        synchronise (host clock, summed over planes)."""
+        synchronise (host clock, summed over planes; not for ``impl='xla'``,
+        which has no applier, when ``split_too`` is False)."""
         times = []
         for i in range(4):
             t0 = time.perf_counter()
@@ -848,7 +916,7 @@ def main() -> int:
                 times.append(time.perf_counter() - t0)
         e2e_ms = statistics.median(times) * 1000 / E2E_FRAMES
         split = {"stack+upload": [], "device": [], "download": []}
-        for _ in range(3):
+        for _ in range(3 if split_too else 0):
             acc = dict.fromkeys(split, 0.0)
             for n in fmt.plane_names:
                 _, _, plane_app = pr._plane_op(n)
@@ -866,9 +934,10 @@ def main() -> int:
                 acc["download"] += t3 - t2
             for k, v in acc.items():
                 split[k].append(v)
-        print(f"[4] {tag}split per frame: " + ", ".join(
-            f"{k} {statistics.median(v) * 1000 / E2E_FRAMES:.2f} ms" for k, v in split.items()
-        ) + f" [{card}]")  # fmt: skip
+        if split_too:
+            print(f"[4] {tag}split per frame: " + ", ".join(
+                f"{k} {statistics.median(v) * 1000 / E2E_FRAMES:.2f} ms" for k, v in split.items()
+            ) + f" [{card}]")  # fmt: skip
         print(f"[4] {tag}end to end (upload + 3 planes + download) {e2e_ms:.2f} ms/frame, "
               f"{plane_px / e2e_ms / 1e6:.3f} Gpx/s luma [{card}]")
         return e2e_ms
@@ -1083,8 +1152,9 @@ def main() -> int:
     aper_geo = "{}x{}->{}x{}".format(*APERIODIC)
     for k, _ in runs:
         geo = aper_geo if k in ("gather", "gather_plain") else drift_geo
+        prev = f"; previous kernel: {PREV_MS_PER_FRAME[k]}" if k in PREV_MS_PER_FRAME else ""
         print(f"[4] {k:15s} {new_ms[k]:10.3f} ms per {TIMING_FRAMES}-frame fp32 {geo} luma "
-              f"batch ({new_ms[k] / TIMING_FRAMES:.3f} ms/frame) [{card}]")
+              f"batch ({new_ms[k] / TIMING_FRAMES:.4f} ms/frame{prev}) [{card}]")
     print(f"[4] on the {drift_geo} plane the seg applier takes "
           f"{new_ms['seg_applier'] / new_ms['gather_applier']:.3f}x the gather applier's time "
           f"(seg interior {new_ms['seg'] / new_ms['gather_drift']:.3f}x gather interior) [{card}]")
@@ -1102,9 +1172,10 @@ def main() -> int:
                               for a in shard_runs))
     for k, v in band_ms.items():
         ms[k] = statistics.median(v)
+        prev = f"; previous kernel: {PREV_MS_PER_FRAME[k]}" if k in PREV_MS_PER_FRAME else ""
         print(f"[4] {k:17s} {ms[k]:10.3f} ms per {TIMING_FRAMES}-frame fp32 {aper_geo} luma "
-              f"batch, summed over {N_SHARDS} row shards ({ms[k] / TIMING_FRAMES:.3f} ms/frame) "
-              f"[{card}]")
+              f"batch, summed over {N_SHARDS} row shards ({ms[k] / TIMING_FRAMES:.4f} ms/frame"
+              f"{prev}) [{card}]")
     print(f"[4] band kernel over {N_SHARDS} shards takes {ms['gather_band'] / ms['gather']:.3f}x "
           f"the single-card gather kernel on the same batch [{card}]")
 
@@ -1123,6 +1194,59 @@ def main() -> int:
         b, by = bounds[k]
         print(f"[4] {k} bound {b:.3f} ms per batch ({by}): kernel at {b / ms[k]:.1%} of it [{card}]")
     del tsrc_d, tsrc_a, gather_app, shard_runs
+
+    # The deep aperiodic plane: the gather kernel and the band kernel (its
+    # four row shards, summed) on an 8-frame fp32 4K -> 1366x768 tap-16 luma
+    # batch beside their bounds. Each plain form runs once (2-3 s a call at
+    # fs = 92), timed by events, and its output holds the kernel's (0).
+    def plain_once(fn):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        b.synchronize()
+        return out, a.elapsed_time(b)
+
+    dgi = deep_aper_r._applier_luma.gi
+    tsrc_da = torch.from_numpy(rng.random((TIMING_FRAMES, dash, dasw), dtype=np.float32)).to(dev)
+    ms["deep_gather"] = cuda_ms(lambda: gather_k.gather_interior(dgi, tsrc_da), 10)
+    ref, ms["deep_gather_plain"] = plain_once(lambda: gather_k.gather_interior_plain(dgi, tsrc_da))
+    err = float((gather_k.gather_interior(dgi, tsrc_da) - ref).abs().max())
+    print(f"[4] {deep_aper_geo} tap16 luma gather F={TIMING_FRAMES} (phase 4 batch): "
+          f"max |err| {err} against the plain form")
+    assert err == 0, err
+    del ref
+    sfn_d = sharded["deep-aperiodic"]._applier_luma._fn
+    deep_band_ms, deep_band_plain_ms, deep_band_err, deep_band_work = 0.0, 0.0, 0.0, []
+    for shard, band in zip(sfn_d.shards[0], sfn_d.bands(tsrc_da)):
+        gb = shard.tables
+        shape = (TIMING_FRAMES, gb.rows, dadw)
+        canvas = torch.zeros(shape, device=dev)
+        deep_band_ms += cuda_ms(lambda: gather_k.gather_band(gb, band, canvas), 10)
+        ref, t = plain_once(lambda: gather_k.gather_band_plain(gb, band, torch.zeros(shape, device=dev)))
+        deep_band_plain_ms += t
+        deep_band_err = max(deep_band_err, float((gather_k.gather_band(gb, band, canvas) - ref).abs().max()))
+        deep_band_work.append(gather_like_bound(gb, band, gb.rows, gb.start_x.numel()))
+    print(f"[4] {deep_aper_geo} tap16 luma band F={TIMING_FRAMES} on {N_SHARDS} shards (phase 4 "
+          f"batch): max |err| {deep_band_err} against the plain form")
+    assert deep_band_err == 0, deep_band_err
+    ms["deep_gather_band"], ms["deep_gather_band_plain"] = deep_band_ms, deep_band_plain_ms
+    bounds["deep_gather"] = bound_ms(*gather_like_bound(dgi, tsrc_da, *dgi.out_shape))
+    bounds["deep_gather_band"] = bound_ms(sum(o for o, _ in deep_band_work),
+                                          sum(b for _, b in deep_band_work))  # fmt: skip
+    for k in ("deep_gather", "deep_gather_plain", "deep_gather_band", "deep_gather_band_plain"):
+        print(f"[4] {k:22s} {ms[k]:10.3f} ms per {TIMING_FRAMES}-frame fp32 {deep_aper_geo} tap16 "
+              f"luma batch ({ms[k] / TIMING_FRAMES:.4f} ms/frame) [{card}]")
+    for k in ("deep_gather", "deep_gather_band"):
+        b, by = bounds[k]
+        print(f"[4] {k} bound {b:.3f} ms per batch ({by}), {b / TIMING_FRAMES:.4f} ms/frame: kernel "
+              f"at {b / ms[k]:.1%} of it [{card}]")
+    for k in ("gather", "gather_band"):
+        b, _ = bounds[k]
+        print(f"[4] {k} {aper_geo} tap8: {ms[k] / TIMING_FRAMES:.4f} ms/frame, {b / ms[k]:.1%} of "
+              f"its bound, {PREV_MS_PER_FRAME[k] / (ms[k] / TIMING_FRAMES):.2f}x faster than the previous kernel's "
+              f"{PREV_MS_PER_FRAME[k]} [{card}]")
+    del tsrc_da, dgi, sfn_d
     for key, engine in (("drift", "fused-seg"), ("aperiodic", "gather")):
         pr, pclip = paths[key]
         sw, sh, dw, dh = DRIFT if key == "drift" else APERIODIC
@@ -1134,6 +1258,14 @@ def main() -> int:
     e_sharded = e2e(f"sharded/gather {N_SHARDS} shards {tag}", sharded["aperiodic"], pclip, dw * dh)
     print(f"[4] sharded/gather end to end takes {e_sharded / e_single:.3f}x the single-card "
           f"gather engine on the same clip [{card}]")
+    # The deep aperiodic clip under auto (gather) beside impl='xla', the
+    # engine that auto took before the gather kernel took deep taps.
+    e_auto = e2e(f"gather (auto) {deep_aper_geo} tap16 ", deep_aper_r, aclip, dadw * dadh)
+    xla_r = JincResizer(fmt, dasw, dash, replace(aper_cfg, impl="xla"), device=dev)
+    e_xla = e2e(f"xla {deep_aper_geo} tap16 ", xla_r, aclip, dadw * dadh, split_too=False)
+    print(f"[4] {deep_aper_geo} tap16 end to end: auto (gather) {e_auto:.2f} ms/frame, "
+          f"impl='xla' {e_xla:.2f} ms/frame ({e_xla / e_auto:.2f}x) [{card}]")
+    del xla_r
 
     # The bench twin in its three modes, in this process, at 2 queued calls.
     for mode in ([], ["--downscale"], ["--tap16-downscale"]):

@@ -28,9 +28,15 @@ JAX package's names):
 kernel's only envelope is the shared memory of its weights, which every plan
 of ``phase.plan_phases`` fits. On a CUDA device it then tries ``fused-seg`` and
 ``gather`` (the counterpart of the JAX package's TPU-only step); else
-``xla``. ``'conv'`` runs ``fused`` or raises; ``'seg'`` and ``'gather'`` run
-their engine or raise; ``'pallas'`` runs the first hand-written engine of
-``fused`` -> ``fused-seg`` -> ``gather`` or raises. ``'sharded'``, or
+``xla``. The gather kernel takes any filter size, so aperiodic or drifted
+deep-tap plans with a dictionary and an interior (3840x2160 -> 1366x768 tap
+16, fs 92) take ``gather`` on the card where the JAX package, whose gather
+envelope ends at fs**2 = 1200, takes ``xla``; only plans with no dictionary
+or no interior (border-only operators) reach ``xla`` there. Off the card
+``auto`` stays ``fused`` -> ``xla``. ``'conv'`` runs ``fused`` or raises;
+``'seg'`` and ``'gather'`` run their engine or raise; ``'pallas'`` runs the
+first hand-written engine of ``fused`` -> ``fused-seg`` -> ``gather`` or
+raises. ``'sharded'``, or
 ``'auto'`` with a ``mesh``, runs the sharded engine on every plane; with no
 mesh it takes ``sharding.make_mesh`` over every visible device of the
 resizer's device type. A mesh with any other ``impl`` raises ``JincError``.

@@ -34,30 +34,25 @@ __device__ __forceinline__ float jt_window_dot(const float* __restrict__ plane, 
   return acc;
 }
 
-// One output pixel's (fs, fs) window sum for up to kFrames frames, against
-// its block in the class-minor dictionary: s0 points at the window's top-left
-// source sample of the first frame (frames `plane` floats apart, rows W apart),
-// w at pbt[cy, 0, 0, cx] (taps n_ux floats apart). fp32 FMA along each tap
-// row, the row sums added in ly order; kernels/gather.py window_sum_plain
-// sums alike. Used by the gather interior and the gather band kernels.
-template <int kFrames>
-__device__ __forceinline__ void jt_gather_window(const float* __restrict__ s0, int64_t plane,
-                                                 int W, const float* __restrict__ w, int n_ux,
-                                                 int fs, int nf, float (&acc)[kFrames]) {
-#pragma unroll
-  for (int i = 0; i < kFrames; ++i) acc[i] = 0.f;
-  for (int ly = 0; ly < fs; ++ly) {
-    const float* srow = s0 + static_cast<int64_t>(ly) * W;
-    float row[kFrames];
-#pragma unroll
-    for (int i = 0; i < kFrames; ++i) row[i] = 0.f;
-    for (int lx = 0; lx < fs; ++lx, w += n_ux) {
-      const float wv = __ldg(w);
-#pragma unroll
-      for (int i = 0; i < kFrames; ++i)
-        if (i < nf) row[i] = fmaf(__ldg(srow + i * plane + lx), wv, row[i]);
-    }
-#pragma unroll
-    for (int i = 0; i < kFrames; ++i) acc[i] += row[i];
-  }
+__device__ __forceinline__ unsigned jt_smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 4-byte asynchronous copy into shared memory; writes a zero when !ok.
+__device__ __forceinline__ void jt_cp_async4(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(jt_smem_addr(dst)), "l"(src),
+               "r"(ok ? 4 : 0));
+}
+
+__device__ __forceinline__ void jt_cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(jt_smem_addr(dst)), "l"(src));
+}
+
+__device__ __forceinline__ void jt_cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void jt_cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }

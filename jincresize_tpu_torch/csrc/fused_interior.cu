@@ -64,27 +64,6 @@ struct FusedArgs {
 // Physical offset of window column x in a staged row (kernels/fused.py _skew).
 __device__ __forceinline__ int skew(int x) { return x + 4 * (x >> 5); }
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 4-byte asynchronous copy into shared memory; writes a zero when !ok.
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(ok ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 template <int N>
 __device__ __forceinline__ void load4(const float* p, float* v) {
 #pragma unroll
@@ -186,7 +165,7 @@ __global__ void __launch_bounds__(TX, 512 / TX) fused_interior_kernel(const Fuse
   const float* const plane = a.src + static_cast<int64_t>(f) * a.H * a.W;
 
   const float* const wg = a.w + static_cast<int64_t>(g) * wn;
-  for (int v = t; v < wn / 4; v += TX) cp_async16(wsm + 4 * v, wg + 4 * v);
+  for (int v = t; v < wn / 4; v += TX) jt_cp_async16(wsm + 4 * v, wg + 4 * v);
 
   auto stage = [&](int k) {  // window rows [k*ch, (k+1)*ch) into their ring slots
     const int s1 = min(nr, (k + 1) * a.ch);
@@ -198,10 +177,10 @@ __global__ void __launch_bounds__(TX, 512 / TX) fused_interior_kernel(const Fuse
       for (int x = t; x < sw; x += TX) {
         const int xx = col0 + x;
         const bool ok = yok && static_cast<unsigned>(xx) < static_cast<unsigned>(a.W);
-        cp_async4(drow + skew(x), ok ? srow + xx : plane, ok);
+        jt_cp_async4(drow + skew(x), ok ? srow + xx : plane, ok);
       }
     }
-    cp_async_commit();
+    jt_cp_async_commit();
   };
 
   float acc[C][G][R];
@@ -218,9 +197,9 @@ __global__ void __launch_bounds__(TX, 512 / TX) fused_interior_kernel(const Fuse
   for (int k = 0; k < nchunks; ++k) {
     if (k + 1 < nchunks) {
       stage(k + 1);
-      cp_async_wait<1>();
+      jt_cp_async_wait<1>();
     } else {
-      cp_async_wait<0>();
+      jt_cp_async_wait<0>();
     }
     __syncthreads();
     const int s1 = min(nr, (k + 1) * a.ch);

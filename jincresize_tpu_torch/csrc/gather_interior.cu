@@ -1,60 +1,34 @@
 // Interior of any geometry: per-pixel window starts and dictionary classes.
 //
-// Replaces jincresize_tpu/kernels/pallas_gather.py::_gather_kernel (built by
-// make_gather_interior). For interior row m and column x:
+// Replaces jincresize_tpu/kernels/pallas_gather.py::_gather_kernel (:137;
+// its pallas_call at :455, built by make_gather_interior). For interior row
+// m and column x:
 //
 //   out[f, m, x] = sum_{ly, lx < fs} src[f, sy[m] + ly, sx[x] + lx]
-//                                    * pbt[cy[m], ly, lx, cx[x]]
+//                                    * blocks[cy[m], cx[x], ly, lx]
 //
-// pbt is the compact class-pair dictionary stored class-minor, so the 32
-// columns of a warp read one n_ux-float row per tap. One thread per output
-// pixel of a 32 x 8 tile: fp32 FMA along each tap row, the row sums added in
-// ly order (common.cuh jt_gather_window; kernels/gather.py's plain form sums
-// alike). A thread carries up to kFrames frames (gridDim.z walks the frame
-// groups), so each weight it loads serves every frame of its group. The host
-// guarantees 0 <= sy <= H - fs and 0 <= sx <= W - fs (kernels/gather.py), so
-// no read leaves the plane.
-#include "common.cuh"
+// The tile body, what bounds it on an H100 and what the design does about
+// it are in gather_tile.cuh, shared with the band kernel (gather_band.cu).
+//
+// TPU workarounds dropped: the x-expanded class planes Wx[n_uy, fs2p,
+// nxi_pad] (1.16 GB at 256x256 classes) -- a thread reads its pixel's
+// block of the compact dictionary; the XLA horizontal im2col P[f, h, lx, x]
+// -- the source window is staged in shared memory; _choose_tiles against
+// the 12 MB VMEM budget, the band origins syloc/y0 and the padding of rows
+// and columns to the tile grid -- a block covers a 32 x 16 tile and masks
+// the ragged edge; the JINCRESIZE_GATHER_TN/TM overrides; and the
+// fs**2 <= 1200 envelope (the VMEM tile budget of a deep-tap window) -- the
+// window streams through a ring of source rows, so fs is a run-time value.
+#include "gather_tile.cuh"
 
-namespace {
-
-constexpr int kTileX = 32;
-constexpr int kTileY = 8;
-constexpr int kFrames = 4;
-
-__global__ void __launch_bounds__(kTileX* kTileY)
-    gather_interior_kernel(const float* __restrict__ src, const float* __restrict__ pbt,
-                           const int* __restrict__ sy, const int* __restrict__ cy,
-                           const int* __restrict__ sx, const int* __restrict__ cx,
-                           float* __restrict__ out, int F, int H, int W, int nyi, int nxi,
-                           int n_ux, int fs) {
-  const int X = blockIdx.x * kTileX + threadIdx.x;
-  const int Y = blockIdx.y * kTileY + threadIdx.y;
-  if (X >= nxi || Y >= nyi) return;
-  const int f0 = blockIdx.z * kFrames;
-  const int nf = min(kFrames, F - f0);
-  const int64_t plane = static_cast<int64_t>(H) * W;
-  const float* w = pbt + static_cast<int64_t>(cy[Y]) * fs * fs * n_ux + cx[X];
-  const float* s0 = src + f0 * plane + static_cast<int64_t>(sy[Y]) * W + sx[X];
-  float acc[kFrames];
-  jt_gather_window<kFrames>(s0, plane, W, w, n_ux, fs, nf, acc);
-  float* o = out + f0 * (static_cast<int64_t>(nyi) * nxi) + static_cast<int64_t>(Y) * nxi + X;
-#pragma unroll
-  for (int i = 0; i < kFrames; ++i)
-    if (i < nf) o[i * static_cast<int64_t>(nyi) * nxi] = acc[i];
-}
-
-}  // namespace
-
-// src (F, H, W) f32; pbt (n_uy, fs, fs, n_ux) f32; sy, cy (nyi) int32; sx, cx
-// (nxi) int32; out (F, nyi, nxi) f32. All contiguous.
-extern "C" int jt_gather_interior(const float* src, const float* pbt, const int* sy, const int* cy,
-                                  const int* sx, const int* cx, float* out, int F, int H, int W,
-                                  int nyi, int nxi, int n_ux, int fs, cudaStream_t stream) {
-  const dim3 block(kTileX, kTileY);
-  const dim3 grid((nxi + kTileX - 1) / kTileX, (nyi + kTileY - 1) / kTileY,
-                  (F + kFrames - 1) / kFrames);
-  gather_interior_kernel<<<grid, block, 0, stream>>>(src, pbt, sy, cy, sx, cx, out, F, H, W, nyi,
-                                                     nxi, n_ux, fs);
-  return static_cast<int>(cudaGetLastError());
+// src (F, H, W) f32; blocks (n_uy, n_ux, fs, fsp) f32; sy, cy (nyi) int32;
+// sx, cx (nxi) int32; out (F, nyi, nxi) f32. All contiguous. nf, swp, ch:
+// frames a thread and the ring (kernels/gather.py ring_layout).
+extern "C" int jt_gather_interior(const float* src, const float* blocks, const int* sy,
+                                  const int* cy, const int* sx, const int* cx, float* out, int F,
+                                  int H, int W, int nyi, int nxi, int n_ux, int fs, int fsp,
+                                  int nf, int swp, int ch, cudaStream_t stream) {
+  const GatherArgs a{src, blocks, sy, cy, sx, cx, out, static_cast<int64_t>(nyi) * nxi, nxi,
+                     F, H, W, nyi, nxi, n_ux, fs, fsp, swp, ch};
+  return gather_launch(a, nf, stream);
 }

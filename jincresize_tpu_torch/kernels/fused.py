@@ -71,8 +71,8 @@ from . import _build
 
 # Per-block shared memory an H100 kernel may opt into (227 KB).
 MAX_SMEM_BYTES = 232448
-# The gather and seg kernels' envelope (fs**2 <= 1200, as the JAX gather
-# kernel's); the fused kernel has none beyond its shared memory.
+# The seg kernel's envelope (fs**2 <= 1200, as the JAX gather kernel's);
+# the fused and gather kernels have none beyond their shared memory.
 FS2_MAX = 1200
 # The kernel's shapes (compile-time constants of csrc/fused_interior.cu):
 # (threads a block, R anchors a thread along x, C*G accumulator rows a

@@ -1,8 +1,9 @@
 """General-geometry gather interior: hand-written CUDA kernel and plain form.
 
 ``gather_interior`` replaces ``jincresize_tpu/kernels/pallas_gather.py``
-``make_gather_interior``/``_gather_kernel``. It computes the interior
-rectangle ``[y_lo, y_hi) x [x_lo, x_hi)`` of any geometry, periodic or not:
+``make_gather_interior``/``_gather_kernel`` (:137, ``pallas_call`` :455).
+It computes the interior rectangle ``[y_lo, y_hi) x [x_lo, x_hi)`` of any
+geometry, periodic or not, at any filter size:
 
     out[f, m, x] = sum_{ly, lx < fs} src[f, sy[m] + ly, sx[x] + lx]
                                      * pair_blocks[cy[m], cx[x], ly, lx]
@@ -10,55 +11,68 @@ rectangle ``[y_lo, y_hi) x [x_lo, x_hi)`` of any geometry, periodic or not:
 with the operator's own window starts ``sy``/``sx`` and dictionary classes
 ``cy``/``cx``. Borders and the canvas are the caller's (``apply_gather``).
 
-The CUDA kernel is ``csrc/gather_interior.cu``: one thread per interior
-output pixel, fp32 ``fmaf`` along each tap row with the row sums added in ly
-order (more accurate than one running sum over fs**2 taps; the plain form
-sums alike), and up to four frames per thread, so every weight load serves
-each frame of the group.
+The CUDA kernel is ``csrc/gather_interior.cu`` over the tile body of
+``csrc/gather_tile.cuh``. What bounds it on an H100 is feeding the FMAs,
+not their count: every pixel may own a different (fs, fs) block, so each
+weight serves only the frames of its pixel, while the source is small and
+shared by neighbouring windows. A block streams its tile's source window
+(32 columns by 16 rows of output) through a double-buffered ``cp.async``
+ring of source rows in shared memory, frames side by side; a thread owns
+one column, 2 rows and up to 8 frames (``FRAMES``, chosen from F by
+``choose_ring``), loads each staged row's source values once for both of
+its rows, and reads each row's weights as one linear stream of 16-byte
+loads through its block, two chunks ahead: one load serves 4 taps times
+its frames. Per pixel and frame the sum is an ``fmaf`` chain along each tap
+row, the row sums added in ly order (more accurate than one running sum
+over fs**2 taps); the plain form sums alike, so kernel and plain form agree
+bit for bit.
 
-Weights: the kernel reads the compact dictionary, stored class-minor as
-``pair_blocks_t[cy, ly, lx, cx]`` (the same 75.8 MB at 256x256 classes). The
-expanded ``[cy, ly*fs + lx, x]`` layout would make a warp's weight loads
-fully coalesced across ``x``, but it costs n_ux-fold memory (1.16 GB on
-1080p -> 3740x2104) and still reads fs**2 floats per pixel from device
-memory. In the class-minor order the 32 columns of a warp read one
-``n_ux``-float row per tap (1 KB at 256 classes, at most 8 cache lines),
-where the ``(n_uy, n_ux, fs, fs)`` order would touch 32 blocks 1.2 KB apart;
-one row class's ``(fs, fs, n_ux)`` slab (296 KB at fs 17) stays in L2. What
-bounds the kernel on an H100: the per-pixel weights are structural (every
-pixel may own a different block), so each FMA needs one source load and,
-amortised over the frame group, a quarter of a scattered weight load --
-load issue, not HBM bytes or FLOPs.
+Weights: the kernel reads the compact dictionary as ``padded_blocks``,
+``[cy, cx, ly, lx]`` with each tap row padded to a multiple of 4 floats
+(16-byte loads): 89 MB at 256x256 classes and fs 17 (75.8 MB unpadded),
+138.7 MB at fs 92. A thread's tap row is contiguous, so the 32 lanes of a
+warp read 16 bytes each of their own sectors, the other half of which the
+next 4 taps read. The earlier class-minor ``[cy, ly, lx, cx]`` order read
+one scattered word per lane and tap (32 sectors for 128 useful bytes); the
+expanded ``[cy, ly*fs + lx, x]`` layout would cost n_ux-fold memory (1.16
+GB on 1080p -> 3740x2104) and was measured and rejected.
+
+The envelope: a non-empty dictionary, a non-empty interior and one staged
+source row of a tile (its window columns times one frame, two ring stages)
+within the 227 KB of shared memory -- any filter size.
 
 TPU workarounds of the Pallas kernel that this one drops:
 
 * the host and device x-expansion of the dictionary into class planes
   ``Wx[n_uy, fs2p, nxi_pad]`` (``expand_weight_planes``, 1.16 GB at 256x256
-  classes) -- a GPU thread indexes the compact dictionary directly;
+  classes) -- a thread indexes the compact dictionary directly;
 * the XLA horizontal im2col ``P[f, h, lx, x]`` built outside the kernel --
-  a thread reads its window from the source plane;
+  a block stages its source window in shared memory;
 * ``_choose_tiles`` against the 12 MB VMEM budget, the band origins and
   band-local starts (``syloc``/``y0``) and the padding of rows and columns
-  to the tile grid -- a thread block covers a 32 x 8 pixel tile and masks the
-  ragged edge itself;
-* the ``JINCRESIZE_GATHER_TN``/``JINCRESIZE_GATHER_TM`` tile overrides.
+  to the tile grid -- a thread block covers a 32 x 16 pixel tile and masks
+  the ragged edge itself;
+* the ``JINCRESIZE_GATHER_TN``/``JINCRESIZE_GATHER_TM`` tile overrides;
+* the envelope ``fs**2 <= 1200`` (``pallas_gather.is_supported``), the VMEM
+  budget of a deep-tap tile: the window streams through the ring, so
+  aperiodic deep-tap downscales (4K -> 1366x768 tap 16, fs 92) run here.
 
 ``gather_band`` replaces ``pallas_gather.py`` ``make_gather_band``/
-``band_kernel``: the same sum over one row shard of the sharded engine
-(``sharding.make_sharded_apply_gather``), read from the shard's band (its own
-source rows plus the halos) at band-local window starts ``syl``, for every
-destination row of the shard (border rows too; the caller patches them), and
-stored straight into the shard's ``(F, td, dst_w)`` canvas at column
-``x_lo``. Its kernel is ``csrc/gather_band.cu``, the gather interior's thread
-layout and window sum (``common.cuh`` ``jt_gather_window``) with the canvas
-row stride. TPU workarounds of ``make_gather_band`` that it drops besides the
-ones above: the x-expanded class planes passed as a jit argument (the remote
+``band_kernel`` (:306, ``pallas_call`` :333): the same sum over one row
+shard of the sharded engine (``sharding.make_sharded_apply_gather``), read
+from the shard's band (its own source rows plus the halos) at band-local
+window starts ``syl``, for every destination row of the shard (border rows
+too; the caller patches them), and stored straight into the shard's
+``(F, td, dst_w)`` canvas at column ``x_lo``. Its kernel is
+``csrc/gather_band.cu``, the same tile body with the canvas row stride.
+TPU workarounds of ``make_gather_band`` that it drops besides the ones
+above: the x-expanded class planes passed as a jit argument (the remote
 compile's HTTP 413 limit), the XLA im2col ``P = band[:, colsT]``,
 ``choose_band_tiles`` against the 12 MB VMEM budget, the per-band origins
 ``y0`` with ``syloc`` relative to them, the padding of rows and columns to
-``tm``/``tn`` and of the band to ``hp_need``, the ``dynamic_update_slice`` of
-the interior into the canvas, and the ``interpret=not backend_tpu`` switch
-(the wrapper chooses by the tensor's device).
+``tm``/``tn`` and of the band to ``hp_need``, the ``dynamic_update_slice``
+of the interior into the canvas, and the ``interpret=not backend_tpu``
+switch (the wrapper chooses by the tensor's device).
 
 Weights and state: the operator is the shared NumPy ``PlaneOperator`` that
 the JAX package builds too, so the device tables are made from the same
@@ -75,14 +89,92 @@ import torch
 from ..operator import PlaneOperator
 
 from . import _build
-from .fused import FS2_MAX
+from .fused import MAX_SMEM_BYTES
+
+# The kernel's tiling (csrc/gather_tile.cuh): output columns and rows of a
+# block (kTX, kTY), and the frames a thread may carry (its instances).
+TILE = (32, 16)
+FRAMES = (1, 2, 4, 8)
+# The ring: at most this many source rows a stage, two stages, and about
+# this many bytes, so that several blocks share an SM.
+MAX_STAGE_ROWS = 8
+RING_BYTES = 48 * 1024
+
+
+@dataclass(frozen=True)
+class Ring:
+    """Shared-memory ring of one launch (the kernel's ``swp``, ``ch``)."""
+
+    frames: int  # frames a thread: one of FRAMES
+    swp: int  # columns of a staged row, padded to 4 (16-byte rows)
+    ch: int  # source rows a stage; two stages
+    smem_bytes: int
+
+
+def tile_span(starts: np.ndarray, tile: int, fs: int) -> int:
+    """Widest window of a tile: max over tiles of ``tile`` consecutive
+    starts of (max start - min start) + fs; the kernel's tile window."""
+    s = np.asarray(starts, dtype=np.int64)
+    n = -(-len(s) // tile) * tile
+    s = np.concatenate([s, np.full(n - len(s), s[-1])]).reshape(-1, tile)
+    return int((s.max(axis=1) - s.min(axis=1)).max()) + fs
+
+
+def ring_layout(span_w: int, frames: int) -> Ring:
+    """The ring for tiles at most ``span_w`` source columns wide carrying
+    ``frames`` frames a thread."""
+    swp = -(-span_w // 4) * 4
+    row_bytes = 4 * swp * frames
+    ch = max(1, min(MAX_STAGE_ROWS, RING_BYTES // (2 * row_bytes)))
+    return Ring(frames, swp, ch, 2 * ch * row_bytes)
+
+
+def frames_per_thread(n_frames: int) -> int:
+    """The fewest of ``FRAMES`` that cover ``n_frames`` (8 beyond it)."""
+    return next((f for f in FRAMES if f >= n_frames), FRAMES[-1])
+
+
+def choose_ring(span_w: int, n_frames: int) -> Ring:
+    """The ring of a launch over ``n_frames``: ``frames_per_thread``,
+    halved until one staged row fits the shared memory. Raises when even
+    one frame's row does not (``is_supported`` declines such operators)."""
+    frames = frames_per_thread(n_frames)
+    while True:
+        ring = ring_layout(span_w, frames)
+        if ring.smem_bytes <= MAX_SMEM_BYTES:
+            return ring
+        if frames == 1:
+            raise ValueError(
+                f"gather ring: a window row of {span_w} columns does not fit "
+                f"{MAX_SMEM_BYTES} bytes of shared memory"
+            )
+        frames //= 2
+
+
+def fsp_of(fs: int) -> int:
+    """Floats of a padded tap row of the device dictionary."""
+    return -(-fs // 4) * 4
+
+
+def padded_blocks(pair_blocks: np.ndarray, device) -> torch.Tensor:
+    """The dictionary as ``[cy, cx, ly, lx]`` on ``device``, each tap row
+    padded with zeros to ``fsp_of(fs)`` floats: (n_uy, n_ux, fs, fsp)."""
+    n_uy, n_ux, fs, _ = pair_blocks.shape
+    out = np.zeros((n_uy, n_ux, fs, fsp_of(fs)), dtype=np.float32)
+    out[..., :fs] = pair_blocks
+    return torch.from_numpy(out).to(device)
+
+
+def class_minor_view(blocks: torch.Tensor) -> torch.Tensor:
+    """``padded_blocks`` seen as ``[cy, ly, lx, cx]`` (a view, no copy)."""
+    return blocks[..., : blocks.shape[2]].permute(0, 2, 3, 1)
 
 
 @dataclass(frozen=True)
 class GatherInterior:
     """Device tables of the gather interior for one operator."""
 
-    pair_blocks_t: torch.Tensor  # (n_uy, fs, fs, n_ux) f32, the dictionary class-minor
+    blocks: torch.Tensor  # (n_uy, n_ux, fs, fsp) f32, padded_blocks
     start_y: torch.Tensor  # (nyi,) int32 window starts of rows [y_lo, y_hi)
     cy_idx: torch.Tensor  # (nyi,) int32 row classes
     start_x: torch.Tensor  # (nxi,) int32 window starts of columns [x_lo, x_hi)
@@ -90,19 +182,26 @@ class GatherInterior:
     src_height: int
     src_width: int
     fs: int
+    span_w: int  # widest tile window (tile_span of start_x)
 
     @property
     def out_shape(self) -> tuple[int, int]:
         return self.start_y.shape[0], self.start_x.shape[0]
 
 
+def interior_span(op: PlaneOperator) -> int:
+    """``tile_span`` of the interior columns' window starts."""
+    return tile_span(op.start_x[op.x_lo : op.x_hi], TILE[0], op.filter_size)
+
+
 def is_supported(op: PlaneOperator) -> bool:
-    """Envelope: a non-empty dictionary, fs**2 <= FS2_MAX, an interior."""
+    """Envelope: a non-empty dictionary, an interior, and one frame's staged
+    window row within the shared memory (``choose_ring``). Any filter size."""
     return (
         op.pair_blocks.size > 0
-        and op.filter_size**2 <= FS2_MAX
         and op.y_hi > op.y_lo
         and op.x_hi > op.x_lo
+        and ring_layout(interior_span(op), 1).smem_bytes <= MAX_SMEM_BYTES
     )
 
 
@@ -122,7 +221,8 @@ def check_window_starts(starts: np.ndarray, size: int, fs: int, what: str) -> No
 
 
 def class_minor(pair_blocks: np.ndarray, device) -> torch.Tensor:
-    """The dictionary as ``[cy, ly, lx, cx]`` on ``device``: (n_uy, fs, fs, n_ux)."""
+    """The dictionary as ``[cy, ly, lx, cx]`` on ``device``: (n_uy, fs, fs,
+    n_ux), the seg kernel's layout (``kernels/seg.py``)."""
     return torch.from_numpy(np.ascontiguousarray(pair_blocks.transpose(0, 2, 3, 1))).to(device)
 
 
@@ -142,7 +242,7 @@ def make_gather_interior(
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device)
 
     return GatherInterior(
-        pair_blocks_t=class_minor(op.pair_blocks, device),
+        blocks=padded_blocks(op.pair_blocks, device),
         start_y=t(sy),
         cy_idx=t(op.cy_idx[op.y_lo : op.y_hi]),
         start_x=t(sx),
@@ -150,6 +250,7 @@ def make_gather_interior(
         src_height=op.src_height,
         src_width=op.src_width,
         fs=fs,
+        span_w=interior_span(op),
     )
 
 
@@ -180,7 +281,9 @@ def window_sum_plain(src_f, sy, cy, sx, cx, pair_blocks_t) -> torch.Tensor:
 
 def gather_interior_plain(gi: GatherInterior, src_f: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch form of the gather interior: (F, H, W) -> (F, nyi, nxi)."""
-    return window_sum_plain(src_f, gi.start_y, gi.cy_idx, gi.start_x, gi.cx_idx, gi.pair_blocks_t)
+    return window_sum_plain(
+        src_f, gi.start_y, gi.cy_idx, gi.start_x, gi.cx_idx, class_minor_view(gi.blocks)
+    )
 
 
 def gather_interior(gi: GatherInterior, src_f: torch.Tensor) -> torch.Tensor:
@@ -199,17 +302,18 @@ def gather_interior(gi: GatherInterior, src_f: torch.Tensor) -> torch.Tensor:
     F, H, W = src_f.shape
     if (H, W) != (gi.src_height, gi.src_width):
         raise ValueError(f"gather_interior: source {W}x{H} does not match the operator")
-    if gi.pair_blocks_t.device != src_f.device:
+    if gi.blocks.device != src_f.device:
         raise ValueError("gather_interior: operator and source on different devices")
     nyi, nxi = gi.out_shape
     out = torch.empty((F, nyi, nxi), dtype=torch.float32, device=src_f.device)
     if F == 0:
         return out
+    ring = choose_ring(gi.span_w, F)
     with torch.cuda.device(src_f.device):
         rc = _build.library().jt_gather_interior(
-            src_f.data_ptr(), gi.pair_blocks_t.data_ptr(), gi.start_y.data_ptr(),
-            gi.cy_idx.data_ptr(), gi.start_x.data_ptr(), gi.cx_idx.data_ptr(),
-            out.data_ptr(), F, H, W, nyi, nxi, gi.pair_blocks_t.shape[3], gi.fs,
+            src_f.data_ptr(), gi.blocks.data_ptr(), gi.start_y.data_ptr(), gi.cy_idx.data_ptr(),
+            gi.start_x.data_ptr(), gi.cx_idx.data_ptr(), out.data_ptr(), F, H, W, nyi, nxi,
+            gi.blocks.shape[1], gi.fs, gi.blocks.shape[3], ring.frames, ring.swp, ring.ch,
             _build.stream_of(src_f),
         )  # fmt: skip
     _build.check(rc, "jt_gather_interior")
@@ -219,15 +323,12 @@ def gather_interior(gi: GatherInterior, src_f: torch.Tensor) -> torch.Tensor:
 
 gather_interior.launches = 0
 
-BAND_TILE = (32, 8)  # output pixels (x, y) of one thread block; csrc/gather_band.cu kTileX/kTileY
-BAND_FRAMES = 4  # frames per thread; csrc/gather_band.cu kFrames
-
 
 @dataclass(frozen=True)
 class GatherBand:
     """Device tables of one row shard's band interior."""
 
-    pair_blocks_t: torch.Tensor  # (n_uy, fs, fs, n_ux) f32, the dictionary class-minor
+    blocks: torch.Tensor  # (n_uy, n_ux, fs, fsp) f32, padded_blocks
     syl: torch.Tensor  # (td,) int32 band-local window starts of the shard's rows
     cy: torch.Tensor  # (td,) int32 row classes (border rows clipped into range)
     start_x: torch.Tensor  # (nxi,) int32 window starts of columns [x_lo, x_hi)
@@ -237,6 +338,7 @@ class GatherBand:
     dst_width: int
     x_lo: int
     fs: int
+    span_w: int  # widest tile window (tile_span of start_x)
 
     @property
     def rows(self) -> int:
@@ -248,10 +350,11 @@ def make_gather_band(
     syl: np.ndarray,
     cy: np.ndarray,
     band_h: int,
-    pair_blocks_t: torch.Tensor,
+    blocks: torch.Tensor,
 ) -> GatherBand:
-    """Tables of one row shard on the device of ``pair_blocks_t``
-    (``class_minor(op.pair_blocks, device)``, shared by the shards of a device).
+    """Tables of one row shard on the device of ``blocks``
+    (``padded_blocks(op.pair_blocks, device)``, shared by the shards of a
+    device).
 
     ``syl``/``cy`` are the band-local window starts and the classes of the
     shard's destination rows; every window must lie inside the band.
@@ -265,13 +368,13 @@ def make_gather_band(
     check_window_starts(sx, op.src_width, fs, "make_gather_band columns")
     if len(cy) != len(syl) or (len(cy) and (int(cy.min()) < 0 or int(cy.max()) >= n_uy)):
         raise ValueError(f"make_gather_band: row classes must be {len(syl)} values in [0, {n_uy})")
-    device = pair_blocks_t.device
+    device = blocks.device
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device)
 
     return GatherBand(
-        pair_blocks_t=pair_blocks_t,
+        blocks=blocks,
         syl=t(syl),
         cy=t(cy),
         start_x=t(sx),
@@ -281,6 +384,7 @@ def make_gather_band(
         dst_width=op.dst_width,
         x_lo=op.x_lo,
         fs=fs,
+        span_w=interior_span(op),
     )
 
 
@@ -289,7 +393,7 @@ def gather_band_plain(gb: GatherBand, band: torch.Tensor, canvas: torch.Tensor) 
     ``canvas[:, :, x_lo:x_hi]`` (in place); returns ``canvas``."""
     nxi = gb.start_x.shape[0]
     canvas[:, :, gb.x_lo : gb.x_lo + nxi] = window_sum_plain(
-        band, gb.syl, gb.cy, gb.start_x, gb.cx_idx, gb.pair_blocks_t
+        band, gb.syl, gb.cy, gb.start_x, gb.cx_idx, class_minor_view(gb.blocks)
     )
     return canvas
 
@@ -320,16 +424,17 @@ def gather_band(gb: GatherBand, band: torch.Tensor, canvas: torch.Tensor) -> tor
             f"gather_band: canvas must be a contiguous ({F}, {gb.rows}, {gb.dst_width}) "
             "float32 tensor"
         )
-    if gb.pair_blocks_t.device != band.device or canvas.device != band.device:
+    if gb.blocks.device != band.device or canvas.device != band.device:
         raise ValueError("gather_band: tables, band and canvas on different devices")
     if F == 0:
         return canvas
+    ring = choose_ring(gb.span_w, F)
     with torch.cuda.device(band.device):
         rc = _build.library().jt_gather_band(
-            band.data_ptr(), gb.pair_blocks_t.data_ptr(), gb.syl.data_ptr(), gb.cy.data_ptr(),
+            band.data_ptr(), gb.blocks.data_ptr(), gb.syl.data_ptr(), gb.cy.data_ptr(),
             gb.start_x.data_ptr(), gb.cx_idx.data_ptr(), canvas.data_ptr(), F, H, W, gb.rows,
-            gb.start_x.shape[0], gb.pair_blocks_t.shape[3], gb.fs, gb.dst_width, gb.x_lo,
-            _build.stream_of(band),
+            gb.start_x.shape[0], gb.blocks.shape[1], gb.fs, gb.blocks.shape[3], gb.dst_width,
+            gb.x_lo, ring.frames, ring.swp, ring.ch, _build.stream_of(band),
         )  # fmt: skip
     _build.check(rc, "jt_gather_band")
     gather_band.launches += 1

@@ -23,7 +23,9 @@ Per shard, after its halo is collected:
 * ``gather`` -- the band kernel (``kernels/gather.py`` ``gather_band``),
   stored straight into the shard's canvas;
 * ``gather-scan`` -- the JAX package's ``fs**2``-step uniform gather-MAC in
-  plain torch, only where the band kernel's envelope declines.
+  plain torch, only where the band kernel's envelope declines (no
+  dictionary or interior, or windows outside the band; unlike the JAX
+  package's band kernel, it takes deep taps).
 
 Border rows and columns and the plan's exception rows and columns are then
 patched from the uniform operator (``build_uniform``), and each shard is
@@ -517,7 +519,10 @@ def make_sharded_apply_gather(
 
     Every shard runs ``gather_band`` over all its rows (border rows with
     their classes clipped into the dictionary) into its canvas; border rows
-    and columns are patched.
+    and columns are patched. The band kernel takes any filter size (its
+    window streams through a ring of source rows), so deep-tap aperiodic
+    downscales run here; the JAX package's band kernel declines fs**2 >
+    1200 and takes the scan-gather there.
     """
     if not gather_k.is_supported(op) or not _rows_in_source(op):
         return None
@@ -540,12 +545,12 @@ def make_sharded_apply_gather(
     if sy_loc.min() < 0 or int((sy_loc + fs).max()) > band_h:
         return None  # the JAX package's rule (padded rows included)
     bid, blocks_on = _uniform_on(op)
-    pbt_on = functools.cache(lambda dev: gather_k.class_minor(op.pair_blocks, dev))
+    blocks_on_dev = functools.cache(lambda dev: gather_k.padded_blocks(op.pair_blocks, dev))
     cols = _border_cols(op, op.x_lo, op.x_hi)
 
     def make_shard(d, dev, r0, r1):
         gb = gather_k.make_gather_band(
-            op, sy_loc[d, : r1 - r0], cy_glob[r0:r1], band_h, pbt_on(dev)
+            op, sy_loc[d, : r1 - r0], cy_glob[r0:r1], band_h, blocks_on_dev(dev)
         )
         rows = [r for r in range(r0, r1) if r < op.y_lo or r >= op.y_hi]
         patches = make_patches(
@@ -558,7 +563,7 @@ def make_sharded_apply_gather(
 
     info = {
         "interior": "gather",
-        "tiles": {"block": gather_k.BAND_TILE, "frames_per_thread": gather_k.BAND_FRAMES},
+        "tiles": {"block": gather_k.TILE, "frames_per_thread": gather_k.FRAMES},
         "replicate_src": plan.replicate_src,
         "hops": (plan.hops_up, plan.hops_dn),
     }
@@ -570,8 +575,9 @@ def make_sharded_apply_scan(
     op: PlaneOperator, mesh: RowMesh, data_axis: str | None = None
 ) -> tuple[ShardedApply, ShardPlan]:
     """The scan-gather: ``scan_values`` over each shard's rows, border pixels
-    included; taken only where the band kernel declines (fs**2 >
-    ``FS2_MAX``, no interior or no dictionary)."""
+    included; taken only where the band kernel declines (no dictionary, no
+    interior, a window outside its shard's band, or one past the source
+    rows; any filter size is taken by the band kernel)."""
     n = mesh.n_rows
     plan = plan_row_shard(op, n)
     ts = plan.src_rows_per

@@ -277,9 +277,18 @@ def test_impl_pallas_runs_hand_written_engines():
     _assert_clips_close(r2(clip2), japi.jinc_resize(_jclip(clip2), 167, 113, impl="numpy"), 8)
 
 
+# A small aperiodic deep-tap plane (fs 92, 16 x 62 classes, a 33.6 MB
+# dictionary, a 64 x 139 interior) with the 2.8125 row ratio of
+# 3840x2160 -> 1366x768 tap 16.
+DEEP_GATHER = (480, 270, 171, 96)
+
+
+# impl='gather' declines the border-only operator (no dictionary) in both
+# packages; deep taps no longer decline it in the port (the JAX package's
+# envelope ends at fs**2 = 1200: test_pallas_deep_tap_not_ported).
 ENGINE_ERRORS = [
     ("seg", (400, 220, 601, 331, 3), "segment-periodic"),
-    ("gather", (481, 271, 240, 135, 16), "gather kernel envelope"),
+    ("gather", (8, 8, 16, 16, 8), "gather kernel envelope"),
     ("pallas", (8, 8, 16, 16, 8), "outside all Pallas"),
     ("conv", (96, 64, 167, 113, 3), "requires periodic"),
 ]
@@ -299,13 +308,21 @@ def test_engine_errors_identical(impl, geom, msg):
 
 def test_pallas_deep_tap_not_ported():
     """impl='pallas' runs deep-tap periodic plans on the fused engine (the
-    JAX package's 'pallas' runs its fused kernel there too); an aperiodic
-    deep-tap plan is outside every hand-written engine and raises as JAX."""
+    JAX package's 'pallas' runs its fused kernel there too). An aperiodic
+    deep-tap plan, which the JAX package's 'pallas' and 'gather' decline
+    (fs**2 > 1200), runs on the port's gather kernel, which takes any
+    filter size."""
     cfg = api.JincConfig(target_width=240, target_height=135, tap=16, impl="pallas")
     r = api.JincResizer(gray(8), 480, 270, cfg, device="cpu")
     assert r.engines == {"luma": "fused"} and r._applier_luma.fi.fs == 65
-    with pytest.raises(api.JincError, match="outside all Pallas"):
-        api.JincResizer(gray(8), 481, 271, cfg, device="cpu")
+    sw, sh, dw, dh = DEEP_GATHER
+    for impl in ("pallas", "gather"):
+        cfg = api.JincConfig(target_width=dw, target_height=dh, tap=16, impl=impl)
+        r = api.JincResizer(gray(8), sw, sh, cfg, device="cpu")
+        assert r.engines == {"luma": "gather"} and r.op_luma.filter_size == 92
+        jcfg = japi.JincConfig(target_width=dw, target_height=dh, tap=16, impl=impl)
+        with pytest.raises(japi.JincError, match="outside all Pallas|gather kernel envelope"):
+            japi.JincResizer(_jfmt(gray(8)), sw, sh, jcfg)
 
 
 DEEP = {"2x-fs65": (480, 270, 240, 135), "2/3-fs49": (480, 270, 320, 180)}
@@ -351,15 +368,20 @@ def test_auto_on_cpu_takes_xla_off_the_periodic_path(geom):
     }
 
 
+# The gather kernel takes any filter size, so the aperiodic tap-16 downscale
+# (fs 66, where the JAX package's gather envelope declines and its auto takes
+# xla) now takes gather; only the border-only operator, whose dictionary is
+# empty, still reaches xla.
 AUTO_CUDA = [
-    ((32, 24, 64, 48, 3), "fused", "ConvApplier"),
-    ((96, 64, 288, 192, 2), "fused-seg", "SegConvApplier"),
-    ((96, 64, 167, 113, 3), "gather", "GatherApplier"),
-    ((481, 271, 240, 135, 16), "xla", None),
+    ((32, 24, 64, 48, 3), "fused", "ConvApplier", "fused"),
+    ((96, 64, 288, 192, 2), "fused-seg", "SegConvApplier", "fused-seg"),
+    ((96, 64, 167, 113, 3), "gather", "GatherApplier", "gather"),
+    ((481, 271, 240, 135, 16), "gather", "GatherApplier", "gather-deep"),
+    ((8, 8, 16, 16, 8), "xla", None, "xla"),
 ]
 
 
-@pytest.mark.parametrize("geom,engine,cls", AUTO_CUDA, ids=[e[1] for e in AUTO_CUDA])
+@pytest.mark.parametrize("geom,engine,cls", [e[:3] for e in AUTO_CUDA], ids=[e[3] for e in AUTO_CUDA])
 def test_auto_on_cuda_selects_fused_seg_gather_xla(geom, engine, cls, monkeypatch):
     """auto on a CUDA device: fused -> fused-seg -> gather -> xla. The
     appliers are stand-ins here (no card): the order is what is checked."""
@@ -372,3 +394,37 @@ def test_auto_on_cuda_selects_fused_seg_gather_xla(geom, engine, cls, monkeypatc
     op = build_plane_operator(sw, sh, dw, dh, radius_for_tap(tap))
     app, eng = api._select_engine(op, "auto", "fp32", torch.device("cuda"))
     assert (app, eng, made) == (cls, engine, [cls] if cls else [])
+
+
+@pytest.fixture(scope="module")
+def deep_gather_outputs():
+    """The JAX package's jinc_resize (auto: xla, its gather envelope
+    declines fs 92) and the port's golden on one-frame gray fp32 and u8 clips."""
+    sw, sh, dw, dh = DEEP_GATHER
+    out = {}
+    for bits in (32, 8):
+        clip = _clip(gray(bits), sw, sh, seed=40)
+        jr = japi.JincResizer(_jfmt(gray(bits)), sw, sh, japi.JincConfig(dw, dh, tap=16))
+        assert jr.engines == {"luma": "xla"}
+        golden = api.jinc_resize(clip, dw, dh, tap=16, impl="numpy", device="cpu")
+        out[bits] = (clip, jr(_jclip(clip)), golden)
+    return out
+
+
+@pytest.mark.parametrize("bits", [32, 8], ids=["f32", "u8"])
+def test_gather_deep_tap_matches_jax_and_golden(bits, deep_gather_outputs):
+    """fs**2 > 1200 through the port's GatherApplier (impl='gather', plain
+    forms on the CPU) against the JAX package's output: fp32 within the
+    deep-tap bound, u8 within 1 LSB; both against the host golden (u8 1
+    LSB; fp32 at 1e-5, the golden's own float32 chain over 8464 taps being
+    4.5e-6 off a float64 sum, the engines 5e-7, tests/test_torch_gather.py
+    golden64)."""
+    sw, sh, dw, dh = DEEP_GATHER
+    clip, want, golden = deep_gather_outputs[bits]
+    r = api.JincResizer(gray(bits), sw, sh, api.JincConfig(dw, dh, tap=16, impl="gather"), device="cpu")
+    assert r.engines == {"luma": "gather"} and r.op_luma.filter_size == 92
+    got = r(clip)
+    _assert_clips_close(got, want, bits, f32_tol=DEEP_TOL)
+    golden_tol = 1e-5 if bits == 32 else 1
+    _assert_clips_close(got, golden, bits, f32_tol=golden_tol)
+    _assert_clips_close(want, golden, bits, f32_tol=golden_tol)

@@ -6,7 +6,8 @@ take their plain PyTorch forms because the tensors lie on the CPU. The CUDA
 kernel is held to the same plain form on the card by ``chip_smoke.py``.
 
 Tolerances: 2e-6 absolute for the interior on fp32 sources in [0, 1) (exact
-fp32 products, only the summation order differs); for the applier,
+fp32 products, only the summation order differs), 4e-6 for deep taps (fs**2 >
+1200, the JAX deep-tap bound); for the applier,
 ``tests/test_apply_gather.py``'s relative fp32 bound against the golden and
 <= 1 LSB for u8/u16 after ``finalize``.
 """
@@ -18,13 +19,14 @@ import pytest
 import torch
 
 from jincresize_tpu import operator as joperator
-from jincresize_tpu_torch.golden import apply_plane_numpy
+from jincresize_tpu_torch.golden import apply_plane_numpy, materialize_blocks
 from jincresize_tpu_torch.operator import build_plane_operator, radius_for_tap
 from jincresize_tpu_torch.phase import plan_phases, plan_phases_seg
 from jincresize_tpu_torch.apply_gather import GatherApplier
 from jincresize_tpu_torch.kernels import fused, gather
 
 F32_TOL = 2e-6
+DEEP_TOL = 4e-6  # fs**2 > 1200: the JAX deep-tap bound
 
 # tests/test_apply_gather.py: aperiodic upscale (>100 classes per axis) and
 # the tap-2 downscale.
@@ -151,32 +153,140 @@ def test_gather_batch_matches_per_frame(ops):
 
 
 def test_gather_tables_follow_the_operator(ops):
-    """State carries across: the device tables are the operator's own arrays."""
+    """State carries across: the device tables are the operator's own arrays.
+
+    Since the Hopper redesign the dictionary is stored ``[cy, cx, ly, lx]``
+    with each tap row padded to a multiple of 4 floats (a thread's 16-byte
+    weight loads read its own block's tap row), no longer class-minor; the
+    plain form reads it through ``class_minor_view``, the old order."""
     op = ops["aperiodic-up"]
     gi = gather.make_gather_interior(op)
+    fs = op.filter_size
     np.testing.assert_array_equal(gi.start_y.numpy(), op.start_y[op.y_lo : op.y_hi])
     np.testing.assert_array_equal(gi.cy_idx.numpy(), op.cy_idx[op.y_lo : op.y_hi])
     np.testing.assert_array_equal(gi.start_x.numpy(), op.start_x[op.x_lo : op.x_hi])
     np.testing.assert_array_equal(gi.cx_idx.numpy(), op.cx_idx[op.x_lo : op.x_hi])
-    np.testing.assert_array_equal(gi.pair_blocks_t.numpy(), op.pair_blocks.transpose(0, 2, 3, 1))
+    assert gi.blocks.shape == op.pair_blocks.shape[:3] + (gather.fsp_of(fs),)
+    np.testing.assert_array_equal(gi.blocks[..., :fs].numpy(), op.pair_blocks)
+    assert not gi.blocks[..., fs:].any()
+    np.testing.assert_array_equal(
+        gather.class_minor_view(gi.blocks).numpy(), op.pair_blocks.transpose(0, 2, 3, 1)
+    )
     assert gi.start_y.dtype == gi.cx_idx.dtype == torch.int32
+    assert gi.span_w == gather.tile_span(op.start_x[op.x_lo : op.x_hi], gather.TILE[0], fs)
 
 
-def test_is_supported_declines_deep_tap_and_empty_dictionary():
+def test_is_supported_declines_an_empty_dictionary():
+    border_only = build_plane_operator(8, 8, 16, 16, radius_for_tap(8))
+    assert border_only.pair_blocks.size == 0
+    assert not gather.is_supported(border_only)
+    with pytest.raises(ValueError, match="envelope"):
+        gather.make_gather_interior(border_only)
+    with pytest.raises(ValueError, match="envelope"):
+        GatherApplier(border_only, device="cpu")
+
+
+def test_is_supported_takes_deep_taps_where_the_jax_envelope_declines():
+    """fs**2 > 1200: the JAX gather kernel's VMEM envelope declines, the
+    port's ring takes any filter size (the tables of the 373 MB tap-16
+    dictionary of 481x271 -> 240x135 are not built here; the 33.6 MB one of
+    ``DEEP`` is, below)."""
     from jincresize_tpu.kernels import pallas_gather
 
     deep = build_plane_operator(481, 271, 240, 135, radius_for_tap(16))
     assert deep.filter_size**2 > fused.FS2_MAX
-    assert not gather.is_supported(deep)
+    assert gather.is_supported(deep)
     jdeep = joperator.build_plane_operator(481, 271, 240, 135, joperator.radius_for_tap(16))
     assert not pallas_gather.is_supported(jdeep)
-    with pytest.raises(ValueError, match="envelope"):
-        gather.make_gather_interior(deep)
-    with pytest.raises(ValueError, match="envelope"):
-        GatherApplier(deep, device="cpu")
-    border_only = build_plane_operator(8, 8, 16, 16, radius_for_tap(8))
-    assert border_only.pair_blocks.size == 0
-    assert not gather.is_supported(border_only)
+
+
+# A small aperiodic deep-tap plane: fs 92, 16 x 62 classes, a 33.6 MB
+# dictionary and a 64 x 139 interior, with the 2.8125 row ratio of
+# 3840x2160 -> 1366x768 tap 16.
+DEEP = (480, 270, 171, 96, 16)
+
+
+@pytest.fixture(scope="module")
+def deep_op():
+    sw, sh, dw, dh, tap = DEEP
+    return build_plane_operator(sw, sh, dw, dh, radius_for_tap(tap))
+
+
+def golden64(op, src):
+    """The host golden's gather-MAC summed in float64: (F, dst_h, dst_w).
+
+    At fs 92 the golden's own float32 chain over 8464 taps is 4.5e-6 off
+    this sum, the port and the JAX package's engine 5e-7, so deep-tap fp32
+    outputs are held to this form at the JAX deep-tap bound."""
+    blocks = materialize_blocks(op).astype(np.float64)
+    fs, (F, H, W) = op.filter_size, src.shape
+    acc = np.zeros((F, op.dst_height, op.dst_width))
+    for ly in range(fs):
+        rows = src[:, np.clip(op.start_y + ly, 0, H - 1)]
+        for lx in range(fs):
+            acc += rows[:, :, np.clip(op.start_x + lx, 0, W - 1)] * blocks[:, :, ly, lx]
+    return acc
+
+
+def test_deep_tap_interior_matches_golden(deep_op):
+    """The gather interior (plain form) of the fs-92 plane against the host
+    golden's interior rectangle, summed in float64, at the JAX deep-tap
+    bound."""
+    op = deep_op
+    assert op.filter_size == 92 and op.pair_blocks.shape[:2] == (16, 62)
+    assert plan_phases(op) is None and gather.is_supported(op)
+    src = _src(op, np.float32, seed=19)
+    gi = gather.make_gather_interior(op)
+    got = gather.gather_interior(gi, torch.from_numpy(src)).numpy()
+    want = golden64(op, src)[:, op.y_lo : op.y_hi, op.x_lo : op.x_hi]
+    assert got.shape == want.shape == (2, 64, 139)
+    assert _maxdiff(got, want) <= DEEP_TOL
+
+
+def test_tile_span_is_the_widest_tile_window():
+    rng = np.random.default_rng(4)
+    for n, tile, fs in ((70, 32, 17), (32, 32, 92), (5, 32, 3), (100, 16, 7)):
+        starts = np.sort(rng.integers(0, 500, n))
+        want = max(int(starts[i : i + tile].max() - starts[i : i + tile].min()) for i in range(0, n, tile))
+        assert gather.tile_span(starts, tile, fs) == want + fs
+
+
+@pytest.mark.parametrize(
+    "n_frames,frames", [(1, 1), (2, 2), (3, 4), (4, 4), (5, 8), (8, 8), (12, 8)]
+)
+def test_frames_per_thread(n_frames, frames):
+    assert gather.frames_per_thread(n_frames) == frames
+
+
+@pytest.mark.parametrize(
+    "span_w,n_frames,want",
+    [
+        # 1080p -> 3740x2104 tap 8 (fs 17): 33 window columns a tile.
+        (33, 8, gather.Ring(8, 36, 8, 18432)),
+        (33, 4, gather.Ring(4, 36, 8, 9216)),
+        # 3840x2160 -> 1366x768 tap 16 (fs 92): 180 columns; 8 frames halve the stage.
+        (180, 8, gather.Ring(8, 180, 4, 46080)),
+        (180, 2, gather.Ring(2, 180, 8, 23040)),
+        # Wide rows: one row a stage, then fewer frames until it fits 227 KB.
+        (5000, 8, gather.Ring(4, 5000, 1, 160000)),
+        (29000, 1, gather.Ring(1, 29000, 1, 232000)),
+    ],
+)
+def test_choose_ring(span_w, n_frames, want):
+    ring = gather.choose_ring(span_w, n_frames)
+    assert ring == want
+    assert ring.smem_bytes == 2 * ring.ch * ring.swp * ring.frames * 4 <= fused.MAX_SMEM_BYTES
+    assert ring.swp % 4 == 0 and ring.swp >= span_w
+
+
+def test_choose_ring_refuses_a_row_that_does_not_fit():
+    with pytest.raises(ValueError, match="does not fit"):
+        gather.choose_ring(29100, 1)
+    # An operator whose tile window would span 31000 columns is declined.
+    op = build_plane_operator(96, 64, 167, 113, radius_for_tap(3))
+    assert gather.is_supported(op)
+    wide = dataclasses.replace(op, start_x=np.arange(op.dst_width, dtype=np.int32) * 1000)
+    assert gather.interior_span(wide) > 29056 and not gather.is_supported(wide)
 
 
 def test_make_checks_window_starts_on_the_host(ops):

@@ -334,13 +334,17 @@ def test_build_compiles_each_source_then_links(fail, monkeypatch, tmp_path):
 
 def test_gather_band_kernel_is_built_and_bound():
     """The sharded engine's band kernel has its source and its C signature:
-    seven pointers, nine sizes, the stream."""
+    seven pointers, thirteen sizes (nine, then the padded tap row, the
+    frames a thread and the ring's row width and depth of the Hopper
+    redesign), the stream; its tile body is shared with the interior."""
     from jincresize_tpu_torch.kernels import _build
 
     assert (_build.CSRC / "gather_band.cu").exists()
     assert "gather_band.cu" in {p.name for p in _build._sources()}
     sig = _build._SIGNATURES["jt_gather_band"]
-    assert sig == [_build._P] * 7 + [_build._I] * 9 + [_build._P]
+    assert sig == [_build._P] * 7 + [_build._I] * 13 + [_build._P]
+    for name in ("gather_band.cu", "gather_interior.cu"):
+        assert '#include "gather_tile.cuh"' in (_build.CSRC / name).read_text()
     assert "jt_gather_band(" in (_build.CSRC / "gather_band.cu").read_text()
 
 

@@ -43,13 +43,20 @@ GEOMS = {
     "seg-960x540": (640, 360, 960, 540, 8),
     "seg-exceptions": (1920, 80, 4800, 200, 2),
     "deep-tap-conv": (480, 270, 240, 135, 16),
+    # Not in tests/test_sharding.py: a small aperiodic deep-tap plane (fs 92,
+    # 16 x 62 classes), the 2.8125 row ratio of 3840x2160 -> 1366x768 tap 16.
+    "deep-gather-171x96": (480, 270, 171, 96, 16),
+    # Nor this: a border-only operator (no dictionary, no interior), which
+    # both packages run on the scan-gather.
+    "border-only-16x16": (8, 8, 16, 16, 8),
 }
 
 # (case, geometry, impl, n_rows, interior): one case per interior, on the
 # meshes of tests/test_sharding.py.
 CASES = [
     ("gather", "up-160x120", "gather", 8, "gather"),
-    ("gather-scan", "tap16-80x56", "gather", 8, "gather-scan"),
+    ("gather-scan", "border-only-16x16", "gather", 8, "gather-scan"),
+    ("gather-deep", "tap16-80x56", "gather", 8, "gather"),
     ("conv", "conv-2x-tap8", "conv", 8, "conv-fused"),
     ("seg", "seg-960x540", "seg", 4, "seg"),
     ("seg-exceptions", "seg-exceptions", "seg", 2, "seg"),
@@ -83,6 +90,20 @@ ROUTING_DIFFERS = {
     ("conv-2x-tap8", "seg", 4): (None, "seg"),
     ("conv-2x-tap8", "seg", 8): (None, "seg"),
 }
+# The port's band kernel takes any filter size (its window streams through
+# a ring of source rows); the JAX package's declines fs**2 > 1200 and takes
+# the scan-gather. On 2 rows the 2x tap-16 downscale runs the fused kernel
+# on both sides.
+ROUTING_DIFFERS.update(
+    {
+        (geom, impl, n): ("gather-scan", "gather")
+        for geom in ("multihop-24", "deep-multihop-16", "tap16-80x56", "deep-tap-conv",
+                     "deep-gather-171x96")
+        for impl in ("auto", "gather")
+        for n in (1, 2, 4, 8)
+        if (geom, impl, n) != ("deep-tap-conv", "auto", 2)
+    }
+)
 
 
 def _op(name):
@@ -255,7 +276,7 @@ def test_gather_band_plain_matches_pallas_interpret(ops, jops, d):
 
     r0, r1 = d * td, min((d + 1) * td, op.dst_height)
     gb = gather.make_gather_band(
-        op, sy_loc[d, : r1 - r0], cy[d, : r1 - r0], band_h, gather.class_minor(op.pair_blocks, CPU)
+        op, sy_loc[d, : r1 - r0], cy[d, : r1 - r0], band_h, gather.padded_blocks(op.pair_blocks, CPU)
     )
     canvas = torch.full((1, r1 - r0, op.dst_width), 7.0)
     got = gather.gather_band(gb, torch.from_numpy(band), canvas)
@@ -269,7 +290,7 @@ def test_gather_band_plain_matches_pallas_interpret(ops, jops, d):
 
 def test_make_gather_band_checks_windows(ops):
     op = ops["up-160x120"]
-    pbt = gather.class_minor(op.pair_blocks, CPU)
+    pbt = gather.padded_blocks(op.pair_blocks, CPU)
     syl = np.array([0, 3, 4])
     with pytest.raises(ValueError, match="leave the source axis"):
         gather.make_gather_band(op, syl, np.zeros(3, np.int64), 4 + op.filter_size - 1, pbt)
@@ -280,7 +301,7 @@ def test_make_gather_band_checks_windows(ops):
 def test_gather_band_never_falls_back_off_cpu(ops):
     op = ops["up-160x120"]
     gb = gather.make_gather_band(
-        op, np.zeros(2, np.int64), np.zeros(2, np.int64), 16, gather.class_minor(op.pair_blocks, CPU)
+        op, np.zeros(2, np.int64), np.zeros(2, np.int64), 16, gather.padded_blocks(op.pair_blocks, CPU)
     )
     band = torch.zeros((1, 16, op.src_width), device="meta")
     with pytest.raises(RuntimeError, match="unsupported device"):
@@ -310,7 +331,7 @@ def test_sharded_apply_matches_jax(ops, jax_outputs, case):
     assert ROUTING_DIFFERS.get((geom, impl, n), (interior,))[0] == jax_interior
     got = fn(torch.from_numpy(_src(op, 11))).numpy()
     assert got.shape == want.shape == (op.dst_height, op.dst_width)
-    assert np.abs(got - want).max() <= F32_TOL
+    assert np.abs(got - want).max() <= (DEEP_TOL if op.filter_size**2 > 1200 else F32_TOL)
 
 
 @pytest.mark.parametrize("n", [1, 2, 4, 8, "2x4"])
@@ -377,8 +398,11 @@ def test_routing_matches_jax(ops, jops, name):
 
 
 def test_replicated_and_multihop_plans(ops):
-    """The replicated and the multi-hop partitions run the scan-gather, which
-    every shard computes from its collected band."""
+    """The replicated partition runs the scan-gather (its operator has no
+    dictionary), which every shard computes from its collected band. The
+    multi-hop deep-tap plan (fs 136) runs the scan-gather where it is asked
+    for, and the band kernel under auto: the band kernel takes any filter
+    size, where the JAX package's takes the scan-gather (``ROUTING_DIFFERS``)."""
     op = ops["replicated-8"]
     fn, plan = sharding.make_sharded_apply(op, _mesh(8))
     assert plan.replicate_src and fn.info == {
@@ -389,9 +413,40 @@ def test_replicated_and_multihop_plans(ops):
     src = _src(op, 5)
     assert np.abs(fn(torch.from_numpy(src)).numpy() - apply_plane_numpy(op, src)).max() <= 1e-6
     op = ops["deep-multihop-16"]
-    fn, plan = sharding.make_sharded_apply(op, _mesh(8))
+    golden = apply_plane_numpy(op, src)
+    fn, plan = sharding.make_sharded_apply_scan(op, _mesh(8))
     assert not plan.replicate_src and min(fn.info["hops"]) >= 2
-    assert np.abs(fn(torch.from_numpy(src)).numpy() - apply_plane_numpy(op, src)).max() <= 1e-6
+    assert fn.info["interior"] == "gather-scan"
+    assert np.abs(fn(torch.from_numpy(src)).numpy() - golden).max() <= 1e-6
+    fn, plan = sharding.make_sharded_apply(op, _mesh(8))
+    assert min(fn.info["hops"]) >= 2 and fn.info["interior"] == "gather"
+    assert np.abs(fn(torch.from_numpy(src)).numpy() - golden).max() <= GOLDEN_TOL["gather"]
+
+
+@pytest.fixture(scope="module")
+def deep_gather_golden(ops):
+    op = ops["deep-gather-171x96"]
+    src = _src(op, 7)
+    return src, apply_plane_numpy(op, src)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_deep_aperiodic_plane_takes_the_band_kernel(ops, jops, deep_gather_golden, n):
+    """The fs-92 aperiodic plane on 2 and 4 row shards through
+    ``sharded/gather`` (the band kernel's plain form here) against the host
+    golden, where the JAX package takes the scan-gather."""
+    from jincresize_tpu.sharding import make_sharded_apply as jax_make
+
+    name = "deep-gather-171x96"
+    op = ops[name]
+    assert op.filter_size == 92 and gather.is_supported(op)
+    fn, _ = sharding.make_sharded_apply(op, _mesh(n))
+    assert fn.info["interior"] == "gather"
+    jax_interior = jax_make(jops[name], _jax_mesh(n))[0].info["interior"]
+    assert ROUTING_DIFFERS[name, "auto", n] == (jax_interior, "gather") == ("gather-scan", "gather")
+    src, golden = deep_gather_golden
+    got = fn(torch.from_numpy(src)).numpy()
+    assert np.abs(got - golden).max() <= GOLDEN_TOL["gather"]
 
 
 @pytest.mark.parametrize(
