@@ -17,16 +17,17 @@ Phases (each raises on failure; nothing catches it):
    a tap-16 2/5 downscale whose weights take 105 KB of shared memory, the
    full 3840x2160 -> 7680x4320 tap-8 and 3840x2160 -> 1920x1080 tap-16 luma
    planes; the gather and seg kernels on the geometries of
-   ``tests/test_apply_gather.py`` and ``tests/test_apply_conv_seg.py`` (the
-   gather kernel at F = 1, 2, 3, 4 and 8 frames, every frames-a-thread
-   instance and a ragged group) and on the full 2560x1440 -> 3840x2160 and
-   1920x1080 -> 3740x2104 tap-8 luma planes and the 3840x2160 -> 1366x768
+   ``tests/test_apply_gather.py`` and ``tests/test_apply_conv_seg.py`` (both
+   kernels at F = 1, 2, 3, 4 and 8 frames, every frames-a-thread instance
+   and a ragged group) and on the full 2560x1440 -> 3840x2160 and
+   1920x1080 -> 3740x2104 tap-8 luma planes, the 2560x1440 -> 1920x1080
+   tap-16 luma plane (fs 44: seg and gather) and the 3840x2160 -> 1366x768
    tap-16 luma plane (fs 92); the sharded engine's band kernel on every row
    shard of 96x72 -> 160x120 tap 3 (8 shards), a multi-hop and a replicated
    downscale (8 shards; F = 1, 2, 3, 4, 8) and the full 1920x1080 ->
    3740x2104 tap-8 and 3840x2160 -> 1366x768 tap-16 luma planes (4 shards):
-   0 for the gather and band kernels (their plain forms sum in the kernels'
-   order), else 2e-6 absolute for fp32 sources in [0, 1) (4e-6 for deep
+   0 for the gather, band and seg kernels (their plain forms sum in the
+   kernels' order), else 2e-6 absolute for fp32 sources in [0, 1) (4e-6 for deep
    taps, fs**2 > 1200), <= 1 LSB after ``finalize`` for u8/u16; the ``out_only``
    probe against ``torch.zeros`` at (8, 4320, 7680) and on a ragged
    (2, 100, 300) plane (0); the narrow shape of
@@ -40,16 +41,18 @@ Phases (each raises on failure; nothing catches it):
    3840x2160 -> 7680x4320 tap 8 (periodic: ``fused``), 2560x1440 -> 3840x2160
    tap 8 (drifted 1.5x: ``fused-seg``), 1920x1080 -> 3740x2104 tap 8
    (aperiodic: ``gather``), 3840x2160 -> 1920x1080 tap 16 (deep taps:
-   ``fused``) and 3840x2160 -> 1366x768 tap 16 (deep aperiodic, fs 92:
-   ``gather``, where the JAX package's envelope takes ``xla``), each <= 1
+   ``fused``), 3840x2160 -> 1366x768 tap 16 (deep aperiodic, fs 92:
+   ``gather``, where the JAX package's envelope takes ``xla``) and
+   2560x1440 -> 1920x1080 tap 16 (deep drifted, fs 44: ``fused-seg``, where
+   the JAX package's takes ``xla``), each <= 1
    LSB against the port's plain engine
    (``impl='xla'``) on the card and against the scalar oracle
    ``golden.reference_sample_pixels`` on sampled pixels (borders and corners
    included); then the sharded engine on four row shards of ``cuda:0``:
    the aperiodic clip (``sharded/gather``, 12 band-kernel launches, <= 1 LSB
    against the single-card engine and the oracle) and 2-frame runs of the
-   periodic and the deep-tap (``sharded/conv-fused``), drifted
-   (``sharded/seg``) and deep aperiodic (``sharded/gather``) clips, each
+   periodic and the deep-tap (``sharded/conv-fused``), drifted and deep
+   drifted (``sharded/seg``) and deep aperiodic (``sharded/gather``) clips, each
    <= 1 LSB against its single-card engine; on
    a machine with several cards, the aperiodic clip on a mesh of distinct
    cards too; then the paths of the tools slice: a 2-frame yuv420p8 chain
@@ -77,13 +80,15 @@ Phases (each raises on failure; nothing catches it):
    the kernel, 4e-6), the fused kernel's ms/frame, share of its bound and
    ratio to cuDNN's time at both, the full-size 2/3 3840x2160 -> 2560x1440
    tap-16 plan once (against its plain form, 0), the seg and gather
-   appliers on the same 1440p -> 4K plane, the gather and band kernels on
+   appliers on the same 1440p -> 4K plane, the seg and gather kernels on
+   both drifted planes (1440p -> 4K tap 8, 1440p -> 1080p tap 16) beside
+   their bounds, the previous seg kernel's time and each other, the gather and band kernels on
    the 8-frame 4K -> 1366x768 tap-16 luma batch beside their bounds (each
    plain form once, its output held to the kernel's: 0), the gather and
    band kernels' ms/frame at 1080p -> 3740x2104 beside the previous kernels',
    each path's
    end-to-end ms/frame
-   with its upload / device / download split (the sharded aperiodic path
+   with its upload / device / download split (the deep drifted path too; the sharded aperiodic path
    beside the single-card one; the deep aperiodic clip under ``auto`` beside
    ``impl='xla'``), ``python -m jincresize_tpu_torch.bench`` in
    its three modes, run in this process, and the probe beside its bound and
@@ -162,7 +167,10 @@ DEEP_TAP = 16
 # tap-16 2.8125x downscale to a laptop and streaming size: aperiodic columns,
 # fs=92 on both planes, gather (the JAX package's envelope sends it to xla).
 DEEP_APERIODIC = (3840, 2160, 1366, 768)
-GATHER_FRAMES = (1, 2, 3, 4, 8)  # every frames-a-thread instance, a ragged group (3) included
+# tap-16 4/3 downscale, 1440p -> 1080p: drifted under f32 positions, fs 44,
+# 12 x 27 classes, no periodic plan; fused-seg (the JAX package: xla).
+DEEP_DRIFT = (2560, 1440, 1920, 1080)
+KERNEL_FRAMES = (1, 2, 3, 4, 8)  # every frames-a-thread instance, a ragged group (3) included
 THIRDS = (2560, 1440)  # 3840x2160 -> 2560x1440 tap 16: the 2/3 plan, timed once
 E2E_FRAMES = 4
 TIMING_FRAMES = 8
@@ -171,10 +179,15 @@ DEEP_TOL = 4e-6  # fs**2 > 1200 (4225 products a pixel at fs=65): the JAX deep-t
 ORACLE_SAMPLES = 2000
 DEEP_ORACLE_SAMPLES = 128  # the scalar oracle costs ~45 ms a sample at fs=65
 DEEP_APER_ORACLE_SAMPLES = 32  # ~90 ms a sample at fs=92
+DEEP_DRIFT_ORACLE_SAMPLES = 64
 # The previous gather and band kernels' ms/frame (one pixel a thread, the
 # class-minor dictionary) on the 8-frame 1080p -> 3740x2104 tap-8 luma batch
 # (PERF.md kernel table, H100 80GB HBM3, 700 W), printed beside this run's.
 PREV_MS_PER_FRAME = {"gather": 1.345, "gather_band": 1.093}
+# The previous seg kernel (one pixel a thread, up to 4 frames a block) at
+# 1440p -> 4K tap 8 (PERF.md kernel table, H100 80GB HBM3, 700 W), printed
+# beside this run's.
+PREV_SEG_MS_PER_FRAME = 0.458
 # The chain: 1080p -> 4K -> 8K tap 3 (2x then 2x), two frames.
 CHAIN = ((1920, 1080), (3840, 2160), (7680, 4320))
 CHAIN_SMALL = ((960, 540), (1920, 1080), (3840, 2160))  # if composing takes over 60 s
@@ -294,6 +307,7 @@ def main() -> int:
             w.launches = 0
 
     # ---------------------------------------------------------------- phase 1
+    t_start = time.perf_counter()
     card = card_line()
     print(f"[1] card: {card}")
     print(f"[1] torch {torch.__version__} cuda {torch.version.cuda} "
@@ -307,6 +321,7 @@ def main() -> int:
             print(f"[1] ptxas: {line.strip()}")
 
     # ---------------------------------------------------------------- phase 2
+    print(f"[2] phase 2 starts at {time.perf_counter() - t_start:.1f} s")
     def rand_src(op, bits, rng, frames):
         shape = (frames, op.src_height, op.src_width)
         if bits == 32:
@@ -363,7 +378,8 @@ def main() -> int:
             info = (f"p=({plan.y.p},{plan.x.p}) q=({plan.y.q},{plan.x.q}) "
                     f"spread=({plan.y.spread},{plan.x.spread}) "
                     f"exc=({len(plan.y.exceptions)},{len(plan.x.exceptions)}) "
-                    f"window={tables.win_h}x{tables.win_w}x{tables.frames_per_block}")
+                    f"window={tables.win_h}x{tables.win_w} pairs={tables.pairs} "
+                    f"frames<={tables.frames_per_block}")
         else:
             assert gather_k.is_supported(op), name
             tables = gather_k.make_gather_interior(op, dev)
@@ -377,8 +393,7 @@ def main() -> int:
         assert counts() == {**before, kind: before[kind] + 1}, (name, before, counts())
         assert torch.isfinite(got).all(), name
         err = err_of(got, ref, bits)
-        # The gather kernel sums in the plain form's order: exact.
-        assert err <= (0 if kind == "gather" else F32_TOL if bits == 32 else 1), (name, kind, err)
+        assert err == 0, (name, kind, err)  # both kernels sum in the plain form's order: exact
         print(f"[2] {name:34s} {kind:6s} {info} classes={op.pair_blocks.shape[:2]} "
               f"fs={op.filter_size} F={frames} err={err:.3g}{'' if bits == 32 else ' LSB'}")
         return err
@@ -487,7 +502,7 @@ def main() -> int:
         cfg = JincConfig(target_width=dw, target_height=dh, tap=tap, impl=kind)
         r = JincResizer(gray(8), sw, sh, cfg, device=dev)
         assert r.engines == {"luma": {"seg": "fused-seg", "gather": "gather"}[kind]}, r.engines
-        runs = [(32, f) for f in (GATHER_FRAMES if kind == "gather" else (2,))] + [(8, 2)]
+        runs = [(32, f) for f in KERNEL_FRAMES] + [(8, 2)]
         for bits, frames in runs:
             err = check_interior(kind, name, r.op_luma, bits, rng, frames)
             covered[kind] += 1
@@ -497,7 +512,7 @@ def main() -> int:
 
     for name, sw, sh, dw, dh, tap, n_rows in BAND_CASES:
         op = build_plane_operator(sw, sh, dw, dh, radius_for_tap(tap))
-        for bits, frames in [(32, f) for f in GATHER_FRAMES] + [(8, 2)]:
+        for bits, frames in [(32, f) for f in KERNEL_FRAMES] + [(8, 2)]:
             err = check_band(name, op, n_rows, bits, rng, frames)
             covered["gather_band"] += 1
             if bits == 32:
@@ -574,6 +589,22 @@ def main() -> int:
         if bits == 32:
             max_err["gather_band"] = max(max_err["gather_band"], err)
 
+    # The deep drifted plane: 1440p -> 1080p tap 16 (fs = 44), the seg and
+    # gather kernels at two frames (phase 4 holds the seg kernel to its plain
+    # form on its 8-frame timing batch too).
+    t0 = time.perf_counter()
+    ddsw, ddsh, dddw, dddh = DEEP_DRIFT
+    deep_drift_geo = f"{ddsw}x{ddsh}->{dddw}x{dddh}"
+    ddclip = Clip.from_frames([random_frame(fmt, ddsw, ddsh, seed=700 + i) for i in range(E2E_FRAMES)])
+    dd_cfg = JincConfig(dddw, dddh, tap=DEEP_TAP, operator_cache=False)
+    deep_drift_r = JincResizer(fmt, ddsw, ddsh, dd_cfg, frame0=ddclip.frames[0], device=dev)
+    print(f"[2] {deep_drift_geo} tap16 resizer built in {time.perf_counter() - t0:.1f} s "
+          f"(host operator build + upload); engines {deep_drift_r.engines}")
+    for kind in ("seg", "gather"):
+        err = check_interior(kind, f"{deep_drift_geo} tap16 luma", deep_drift_r.op_luma, 32, rng)
+        covered[kind] += 1
+        max_err[kind] = max(max_err[kind], err)
+
     # The deep aperiodic plane: 4K -> 1366x768 tap 16 (fs = 92), the gather
     # kernel on two frames and the band kernel on its four row shards.
     t0 = time.perf_counter()
@@ -594,6 +625,7 @@ def main() -> int:
     assert sorted(shapes_checked) == sorted(SHAPE_CASES), shapes_checked
 
     # ---------------------------------------------------------------- phase 3
+    print(f"[3] phase 3 starts at {time.perf_counter() - t_start:.1f} s")
     def oracle_check(tag, pclip, out, pr, sw, sh, dw, dh, tap=TAP, n_samples=ORACLE_SAMPLES):
         """<= 1 LSB against the scalar oracle on sampled pixels of frame 0."""
         radius = radius_for_tap(tap)
@@ -728,6 +760,28 @@ def main() -> int:
                  n_samples=DEEP_APER_ORACLE_SAMPLES)
     del aref
 
+    # The deep drifted path: 1440p -> 1080p tap 16 through the resizer a
+    # caller keeps (impl 'auto'), the seg kernel launched once a plane (the
+    # JAX package's envelope declines fs**2 > 1200 and its auto takes xla).
+    assert deep_drift_r.engines == {"luma": "fused-seg", "chroma": "fused-seg"}, deep_drift_r.engines
+    zero_counts()
+    t0 = time.perf_counter()
+    ddout = deep_drift_r(ddclip)
+    torch.cuda.synchronize()
+    got = counts()
+    print(f"[3] JincResizer 4x {deep_drift_geo} yuv420p8 tap16 (auto: fused-seg) in "
+          f"{time.perf_counter() - t0:.1f} s; launches {got}")
+    assert got == {**dict.fromkeys(wrappers, 0), "seg": n_planes}, got
+    launches["seg"] += got["seg"]
+    t0 = time.perf_counter()
+    ddref = JincResizer(fmt, ddsw, ddsh, replace(dd_cfg, impl="xla"), device=dev)(ddclip)
+    torch.cuda.synchronize()
+    print(f"[3] the same clip on impl='xla' in {time.perf_counter() - t0:.1f} s (construction included)")
+    against("deep drifted fused-seg engine", ddout, ddref)
+    oracle_check("tap16 fused-seg ", ddclip, ddout, deep_drift_r, *DEEP_DRIFT, tap=DEEP_TAP,
+                 n_samples=DEEP_DRIFT_ORACLE_SAMPLES)
+    del ddref
+
     # The sharded engine on N_SHARDS row shards of the card, through the
     # resizer a caller keeps: the aperiodic clip (band kernel), then two
     # frames of the periodic and the deep-tap (fused kernel), the drifted
@@ -744,9 +798,12 @@ def main() -> int:
          Clip.from_frames(pouts["drift"].frames[:2])),
         ("deep-aperiodic", "gather", "gather_band", Clip.from_frames(aclip.frames[:2]),
          Clip.from_frames(aout.frames[:2])),
+        ("deep-drift", "seg", "seg", Clip.from_frames(ddclip.frames[:2]),
+         Clip.from_frames(ddout.frames[:2])),
     ):  # fmt: skip
         sw, sh, dw, dh = {"aperiodic": APERIODIC, "drift": DRIFT, "deep": DEEP,
-                          "deep-aperiodic": DEEP_APERIODIC}.get(key, (SRC_W, SRC_H, DST_W, DST_H))
+                          "deep-aperiodic": DEEP_APERIODIC, "deep-drift": DEEP_DRIFT}.get(
+                              key, (SRC_W, SRC_H, DST_W, DST_H))
         deep_key = key.startswith("deep")
         t0 = time.perf_counter()
         cfg = JincConfig(dw, dh, tap=DEEP_TAP if deep_key else TAP, impl="sharded",
@@ -763,11 +820,10 @@ def main() -> int:
               f"{N_SHARDS} row shards of {dev} (sharded/{interior}) in "
               f"{time.perf_counter() - t0:.1f} s (built in {built:.1f} s); launches {got}")
         assert got == {**dict.fromkeys(wrappers, 0), kind: N_SHARDS * n_planes}, got
-        if kind == "gather_band":
-            launches["gather_band"] += got["gather_band"]
-        single = {"aperiodic": "gather", "drift": "fused-seg", "deep-aperiodic": "gather"}.get(
-            key, "fused"
-        )
+        if kind in ("gather_band", "seg"):
+            launches[kind] += got[kind]
+        single = {"aperiodic": "gather", "drift": "fused-seg", "deep-aperiodic": "gather",
+                  "deep-drift": "fused-seg"}.get(key, "fused")
         against(f"sharded/{interior} engine", sout, ref_out, f"single-card {single} engine")
         if key == "aperiodic":
             oracle_check("sharded/gather ", sclip, sout, sr, sw, sh, dw, dh)
@@ -902,6 +958,7 @@ def main() -> int:
     assert plain_calls == 0, plain_calls
 
     # ---------------------------------------------------------------- phase 4
+    print(f"[4] phase 4 starts at {time.perf_counter() - t_start:.1f} s")
     def e2e(tag, pr, pclip, plane_px, split_too=True):
         """End-to-end ms/frame of ``pr(pclip)`` and where a call's time goes:
         the per-plane steps of JincResizer's batched path, each closed by a
@@ -1185,8 +1242,17 @@ def main() -> int:
         out_px = src.shape[0] * rows * cols
         return 2 * tables.fs**2 * out_px, tensor_bytes(src, tables) + 4 * out_px
 
+    def seg_bound(si, src):
+        """(ms, by) of a seg launch: 2 fs**2 flops a pixel; its source, the
+        kernel's tables (not the plain form's) and its output once."""
+        out_px = src.shape[0] * si.out_shape[0] * si.out_shape[1]
+        plain_only = ("pair_blocks_t", "cls_y", "cls_x", "roff_y", "roff_x")
+        return bound_ms(2 * si.fs**2 * out_px, tensor_bytes(src, si, skip=plain_only) + 4 * out_px)
+
     bounds["gather"] = bound_ms(*gather_like_bound(gi_aper, tsrc_a, *gi_aper.out_shape))
-    bounds["seg"] = bound_ms(*gather_like_bound(seg_app.si, tsrc_d, *seg_app.si.out_shape))
+    bounds["seg"] = seg_bound(seg_app.si, tsrc_d)
+    gi_drift = gather_app.gi
+    bounds["gather_drift"] = bound_ms(*gather_like_bound(gi_drift, tsrc_d, *gi_drift.out_shape))
     band_work = [gather_like_bound(gb, band, gb.syl.numel(), gb.start_x.numel())
                  for gb, band, _ in shard_runs]  # fmt: skip
     bounds["gather_band"] = bound_ms(sum(o for o, _ in band_work), sum(b for _, b in band_work))
@@ -1247,10 +1313,49 @@ def main() -> int:
               f"its bound, {PREV_MS_PER_FRAME[k] / (ms[k] / TIMING_FRAMES):.2f}x faster than the previous kernel's "
               f"{PREV_MS_PER_FRAME[k]} [{card}]")
     del tsrc_da, dgi, sfn_d
+
+    # The deep drifted plane: the seg and gather kernels on an 8-frame fp32
+    # 1440p -> 1080p tap-16 luma batch beside their bounds (the seg plain
+    # form once, its output held to the kernel's: 0); then both drifted
+    # planes side by side, with the previous seg kernel's time.
+    dd_si = deep_drift_r._applier_luma.si
+    dd_gi = GatherApplier(deep_drift_r.op_luma, device=dev).gi
+    tsrc_dd = torch.from_numpy(rng.random((TIMING_FRAMES, ddsh, ddsw), dtype=np.float32)).to(dev)
+    dd_runs = (("deep_seg", lambda: seg_k.seg_interior(dd_si, tsrc_dd)),
+               ("deep_gather_drift", lambda: gather_k.gather_interior(dd_gi, tsrc_dd)))  # fmt: skip
+    dd_ms = {}
+    for order in (dd_runs, dd_runs[::-1]):  # seg, gather, gather, seg
+        for k, fn in order:
+            dd_ms.setdefault(k, []).append(cuda_ms(fn, 10))
+    ms.update({k: statistics.median(v) for k, v in dd_ms.items()})
+    ref, ms["deep_seg_plain"] = plain_once(lambda: seg_k.seg_interior_plain(dd_si, tsrc_dd))
+    err = float((seg_k.seg_interior(dd_si, tsrc_dd) - ref).abs().max())
+    print(f"[4] {deep_drift_geo} tap16 luma seg F={TIMING_FRAMES} (phase 4 batch): "
+          f"max |err| {err} against the plain form")
+    assert err == 0, err
+    del ref
+    bounds["deep_seg"] = seg_bound(dd_si, tsrc_dd)
+    bounds["deep_gather_drift"] = bound_ms(*gather_like_bound(dd_gi, tsrc_dd, *dd_gi.out_shape))
+    for geo, tap, sk, gk, si, gi in ((drift_geo, 8, "seg", "gather_drift", seg_app.si, gi_drift),
+                                     (deep_drift_geo, 16, "deep_seg", "deep_gather_drift", dd_si, dd_gi)):
+        (bs, bys), (bg, byg) = bounds[sk], bounds[gk]
+        prev = f"; previous seg kernel {PREV_SEG_MS_PER_FRAME}" if sk == "seg" else ""
+        print(f"[4] {geo} tap{tap} fs={si.fs} 8-frame fp32 luma: seg interior "
+              f"{ms[sk] / TIMING_FRAMES:.4f} ms/frame ({si.out_shape[1]}x{si.out_shape[0]}), bound "
+              f"{bs / TIMING_FRAMES:.4f} ({bys}), {bs / ms[sk]:.1%} of it, plain form "
+              f"{ms[sk + '_plain'] / TIMING_FRAMES:.3f}{prev}; gather interior "
+              f"{ms[gk] / TIMING_FRAMES:.4f} ms/frame ({gi.out_shape[1]}x{gi.out_shape[0]}), bound "
+              f"{bg / TIMING_FRAMES:.4f} ({byg}), {bg / ms[gk]:.1%} of it [{card}]")
+        print(f"[4] {geo} tap{tap}: seg interior takes {ms[sk] / ms[gk]:.3f}x the gather "
+              f"interior's time in this run [{card}]")
+    print(f"[4] seg interior {drift_geo} tap8: {PREV_SEG_MS_PER_FRAME / (ms['seg'] / TIMING_FRAMES):.2f}x "
+          f"faster than the previous kernel's {PREV_SEG_MS_PER_FRAME} [{card}]")
+    del tsrc_dd, dd_gi, gi_drift
     for key, engine in (("drift", "fused-seg"), ("aperiodic", "gather")):
         pr, pclip = paths[key]
         sw, sh, dw, dh = DRIFT if key == "drift" else APERIODIC
         e2e(f"{engine} {sw}x{sh}->{dw}x{dh} ", pr, pclip, dw * dh)
+    e2e(f"fused-seg (auto) {deep_drift_geo} tap16 ", deep_drift_r, ddclip, dddw * dddh)
     sw, sh, dw, dh = APERIODIC
     pr, pclip = paths["aperiodic"]
     tag = f"{sw}x{sh}->{dw}x{dh} "
@@ -1314,6 +1419,7 @@ def main() -> int:
         print(f"[4] cuDNN conv2d vs fused kernel at {k}: max |err| {v:.3g} (bound {DEEP_TOL:g})")
     assert all(v <= DEEP_TOL for v in lib_err.values()), lib_err
 
+    print(f"[4] phases 1-4 took {time.perf_counter() - t_start:.1f} s")
     print(card)
     kernels = [
         {

@@ -28,10 +28,12 @@ JAX package's names):
 kernel's only envelope is the shared memory of its weights, which every plan
 of ``phase.plan_phases`` fits. On a CUDA device it then tries ``fused-seg`` and
 ``gather`` (the counterpart of the JAX package's TPU-only step); else
-``xla``. The gather kernel takes any filter size, so aperiodic or drifted
-deep-tap plans with a dictionary and an interior (3840x2160 -> 1366x768 tap
-16, fs 92) take ``gather`` on the card where the JAX package, whose gather
-envelope ends at fs**2 = 1200, takes ``xla``; only plans with no dictionary
+``xla``. The seg kernel takes drifted plans at any filter size whose tile
+pair blocks fit its shared memory (2560x1440 -> 1920x1080 tap 16, fs 44),
+and the gather kernel any plan with a dictionary and an interior
+(3840x2160 -> 1366x768 tap 16, fs 92), so deep-tap plans take ``fused-seg``
+or ``gather`` on the card where the JAX package, whose seg and gather
+envelopes end at fs**2 = 1200, takes ``xla``; only plans with no dictionary
 or no interior (border-only operators) reach ``xla`` there. Off the card
 ``auto`` stays ``fused`` -> ``xla``. ``'conv'`` runs ``fused`` or raises;
 ``'seg'`` and ``'gather'`` run their engine or raise; ``'pallas'`` runs the

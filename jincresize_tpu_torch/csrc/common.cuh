@@ -56,3 +56,26 @@ template <int N>
 __device__ __forceinline__ void jt_cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
+
+// NF frames of one staged column of the gather and seg rings: planes of
+// min(NF, 4) frames, plane_stride floats apart, each plane's frames in one
+// 4-, 8- or 16-byte load.
+template <int NF>
+__device__ __forceinline__ void jt_load_frames(const float* p, int plane_stride, float* v) {
+  if constexpr (NF == 1) {
+    v[0] = p[0];
+  } else if constexpr (NF == 2) {
+    const float2 q = *reinterpret_cast<const float2*>(p);
+    v[0] = q.x;
+    v[1] = q.y;
+  } else {
+#pragma unroll
+    for (int k = 0; k < NF / 4; ++k) {
+      const float4 q = *reinterpret_cast<const float4*>(p + k * plane_stride);
+      v[4 * k] = q.x;
+      v[4 * k + 1] = q.y;
+      v[4 * k + 2] = q.z;
+      v[4 * k + 3] = q.w;
+    }
+  }
+}

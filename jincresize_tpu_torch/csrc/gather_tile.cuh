@@ -76,28 +76,6 @@ struct GatherArgs {
   int swp, ch;  // ring: columns of a staged row (padded to 4), rows a stage; 2 ch slots
 };
 
-// NF frames of one staged column: planes of min(NF, 4) frames, plane_stride
-// floats apart, each plane's frames in one 4-, 8- or 16-byte load.
-template <int NF>
-__device__ __forceinline__ void load_frames(const float* p, int plane_stride, float* v) {
-  if constexpr (NF == 1) {
-    v[0] = p[0];
-  } else if constexpr (NF == 2) {
-    const float2 q = *reinterpret_cast<const float2*>(p);
-    v[0] = q.x;
-    v[1] = q.y;
-  } else {
-#pragma unroll
-    for (int k = 0; k < NF / 4; ++k) {
-      const float4 q = *reinterpret_cast<const float4*>(p + k * plane_stride);
-      v[4 * k] = q.x;
-      v[4 * k + 1] = q.y;
-      v[4 * k + 2] = q.z;
-      v[4 * k + 3] = q.w;
-    }
-  }
-}
-
 // NB taps (the first NB of a chunk) of NF frames into each row's sums:
 // NB x NF source values from the staged row at s, one weight a tap and row.
 template <int NB, int NF, int FP, int R>
@@ -105,7 +83,7 @@ __device__ __forceinline__ void taps(const float* s, int plane_stride, const flo
                                      float (&row)[R][NF]) {
   float v[NB][NF];
 #pragma unroll
-  for (int b = 0; b < NB; ++b) load_frames<NF>(s + b * FP, plane_stride, v[b]);
+  for (int b = 0; b < NB; ++b) jt_load_frames<NF>(s + b * FP, plane_stride, v[b]);
 #pragma unroll
   for (int c = 0; c < R; ++c) {
     const float wv[4] = {w[c].x, w[c].y, w[c].z, w[c].w};

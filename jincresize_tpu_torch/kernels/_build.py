@@ -36,7 +36,7 @@ _SIGNATURES = {
     "jt_strips": [_P, _P, _P, _P, _P] + [_I] * 11 + [_P],
     "jt_gather_interior": [_P] * 7 + [_I] * 11 + [_P],
     "jt_gather_band": [_P] * 7 + [_I] * 13 + [_P],
-    "jt_seg_interior": [_P] * 7 + [_I] * 16 + [_P],
+    "jt_seg_interior": [_P] * 11 + [_I] * 14 + [_P],
 }
 
 _lib = None

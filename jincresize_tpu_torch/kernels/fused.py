@@ -71,8 +71,9 @@ from . import _build
 
 # Per-block shared memory an H100 kernel may opt into (227 KB).
 MAX_SMEM_BYTES = 232448
-# The seg kernel's envelope (fs**2 <= 1200, as the JAX gather kernel's);
-# the fused and gather kernels have none beyond their shared memory.
+# fs**2 above which a plan has deep taps: the envelope of the TPU's seg and
+# gather kernels (the Mosaic VMEM budget), which no kernel of the port keeps
+# (each is bounded by its shared memory); the tests name deep-tap plans by it.
 FS2_MAX = 1200
 # The kernel's shapes (compile-time constants of csrc/fused_interior.cu):
 # (threads a block, R anchors a thread along x, C*G accumulator rows a

@@ -220,12 +220,6 @@ def check_window_starts(starts: np.ndarray, size: int, fs: int, what: str) -> No
         )
 
 
-def class_minor(pair_blocks: np.ndarray, device) -> torch.Tensor:
-    """The dictionary as ``[cy, ly, lx, cx]`` on ``device``: (n_uy, fs, fs,
-    n_ux), the seg kernel's layout (``kernels/seg.py``)."""
-    return torch.from_numpy(np.ascontiguousarray(pair_blocks.transpose(0, 2, 3, 1))).to(device)
-
-
 def make_gather_interior(
     op: PlaneOperator, device: torch.device | str = "cpu"
 ) -> GatherInterior:

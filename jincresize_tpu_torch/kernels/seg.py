@@ -16,46 +16,61 @@ true class:
 At exception coordinates the plan's placeholder values (clamped ``roff``,
 real class) are computed; the applier overwrites them (``apply_conv_seg``).
 
-The CUDA kernel is ``csrc/seg_interior.cu``. The affine starts bound the
-source window of a 32 x 8 output tile (sized here over every tile), so a
-block stages that window once per frame in shared memory and every thread
-reads its fs x fs window from there. That is what separates it from the
-gather kernel, which reads every source window from device memory. The
-weights come from the compact dictionary (0.1-1.3 MB at 1080p- to 4K-class
-geometries, L2-resident), stored class-minor like the gather kernel's so
-that the few column classes of a warp share one or two cache lines per tap.
-Up to four frames share a block, so one weight load serves each of them. What bounds it on an H100: one shared-memory load per
-FMA plus a quarter of an L1 weight load -- load issue, not bytes or FLOPs.
+The CUDA kernel is ``csrc/seg_interior.cu``. Unlike the gather kernel's
+pixels, the pixels of a seg tile share few dictionary blocks (at most 4 row
+and 5 column classes in a 32 x 32 output tile at 1440p -> 4K tap 8 and
+1440p -> 1080p tap 16), so a block stages its tile's class-pair blocks in
+shared memory once (``tile_classes`` lists each tile's classes; pair
+blocks ``block_stride`` floats apart) and every weight load is a broadcast.
+Each warp takes 4 rows of the tile and streams its own source window
+through its own ring of 3 staged rows (``SLOTS``), frames side by side,
+synchronised within the warp alone: with one ring shared by the block,
+every barrier held the warps back for the ones the staged rows fed (the
+row windows of a tall tile are staggered). A thread owns one column, its warp's 4 rows and up to 8
+frames (``FRAMES``, chosen from F by ``frames_of``): at 8 frames, 8 source
+and 4 weight loads feed 128 FMAs.
+Per pixel and frame the sum is an ``fmaf`` chain along each tap row, the
+row sums added in ly order, as ``seg_interior_plain`` sums: the kernel and
+the plain form agree bit for bit. The device dictionary is the gather
+kernel's ``padded_blocks`` (``[cy, cx, ly, lx]``, tap rows padded to 4
+floats); the plain form reads the same values through
+``class_minor_view``.
 
-The envelope: fs**2 <= ``FS2_MAX`` and one frame's staged window within the
-227 KB of shared memory a block may use. Every window start, placeholder
-ones included, lies inside the source plane (placeholders clamp ``roff``
-down, below the true start); ``make_seg_interior`` checks that on the host.
+The envelope: a non-empty dictionary and covered block, and the largest
+tile's pair blocks beside one-frame rings within the 227 KB of shared
+memory a block may use (``smem_bytes``): 155 KB at 1440p -> 1080p tap 16
+(fs 44, 20 pairs). The TPU's ``fs**2 <= 1200`` (the Mosaic VMEM budget,
+``pallas_fused_seg.py:225``) is gone, so drifted deep-tap plans take this
+kernel; a plan whose pairs do not fit goes on to ``gather``. Every window
+start, placeholder ones included, lies inside the source plane
+(placeholders clamp ``roff`` down, below the true start);
+``make_seg_interior`` checks that on the host.
 
 TPU workarounds of the Pallas kernel that this one drops:
 
-* the MXU variant groups per column tile (``_tile_groups``) and their 0/1
-  select tensor -- a GPU thread indexes its own class in the dictionary;
+* the MXU variant's per-column-tile groups (``_tile_groups``) and their
+  0/1 select tensor -- the per-tile class lists only choose what a block
+  stages; a thread indexes its own pair block;
 * ``_dedup_bands`` and ``_chunk_layout`` -- there are no expanded weight
   slabs to deduplicate and no dot-M to bucket;
 * ``_expand_w`` (the HIGHEST-precision device einsum that builds the slabs)
   and the ``wsplit3``/``wsplit3_vmem`` weight splits -- fp32 FMA is exact, so
   ``precision='fp32_u8src'`` runs the same fp32 kernel;
 * ``residue_planes`` -- Mosaic cannot slice lanes with a stride; a thread
-  reads column ``qx*j + roff + lx`` of its staged window directly;
+  reads its column's window from the staged rows directly;
 * the ``split3``/``xla`` phase interleave -- the output is stored in
   destination layout directly;
-* the ``WMAX``/``WMAX_BUILD`` weight gates, the 12 MB VMEM budget and the
-  ``JINCRESIZE_SEG_*`` overrides -- the compact dictionary is the only weight
-  tensor, and the envelope is shared memory.
+* the ``WMAX``/``WMAX_BUILD`` weight gates, the 12 MB VMEM budget, the
+  ``JINCRESIZE_SEG_*`` overrides and ``FS2_MAX`` -- the compact dictionary
+  is the only weight tensor, and the envelope is shared memory.
 
 ``precision='bf16'`` (one-pass bf16) raises NotImplementedError (ROADMAP,
 still to port #2).
 
-Weights and state: the operator and the plan are the shared NumPy
-``PlaneOperator`` and ``SegPhasePlan`` that the JAX package uses too, so the
-device tables are made from the same objects and no carry-over function is
-needed.
+Weights and state: the operator and the plan are the port's copies of the
+JAX package's NumPy ``PlaneOperator`` and ``SegPhasePlan`` (the same arrays,
+``tests/test_torch_host.py``), so the device tables come from the same
+values and no carry-over function is needed.
 """
 
 from __future__ import annotations
@@ -69,25 +84,83 @@ from ..operator import PlaneOperator
 from ..phase import SegAxisPlan, SegPhasePlan
 
 from . import _build
-from .fused import FS2_MAX, MAX_SMEM_BYTES
-from .gather import check_window_starts, class_minor, window_sum_plain
+from .fused import MAX_SMEM_BYTES
+from .gather import (
+    FRAMES,
+    check_window_starts,
+    class_minor_view,
+    frames_per_thread,
+    fsp_of,
+    padded_blocks,
+    tile_span,
+    window_sum_plain,
+)
 
-TILE_X = 32  # output tile of one thread block; csrc/seg_interior.cu kTileX
-TILE_Y = 8  # csrc/seg_interior.cu kTileY
-MAX_FRAMES = 4  # frames staged per block; csrc/seg_interior.cu kMaxFrames
+TILE_X = 32  # output columns of a block (csrc/seg_interior.cu kTX)
+TILE_Y = 32  # output rows of a block (kSegTY)
+WARPS = 8  # warps of a block, 4 rows each, each with its own ring (kSegGroups)
+SLOTS = 3  # staged source rows of a warp's ring (kSlots)
+
+
+@dataclass(frozen=True)
+class TileClasses:
+    """The distinct dictionary classes of each tile of one axis."""
+
+    ids: np.ndarray  # (tiles, k) int32: each tile's classes ascending, padded with its last
+    count: np.ndarray  # (tiles,) int32: classes of each tile
+    local: np.ndarray  # (n,) int32: each coordinate's class as an index into its tile's ids
+
+
+def tile_classes(cls: np.ndarray, tile: int) -> TileClasses:
+    """``TileClasses`` of ``cls`` cut into tiles of ``tile`` coordinates."""
+    cls = np.asarray(cls)
+    uniq = [np.unique(cls[i : i + tile]) for i in range(0, len(cls), tile)]
+    k = max(len(u) for u in uniq)
+    ids = np.stack([np.pad(u, (0, k - len(u)), mode="edge") for u in uniq]).astype(np.int32)
+    local = np.concatenate(
+        [np.searchsorted(u, cls[i * tile : (i + 1) * tile]) for i, u in enumerate(uniq)]
+    )
+    return TileClasses(ids, np.array([len(u) for u in uniq], np.int32), local.astype(np.int32))
+
+
+def block_stride(fs: int) -> int:
+    """Floats between two staged pair blocks: at least ``fs * fsp`` and 4
+    mod 32, so that the lanes of up to 8 column classes, reading the same
+    tap of their blocks, hit 8 distinct 16-byte bank groups."""
+    n = fs * fsp_of(fs)
+    return n + (4 - n) % 32
+
+
+def row_floats(span_w: int, frames: int) -> int:
+    """Floats of a staged source row: ``span_w`` columns padded to 4 (the
+    kernel's ``swp``), ``frames`` frames each."""
+    return -(-span_w // 4) * 4 * frames
+
+
+def smem_bytes(pairs: int, fs: int, span_w: int, frames: int) -> int:
+    """Shared memory of a launch: ``pairs`` staged blocks, then each warp's
+    ring of ``SLOTS`` rows of ``frames`` frames."""
+    return 4 * (pairs * block_stride(fs) + WARPS * SLOTS * row_floats(span_w, frames))
 
 
 @dataclass(frozen=True)
 class SegInterior:
     """Device tables of the segment-periodic interior for one plan."""
 
-    pair_blocks_t: torch.Tensor  # (n_uy, fs, fs, n_ux) f32, the dictionary class-minor
+    blocks: torch.Tensor  # (n_uy, n_ux, fs, fsp) f32, gather.padded_blocks (the kernel's)
+    pair_blocks_t: torch.Tensor  # (n_uy, fs, fs, n_ux) view of blocks, class-minor (plain form)
     cls_y: torch.Tensor  # (py*nyb,) int32 true row classes
     roff_y: torch.Tensor  # (py*nyb,) int32 row start offsets
     cls_x: torch.Tensor  # (px*nxb,) int32
     roff_x: torch.Tensor  # (px*nxb,) int32
-    start_y: torch.Tensor  # (py*nyb,) int32 base_y + qy*(k // py) + roff_y (plain form)
+    start_y: torch.Tensor  # (py*nyb,) int32 base_y + qy*(k // py) + roff_y
     start_x: torch.Tensor  # (px*nxb,) int32
+    lcy: torch.Tensor  # (py*nyb,) int32 row class within its tile (tile_classes.local)
+    lcx: torch.Tensor  # (px*nxb,) int32
+    tcy: torch.Tensor  # (row tiles, ky) int32 each tile's row classes
+    tcx: torch.Tensor  # (column tiles, kx) int32
+    ncy: torch.Tensor  # (row tiles,) int32 row classes of each tile
+    ncx: torch.Tensor  # (column tiles,) int32
     py: int
     qy: int
     base_y: int
@@ -97,9 +170,10 @@ class SegInterior:
     src_height: int
     src_width: int
     fs: int
-    win_h: int  # staged source window of one tile
-    win_w: int
-    frames_per_block: int
+    win_h: int  # source rows of the tallest tile window (tile_span of start_y)
+    win_w: int  # source columns of the widest tile window: a staged row's span
+    pairs: int  # pair blocks of the largest tile (ky * kx)
+    frames_per_block: int  # the most frames a thread that fit beside the pairs
 
     @property
     def out_shape(self) -> tuple[int, int]:
@@ -111,32 +185,24 @@ def _starts(ax: SegAxisPlan) -> np.ndarray:
     return ax.base + ax.q * (k // ax.p) + ax.roff.astype(np.int64)
 
 
-def _window_extent(ax: SegAxisPlan, tile: int, fs: int) -> int:
-    """Largest staged extent over tiles: max start in a tile, less the
-    tile's origin ``base + q*(k0 // p)``, plus ``fs``."""
-    k = np.arange(ax.hi - ax.lo)
-    rel = ax.q * (k // ax.p) + ax.roff.astype(np.int64)
-    origin = ax.q * ((k // tile * tile) // ax.p)
-    return int((rel - origin).max()) + fs
-
-
-def _layout(op: PlaneOperator, plan: SegPhasePlan) -> tuple[int, int, int] | None:
-    """(win_h, win_w, frames_per_block), or None outside the envelope."""
+def _layout(op: PlaneOperator, plan: SegPhasePlan):
+    """(win_h, win_w, row TileClasses, column TileClasses, frames a thread
+    at most), or None outside the envelope."""
     fs = op.filter_size
-    if fs * fs > FS2_MAX or op.pair_blocks.size == 0:
+    if op.pair_blocks.size == 0 or plan.y.hi <= plan.y.lo or plan.x.hi <= plan.x.lo:
         return None
-    if plan.y.hi <= plan.y.lo or plan.x.hi <= plan.x.lo:
+    ty, tx = tile_classes(plan.y.cls, TILE_Y), tile_classes(plan.x.cls, TILE_X)
+    pairs = ty.ids.shape[1] * tx.ids.shape[1]
+    win_w = tile_span(_starts(plan.x), TILE_X, fs)
+    fits = [f for f in FRAMES if smem_bytes(pairs, fs, win_w, f) <= MAX_SMEM_BYTES]
+    if not fits:
         return None
-    win_h = _window_extent(plan.y, TILE_Y, fs)
-    win_w = _window_extent(plan.x, TILE_X, fs)
-    nfb = min(MAX_FRAMES, MAX_SMEM_BYTES // (win_h * win_w * 4))
-    if nfb < 1:
-        return None
-    return win_h, win_w, nfb
+    return tile_span(_starts(plan.y), TILE_Y, fs), win_w, ty, tx, max(fits)
 
 
 def is_supported(op: PlaneOperator, plan: SegPhasePlan) -> bool:
-    """Envelope: fs**2 <= FS2_MAX and a staged window that fits shared memory."""
+    """Envelope: a dictionary, a covered block, and the largest tile's pair
+    blocks beside one-frame rings within the shared memory. Any fs."""
     return _layout(op, plan) is not None
 
 
@@ -157,7 +223,7 @@ def make_seg_interior(
     L = _layout(op, plan)
     if L is None:
         raise ValueError("make_seg_interior: plan outside the kernel envelope")
-    win_h, win_w, nfb = L
+    win_h, win_w, ty, tx, nfb = L
     fs = op.filter_size
     sy, sx = _starts(plan.y), _starts(plan.x)
     check_window_starts(sy, op.src_height, fs, "make_seg_interior rows")
@@ -166,14 +232,22 @@ def make_seg_interior(
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device)
 
+    blocks = padded_blocks(op.pair_blocks, device)
     return SegInterior(
-        pair_blocks_t=class_minor(op.pair_blocks, device),
+        blocks=blocks,
+        pair_blocks_t=class_minor_view(blocks),
         cls_y=t(plan.y.cls),
         roff_y=t(plan.y.roff),
         cls_x=t(plan.x.cls),
         roff_x=t(plan.x.roff),
         start_y=t(sy),
         start_x=t(sx),
+        lcy=t(ty.local),
+        lcx=t(tx.local),
+        tcy=t(ty.ids),
+        tcx=t(tx.ids),
+        ncy=t(ty.count),
+        ncx=t(tx.count),
         py=plan.y.p,
         qy=plan.y.q,
         base_y=plan.y.base,
@@ -185,8 +259,16 @@ def make_seg_interior(
         fs=fs,
         win_h=win_h,
         win_w=win_w,
+        pairs=ty.ids.shape[1] * tx.ids.shape[1],
         frames_per_block=nfb,
     )
+
+
+def frames_of(si: SegInterior, n_frames: int) -> int:
+    """Frames a thread of a launch over ``n_frames``: ``frames_per_thread``,
+    at most ``frames_per_block`` (the most whose rings fit beside the pair
+    blocks)."""
+    return min(frames_per_thread(n_frames), si.frames_per_block)
 
 
 def seg_interior_plain(si: SegInterior, src_f: torch.Tensor) -> torch.Tensor:
@@ -210,18 +292,20 @@ def seg_interior(si: SegInterior, src_f: torch.Tensor) -> torch.Tensor:
     F, H, W = src_f.shape
     if (H, W) != (si.src_height, si.src_width):
         raise ValueError(f"seg_interior: source {W}x{H} does not match the plan")
-    if si.pair_blocks_t.device != src_f.device:
+    if si.blocks.device != src_f.device:
         raise ValueError("seg_interior: operator and source on different devices")
     hout, wout = si.out_shape
     out = torch.empty((F, hout, wout), dtype=torch.float32, device=src_f.device)
     if F == 0:
         return out
+    swp = row_floats(si.win_w, 1)
     with torch.cuda.device(src_f.device):
         rc = _build.library().jt_seg_interior(
-            src_f.data_ptr(), si.pair_blocks_t.data_ptr(), si.cls_y.data_ptr(),
-            si.roff_y.data_ptr(), si.cls_x.data_ptr(), si.roff_x.data_ptr(), out.data_ptr(),
-            F, H, W, si.py, si.qy, si.base_y, si.px, si.qx, si.base_x, hout, wout,
-            si.pair_blocks_t.shape[3], si.fs, si.win_h, si.win_w, si.frames_per_block,
+            src_f.data_ptr(), si.blocks.data_ptr(), si.start_y.data_ptr(), si.start_x.data_ptr(),
+            si.lcy.data_ptr(), si.lcx.data_ptr(), si.tcy.data_ptr(), si.tcx.data_ptr(),
+            si.ncy.data_ptr(), si.ncx.data_ptr(), out.data_ptr(), F, H, W, hout, wout,
+            si.blocks.shape[1], si.fs, si.blocks.shape[3], block_stride(si.fs),
+            si.tcy.shape[1], si.tcx.shape[1], si.pairs, frames_of(si, F), swp,
             _build.stream_of(src_f),
         )  # fmt: skip
     _build.check(rc, "jt_seg_interior")

@@ -20,6 +20,20 @@ from jincresize_tpu import clip as jclip
 from jincresize_tpu_torch import api
 from jincresize_tpu_torch.clip import Clip, gray, random_frame, rgbp, yuv420p, yuv422p, yuv444p
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch intra-op thread for this module's tests: pytest-xdist runs
+    several workers on one machine, and each worker's default pool (a
+    thread a core) oversubscribes the cores, so the plain forms' thousands
+    of small ops wait on contended threads. The old count is back after the
+    module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 F32_TOL = 2e-6
 DEEP_TOL = 4e-6
 
@@ -371,10 +385,13 @@ def test_auto_on_cpu_takes_xla_off_the_periodic_path(geom):
 # The gather kernel takes any filter size, so the aperiodic tap-16 downscale
 # (fs 66, where the JAX package's gather envelope declines and its auto takes
 # xla) now takes gather; only the border-only operator, whose dictionary is
-# empty, still reaches xla.
+# empty, still reaches xla. The seg kernel takes any filter size whose tile
+# pair blocks fit the shared memory, so the drifted tap-16 downscale (fs 44,
+# 1440p -> 1080p at a quarter size; the JAX package: xla) takes fused-seg.
 AUTO_CUDA = [
     ((32, 24, 64, 48, 3), "fused", "ConvApplier", "fused"),
     ((96, 64, 288, 192, 2), "fused-seg", "SegConvApplier", "fused-seg"),
+    ((640, 360, 480, 270, 16), "fused-seg", "SegConvApplier", "fused-seg-deep"),
     ((96, 64, 167, 113, 3), "gather", "GatherApplier", "gather"),
     ((481, 271, 240, 135, 16), "gather", "GatherApplier", "gather-deep"),
     ((8, 8, 16, 16, 8), "xla", None, "xla"),

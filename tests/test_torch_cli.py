@@ -21,6 +21,20 @@ import torch
 from jincresize_tpu import cli as jcli
 from jincresize_tpu_torch import cli
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch intra-op thread for this module's tests: pytest-xdist runs
+    several workers on one machine, and each worker's default pool (a
+    thread a core) oversubscribes the cores, so the plain forms' thousands
+    of small ops wait on contended threads. The old count is back after the
+    module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = Path(__file__).resolve().parents[1]
 
 

@@ -25,6 +25,20 @@ from jincresize_tpu_torch.phase import plan_phases, plan_phases_seg
 from jincresize_tpu_torch.apply_gather import GatherApplier
 from jincresize_tpu_torch.kernels import fused, gather
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch intra-op thread for this module's tests: pytest-xdist runs
+    several workers on one machine, and each worker's default pool (a
+    thread a core) oversubscribes the cores, so the plain forms' thousands
+    of small ops wait on contended threads. The old count is back after the
+    module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 F32_TOL = 2e-6
 DEEP_TOL = 4e-6  # fs**2 > 1200: the JAX deep-tap bound
 

@@ -25,6 +25,20 @@ from jincresize_tpu_torch.kernels import fused, strips
 from jincresize_tpu_torch.operator import build_plane_operator, radius_for_tap
 from jincresize_tpu_torch.phase import plan_phases
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch intra-op thread for this module's tests: pytest-xdist runs
+    several workers on one machine, and each worker's default pool (a
+    thread a core) oversubscribes the cores, so the plain forms' thousands
+    of small ops wait on contended threads. The old count is back after the
+    module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 F32_TOL = 2e-6
 DEEP_TOL = 4e-6
 
@@ -244,8 +258,8 @@ def test_deep_tap_strips_match_pallas_interpret(g):
 def test_envelope_is_shared_memory_alone():
     """Every plan of ``plan_phases`` (cost cap py*px*fs**2 <= 32768) fits
     the 227 KB a block may opt into; a 2/5 tap-16 plan needs the opt-in above
-    48 KB (one 4-phase group of (84, 84) kernels: 113 KB). FS2_MAX stays the
-    gather and seg envelope only."""
+    48 KB (one 4-phase group of (84, 84) kernels: 113 KB). No kernel of the
+    port keeps the TPU's FS2_MAX envelope."""
     op = _op((300, 200, 120, 80, 16), {})
     plan = plan_phases(op)
     assert (plan.y.p, plan.x.p, op.filter_size) == (2, 2, 82)

@@ -6,6 +6,7 @@ import logging
 
 import numpy as np
 import pytest
+import torch
 
 from jincresize_tpu import api as japi
 from jincresize_tpu import clip as jclip
@@ -14,6 +15,20 @@ from jincresize_tpu.operator import build_plane_operator as jbuild
 from jincresize_tpu_torch import api, metrics
 from jincresize_tpu_torch.clip import Clip, gray, random_frame
 from jincresize_tpu_torch.operator import build_plane_operator, radius_for_tap
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch intra-op thread for this module's tests: pytest-xdist runs
+    several workers on one machine, and each worker's default pool (a
+    thread a core) oversubscribes the cores, so the plain forms' thousands
+    of small ops wait on contended threads. The old count is back after the
+    module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 OPERATORS = [
     (96, 64, 192, 128, 8, {}),

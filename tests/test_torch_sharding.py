@@ -28,6 +28,20 @@ from jincresize_tpu_torch.golden import apply_plane_numpy
 from jincresize_tpu_torch.kernels import gather
 from jincresize_tpu_torch.operator import build_plane_operator, radius_for_tap
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch intra-op thread for this module's tests: pytest-xdist runs
+    several workers on one machine, and each worker's default pool (a
+    thread a core) oversubscribes the cores, so the plain forms' thousands
+    of small ops wait on contended threads. The old count is back after the
+    module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 F32_TOL = 2e-6
 CPU = torch.device("cpu")
 
@@ -102,6 +116,25 @@ ROUTING_DIFFERS.update(
         for impl in ("auto", "gather")
         for n in (1, 2, 4, 8)
         if (geom, impl, n) != ("deep-tap-conv", "auto", 2)
+    }
+)
+
+# The port's seg kernel takes any filter size whose largest tile's pair
+# blocks fit the shared memory; the JAX package's declines fs**2 > 1200. So
+# deep-tap plans whose shards the fused kernel declines take seg where JAX
+# takes the scan-gather (auto) or raises (seg).
+ROUTING_DIFFERS.update(
+    {
+        (geom, impl, n): ({"auto": "gather-scan", "seg": None}[impl], "seg")
+        for geom, impl, rows in (
+            ("deep-multihop-16", "auto", (1, 2)),
+            ("deep-multihop-16", "seg", (1, 2)),
+            ("tap16-80x56", "auto", (1, 2)),
+            ("tap16-80x56", "seg", (1, 2)),
+            ("deep-tap-conv", "auto", (1, 4, 8)),
+            ("deep-tap-conv", "seg", (1, 2, 4, 8)),
+        )
+        for n in rows
     }
 )
 
@@ -375,6 +408,25 @@ def test_deep_tap_conv_shift_matches_golden(ops):
         assert ap.interior == "conv-fused" and ap.effective_precision == "fp32_u8src"
         src = torch.from_numpy(_src(op, 6))
         assert float((ap(src) - ConvApplier(op, device="cpu")(src)).abs().max()) <= DEEP_TOL
+
+
+def test_sharded_seg_takes_deep_drifted_plans():
+    """The drifted tap-16 downscale (fs 44; 1440p -> 1080p at a quarter
+    size) runs the seg kernel on 2 and 4 row shards under auto, against the
+    single-device seg applier at the deep-tap bound and the float32 golden
+    at 1e-5 (its own drift over 1936 taps, tests/test_torch_seg.py)."""
+    from jincresize_tpu_torch.apply_conv_seg import SegConvApplier
+
+    op = build_plane_operator(640, 360, 480, 270, radius_for_tap(16))
+    src = _src(op, 7, frames=1)
+    single = SegConvApplier(op, device="cpu")(torch.from_numpy(src)).numpy()
+    golden = apply_plane_numpy(op, src[0])
+    for n in (2, 4):
+        ap = sharding.ShardedApplier(op, _mesh(n))
+        assert ap.interior == "seg", n
+        out = ap(torch.from_numpy(src)).numpy()
+        assert np.abs(out - single).max() <= DEEP_TOL, n
+        assert np.abs(out[0] - golden).max() <= 1e-5, n
 
 
 @pytest.mark.parametrize("name", list(GEOMS))
