@@ -16,7 +16,9 @@ Phases (each raises on failure; nothing catches it):
    (its two tap-16 deep-tap cases included), an exception-heavy 5/2 upscale,
    a tap-16 2/5 downscale whose weights take 105 KB of shared memory, the
    full 3840x2160 -> 7680x4320 tap-8 and 3840x2160 -> 1920x1080 tap-16 luma
-   planes; the gather and seg kernels on the geometries of
+   planes (the strip kernel also at F = 1, 2, 3, 4 and 8 there and on one
+   case of each of its instances, qx = 1, 2, 3 and generic, each with a
+   ragged last column tile); the gather and seg kernels on the geometries of
    ``tests/test_apply_gather.py`` and ``tests/test_apply_conv_seg.py`` (both
    kernels at F = 1, 2, 3, 4 and 8 frames, every frames-a-thread instance
    and a ragged group) and on the full 2560x1440 -> 3840x2160 and
@@ -35,7 +37,11 @@ Phases (each raises on failure; nothing catches it):
    them tap 16 (0); the 4K -> 8K fp32 luma plane through its applier under
    ``torch.set_float32_matmul_precision('high')`` against the default run
    (2e-6: the port's glue sums in float64 einsums, which no float32 matmul
-   setting reaches); every launch counted;
+   setting reaches); then the chain of phase 3 is composed (host time
+   printed) and the strip kernel is held to its plain form at every F on
+   both composed planes, whose bottom strips step their window start from
+   row to row (a plane it declines is printed with the reason); every launch
+   counted;
 3. end to end, one path after another, each with the launch counts set to 0
    just before and read just after, on 4-frame yuv420p8 clips:
    3840x2160 -> 7680x4320 tap 8 (periodic: ``fused``), 2560x1440 -> 3840x2160
@@ -57,8 +63,9 @@ Phases (each raises on failure; nothing catches it):
    a machine with several cards, the aperiodic clip on a mesh of distinct
    cards too; then the paths of the tools slice: a 2-frame yuv420p8 chain
    1920x1080 -> 3840x2160 -> 7680x4320 tap 3 through ``jinc_resize_chain``
-   (one composed operator a plane, ``fused``; <= 1 LSB against the same
-   composed operators on ``impl='xla'``, host composition time printed), the
+   (the operators composed in phase 2, loaded from their cache; ``fused``,
+   the strip kernel launched on the composed planes; <= 1 LSB against the
+   same composed operators on ``impl='xla'``), the
    CLI on a 2-frame 4K -> 8K tap-8 yuv420p8 ``.npz`` in this process and as
    ``python -m jincresize_tpu_torch`` (exit 0, fused on both planes, 0 LSB
    against the API), ``entry.entry()`` and ``entry.dryrun_multichip(4)``
@@ -68,8 +75,8 @@ Phases (each raises on failure; nothing catches it):
    reduced repetitions, each with the launch counts set to 0 before and read
    after (``device_loop_timing`` is the probe's main path; the fused shape
    sweep must give max |err| 0 for every shape at both main geometries);
-   one 4-frame 4K -> 8K ``JincResizer`` call inside ``metrics.device_trace``
-   (``torch.profiler``):
+   one 4-frame 4K -> 8K and one 4-frame 4K -> 1080p tap-16 ``JincResizer``
+   call, each inside ``metrics.device_trace`` (``torch.profiler``):
    the ten device operations with the most CUDA time, the summed HtoD and
    DtoH copies and the device's idle share over the call's span; then
    CUDA-event medians of each kernel and its plain form on 8-frame
@@ -78,7 +85,9 @@ Phases (each raises on failure; nothing catches it):
    bytes over the H100's fp32 and HBM peaks), cuDNN's ``conv2d`` computing
    the fused interior at 4K -> 8K and at 4K -> 1080p tap 16 (checked against
    the kernel, 4e-6), the fused kernel's ms/frame, share of its bound and
-   ratio to cuDNN's time at both, the full-size 2/3 3840x2160 -> 2560x1440
+   ratio to cuDNN's time at both, the same for the strip kernel against one
+   ``torch.nn.functional.conv1d`` a strip (TF32 off; 4e-6), and on the
+   chain's composed luma plane, the full-size 2/3 3840x2160 -> 2560x1440
    tap-16 plan once (against its plain form, 0), the seg and gather
    appliers on the same 1440p -> 4K plane, the seg and gather kernels on
    both drifted planes (1440p -> 4K tap 8, 1440p -> 1080p tap 16) beside
@@ -190,8 +199,12 @@ PREV_MS_PER_FRAME = {"gather": 1.345, "gather_band": 1.093}
 PREV_SEG_MS_PER_FRAME = 0.458
 # The chain: 1080p -> 4K -> 8K tap 3 (2x then 2x), two frames.
 CHAIN = ((1920, 1080), (3840, 2160), (7680, 4320))
-CHAIN_SMALL = ((960, 540), (1920, 1080), (3840, 2160))  # if composing takes over 60 s
 CHAIN_TAP = 3
+# The strip kernel at every F of KERNEL_FRAMES on these CASES: one each of
+# its qx = 1, 2, 3 instances and of the generic one (qx = 5), each with a
+# ragged last column tile.
+STRIP_FRAME_CASES = ("2x upscale qx=1", "2x downscale qx=2", "2/3 downscale px=2 qx=3",
+                     "tap16 2/5 down fs=82 113KB")
 # Fused-kernel shapes checked against the default: on these CASES.
 SHAPE_CASES = ("2x upscale qx=1", "5/2 upscale exceptions", "tap16 2/5 down fs=82 113KB")
 PROBE_SHAPES = [((8, 4320, 7680), (48, 256)), ((2, 100, 300), (48, 256))]
@@ -235,6 +248,54 @@ def tensor_bytes(*objs, skip=()) -> int:
                 if f.name not in skip and isinstance(v, torch.Tensor):
                     total += v.numel() * v.element_size()
     return total
+
+
+def strips_bound(st, src) -> tuple[float, str]:
+    """(ms, by) of the strip kernel: 2 fs**2 flops a pixel of each strip's
+    rows; each strip's source band, the kernel's weights and the output once."""
+    F, _, W = src.shape
+    out_px = F * sum(ny for _, ny, _ in st.rows) * st.px * st.nxb
+    nbytes = (4 * F * W * sum(nb for *_, nb in st.rows) + tensor_bytes(st, skip=("cols",))
+              + 4 * F * st.n_strips * st.ny_max * st.px * st.nxb)  # fmt: skip
+    return bound_ms(2 * st.fs**2 * out_px, nbytes)
+
+
+def strips_conv1d_weights(st) -> list:
+    """Weights of the strips' yardstick: for each strip, (ny*px, nb,
+    spread + fs), row m's phase rx at channel m*px + rx, its taps at the
+    phase's column offset and at the row's offset in the band."""
+    from jincresize_tpu_torch.kernels.strips import band_anchors
+
+    A = band_anchors(st)  # (n_strips, rows, px, nb_max, fs)
+    offs = st.offs_x.tolist()
+    ws = []
+    for si, (_, ny, nb) in enumerate(st.rows):
+        wt = A.new_zeros((ny, st.px, nb, max(offs) + st.fs))
+        for rx, o in enumerate(offs):
+            wt[:, rx, :, o : o + st.fs] = A[si, :ny, rx, :nb]
+        ws.append(wt.reshape(ny * st.px, nb, -1))
+    return ws
+
+
+def strips_conv1d(st, src, ws):
+    """The strips' library yardstick: one ``torch.nn.functional.conv1d`` a
+    strip (cuDNN; the caller sets ``torch.backends.cudnn.allow_tf32 =
+    False``), the strip's source band as nb input channels from column
+    base_x on, stride qx, then a permute to the kernel's layout. The port
+    never calls it."""
+    import torch
+
+    F, H, _ = src.shape
+    out = src.new_zeros((F, st.n_strips, st.ny_max, st.px * st.nxb))
+    for si, ((row_min, ny, nb), wt) in enumerate(zip(st.rows, ws)):
+        need = st.qx * (st.nxb - 1) + wt.shape[2]
+        lo, hi = max(row_min, 0), min(row_min + nb, H)
+        band = src[:, lo:hi, st.base_x : st.base_x + need]
+        band = torch.nn.functional.pad(
+            band, (0, need - band.shape[2], lo - row_min, row_min + nb - hi))
+        y = torch.nn.functional.conv1d(band, wt, stride=st.qx)[:, :, : st.nxb]
+        out[:, si, :ny] = y.view(F, ny, st.px, st.nxb).transpose(2, 3).reshape(F, ny, -1)
+    return out
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2, reps: int = 1) -> float:
@@ -368,6 +429,32 @@ def main() -> int:
               + " ".join(f"{k}_err={v:.3g}{'' if bits == 32 else ' LSB'}" for k, v in errs.items()))
         return errs, bits
 
+    def check_strips(name, op, rng, frames_list=KERNEL_FRAMES):
+        """The strip kernel against its plain form on ``op``'s full-width
+        strips at each frame count (fp32 sources); returns the largest
+        |kernel - plain|."""
+        plan = plan_phases(op)
+        r = strips_k.make_strips(op, plan, dev)
+        assert r is not None, (name, strips_k.verified_strips(op, plan)[1])
+        st = r[0]
+        worst = 0.0
+        for frames in frames_list:
+            src = rand_src(op, 32, rng, frames)
+            before = counts()
+            got = strips_k.strips(st, src)
+            ref = strips_k.strips_plain(st, src)
+            torch.cuda.synchronize()
+            assert counts() == {**before, "strips": before["strips"] + 1}, (name, frames)
+            assert torch.isfinite(got).all(), (name, frames)
+            err = float((got - ref).abs().max())
+            assert err <= tol_of(op, 32), (name, frames, err)
+            worst = max(worst, err)
+        tail = st.nxb % strips_k.TILE or strips_k.TILE
+        print(f"[2] {name:34s} strips rows (start, rows, band)={st.rows} p={st.px} q={st.qx} "
+              f"fs={st.fs} {st.nxb} anchors a row (last column tile {tail} of "
+              f"{strips_k.TILE}) F={list(frames_list)} max |err| {worst:.3g}")
+        return worst
+
     def check_interior(kind, name, op, bits, rng, frames=2):
         """The gather or seg kernel against its plain form on ``op``."""
         if kind == "seg":
@@ -497,6 +584,9 @@ def main() -> int:
         against_golden(name, fmt, r, cfg, sw, sh)
         if name in SHAPE_CASES:
             check_shapes(name, r.op_luma, rng)
+        if name in STRIP_FRAME_CASES:
+            max_err["strips"] = max(max_err["strips"], check_strips(f"{name} luma", r.op_luma, rng))
+            covered["strips"] += 1
 
     for name, kind, sw, sh, dw, dh, tap in INTERIOR_CASES:
         cfg = JincConfig(target_width=dw, target_height=dh, tap=tap, impl=kind)
@@ -531,6 +621,8 @@ def main() -> int:
     for k, v in errs.items():
         covered[k] += 1
         max_err[k] = max(max_err[k], v)
+    max_err["strips"] = max(max_err["strips"],
+                            check_strips("3840x2160->7680x4320 tap8 luma", resizer.op_luma, rng))
     # The caller's matmul precision does not reach the port's fp32 results:
     # the 4K -> 8K fp32 luma plane under 'high' (TF32 matmuls) against the
     # default run, and the caller's setting is back after the call.
@@ -565,6 +657,9 @@ def main() -> int:
             if bits == 32:
                 max_err[k] = max(max_err[k], v)
                 deep_err[k] = max(deep_err[k], v)
+    err = check_strips("3840x2160->1920x1080 tap16 luma", deep_r.op_luma, rng)
+    max_err["strips"] = max(max_err["strips"], err)
+    deep_err["strips"] = max(deep_err["strips"], err)
     print(f"[2] deep taps (fs**2 > 1200), kernel vs plain form on fp32 sources: max |err| "
           + ", ".join(f"{k} {v:.3g}" for k, v in deep_err.items()) + f" (bound {DEEP_TOL:g})")
 
@@ -623,6 +718,34 @@ def main() -> int:
     max_err["gather_band"] = max(max_err["gather_band"], err)
     assert all(covered.values()), covered
     assert sorted(shapes_checked) == sorted(SHAPE_CASES), shapes_checked
+
+    # The chain of phase 3: two 2x stages composed on the host into one
+    # operator a plane, here, into a fresh cache directory (phase 3 loads
+    # them). Their bottom strips step their window start from row to row;
+    # the strip kernel on both composed planes against its plain form.
+    (csw, csh), *chain_dst = CHAIN
+    chain_geo = " -> ".join(f"{w}x{h}" for w, h in CHAIN)
+    cclip = Clip.from_frames([random_frame(fmt, csw, csh, seed=500 + i) for i in range(2)])
+    stages = [dict(target_width=w, target_height=h, tap=CHAIN_TAP) for w, h in chain_dst]
+    (ROOT / "build").mkdir(exist_ok=True)
+    chain_cache = tempfile.TemporaryDirectory(dir=ROOT / "build")
+    old_cache = os.environ.get("JINCRESIZE_TORCH_CACHE_DIR")
+    os.environ["JINCRESIZE_TORCH_CACHE_DIR"] = chain_cache.name
+    t0 = time.perf_counter()
+    cr = ChainResizer(fmt, csw, csh, [JincConfig(**st) for st in stages],
+                      frame0=cclip.frames[0], device=dev)  # fmt: skip
+    print(f"[2] chain {chain_geo} tap{CHAIN_TAP}: host composition "
+          f"{time.perf_counter() - t0:.1f} s (stage operators built and composed); "
+          f"composed fs luma {cr.op_luma.filter_size} chroma {cr.op_chroma.filter_size}; "
+          f"engines {cr.engines}")
+    assert cr.stages, "the first chain construction must compose"
+    for plane, cop in (("luma", cr.op_luma), ("chroma", cr.op_chroma)):
+        why = strips_k.verified_strips(cop, plan_phases(cop))[1]
+        if why is not None:
+            print(f"[2] chain {plane}: the strip kernel declines the composed plane: {why}")
+            continue
+        err = check_strips(f"chain {chain_geo} {plane}", cop, rng)
+        max_err["strips"] = max(max_err["strips"], err)
 
     # ---------------------------------------------------------------- phase 3
     print(f"[3] phase 3 starts at {time.perf_counter() - t_start:.1f} s")
@@ -843,49 +966,35 @@ def main() -> int:
         print("[3] one visible card: the mesh of distinct cards was not run")
 
     zeros = dict.fromkeys(wrappers, 0)
-    (ROOT / "build").mkdir(exist_ok=True)
 
-    # A chain of two 2x stages, composed on the host into one operator a
-    # plane. The composed operators are cached in a fresh directory, so the
-    # first construction composes and the later ones load; the chain runs
-    # through jinc_resize_chain and is held to the same composed operators on
+    # The chain composed in phase 2: jinc_resize_chain loads the composed
+    # operators from the cache and is held to the same composed operators on
     # impl='xla'.
-    (csw, csh), *chain_dst = CHAIN
-    chain_geo = " -> ".join(f"{w}x{h}" for w, h in CHAIN)
-    cclip = Clip.from_frames([random_frame(fmt, csw, csh, seed=500 + i) for i in range(2)])
-    stages = [dict(target_width=w, target_height=h, tap=CHAIN_TAP) for w, h in chain_dst]
-    old_cache = os.environ.get("JINCRESIZE_TORCH_CACHE_DIR")
-    with tempfile.TemporaryDirectory(dir=ROOT / "build") as cache_dir:
-        os.environ["JINCRESIZE_TORCH_CACHE_DIR"] = cache_dir
-        try:
-            t0 = time.perf_counter()
-            cr = ChainResizer(fmt, csw, csh, [JincConfig(**st) for st in stages],
-                              frame0=cclip.frames[0], device=dev)  # fmt: skip
-            print(f"[3] chain {chain_geo} tap{CHAIN_TAP}: host composition "
-                  f"{time.perf_counter() - t0:.1f} s (stage operators built and composed); "
-                  f"composed fs luma {cr.op_luma.filter_size} chroma {cr.op_chroma.filter_size}; "
-                  f"engines {cr.engines}")
-            assert cr.stages, "the first chain construction must compose"
-            assert cr.engines == {"luma": "fused", "chroma": "fused"}, cr.engines
-            cexpect = conv_expect(cr)
-            zero_counts()
-            t0 = time.perf_counter()
-            cout = jinc_resize_chain(cclip, stages, device=DEVICE)
-            torch.cuda.synchronize()
-            got = counts()
-            print(f"[3] jinc_resize_chain 2x {chain_geo} yuv420p8 tap{CHAIN_TAP} in "
-                  f"{time.perf_counter() - t0:.1f} s (composed operators loaded); launches {got}")
-            assert got == {**zeros, **cexpect}, (got, cexpect)
-            cref = ChainResizer(fmt, csw, csh, [JincConfig(**st, impl="xla") for st in stages],
-                                frame0=cclip.frames[0], device=dev)  # fmt: skip
-            assert not cref.stages, "the reference chain must load the composed operators"
-            against("chain (fused engine)", cout, cref(cclip),
-                    "the same composed operators on impl='xla'")
-        finally:
-            if old_cache is None:
-                del os.environ["JINCRESIZE_TORCH_CACHE_DIR"]
-            else:
-                os.environ["JINCRESIZE_TORCH_CACHE_DIR"] = old_cache
+    try:
+        assert cr.engines == {"luma": "fused", "chroma": "fused"}, cr.engines
+        cexpect = conv_expect(cr)
+        assert cexpect["strips"] > 0, "the strip kernel declined both composed chain planes"
+        zero_counts()
+        t0 = time.perf_counter()
+        cout = jinc_resize_chain(cclip, stages, device=DEVICE)
+        torch.cuda.synchronize()
+        got = counts()
+        print(f"[3] jinc_resize_chain 2x {chain_geo} yuv420p8 tap{CHAIN_TAP} in "
+              f"{time.perf_counter() - t0:.1f} s (composed operators loaded); launches {got}")
+        assert got == {**zeros, **cexpect}, (got, cexpect)
+        launches["strips"] += got["strips"]
+        cref = ChainResizer(fmt, csw, csh, [JincConfig(**st, impl="xla") for st in stages],
+                            frame0=cclip.frames[0], device=dev)  # fmt: skip
+        assert not cref.stages, "the reference chain must load the composed operators"
+        against("chain (fused engine)", cout, cref(cclip),
+                "the same composed operators on impl='xla'")
+    finally:
+        if old_cache is None:
+            del os.environ["JINCRESIZE_TORCH_CACHE_DIR"]
+        else:
+            os.environ["JINCRESIZE_TORCH_CACHE_DIR"] = old_cache
+        chain_cache.cleanup()
+    chain_st, chain_op = cr._applier_luma.strips_spec, cr.op_luma  # timed in phase 4
     del cr, cref, cout, cclip
 
     # The CLI on the first two frames of the 4K clip, in this process
@@ -1018,14 +1127,6 @@ def main() -> int:
         out_px = src.shape[0] * fi.out_shape[0] * fi.out_shape[1]
         return bound_ms(2 * fi.fs**2 * out_px, tensor_bytes(src, fi, skip=("kernels",)) + 4 * out_px)
 
-    def strips_bound(st, src):
-        """(ms, by) of the strip kernel: each strip's fs-row source band,
-        its anchors and the output once."""
-        F, _, W = src.shape
-        out_px = F * sum(ny for _, ny in st.rows) * st.px * st.nxb
-        nbytes = 4 * F * st.n_strips * st.fs * W + tensor_bytes(st, skip=("cols",))
-        return bound_ms(2 * st.fs**2 * out_px, nbytes + 4 * F * st.n_strips * st.ny_max * st.px * st.nxb)
-
     card = card_line()
 
     def run_tool(mod, argv, kernels):
@@ -1083,12 +1184,34 @@ def main() -> int:
     print(f"[4]   memcpy HtoD {htod:.3f} ms, DtoH {dtoh:.3f} ms, the rest "
           f"{busy - htod - dtoh:.3f} ms [{card}]")
     assert htod > 0 and dtoh > 0 and any("fused_interior" in k for k in ops), list(ops)[:10]
+    # The same for one 4-frame 4K -> 1080p tap-16 call: the deep path's
+    # device time by operation.
+    deep_r(dclip)
+    torch.cuda.synchronize()
+    with metrics.device_trace(str(ROOT / "build" / "trace_tap16")):
+        deep_r(dclip)
+        torch.cuda.synchronize()
+    trace = ROOT / "build" / "trace_tap16" / "trace.json"
+    ops = metrics.device_time_by_op(trace)
+    busy, span = metrics.device_busy(trace)
+    print(f"[4] torch.profiler: one JincResizer call, {E2E_FRAMES}x {DEEP[0]}x{DEEP[1]} yuv420p8 -> "
+          f"{DEEP[2]}x{DEEP[3]} tap{DEEP_TAP}: {busy:.3f} ms of device operations in "
+          f"{sum(n for _, n in ops.values())} launches over a {span:.3f} ms span "
+          f"(device idle {1 - busy / span:.1%} of it) [{card}]")
+    for name, (t, n) in list(ops.items())[:10]:
+        print(f"[4]   {t:10.3f} ms {n:4d}x  {name[:110]}")
+    htod = sum(t for name, (t, _) in ops.items() if "HtoD" in name)
+    dtoh = sum(t for name, (t, _) in ops.items() if "DtoH" in name)
+    print(f"[4]   memcpy HtoD {htod:.3f} ms, DtoH {dtoh:.3f} ms, the rest "
+          f"{busy - htod - dtoh:.3f} ms [{card}]")
+    assert any("strips_kernel" in k for k in ops), list(ops)[:10]
 
     app = resizer._applier_luma
     tsrc = torch.from_numpy(
         rng.random((TIMING_FRAMES, SRC_H, SRC_W), dtype=np.float32)
     ).to(dev)
     px_out = TIMING_FRAMES * DST_W * DST_H
+    strips_ws = strips_conv1d_weights(app.strips_spec)
     ms = {}
     for _ in range(2):  # plain, kernel, kernel, plain -- twice
         for k, fn in (
@@ -1097,16 +1220,19 @@ def main() -> int:
             ("fused_conv2d", lambda: conv2d_interior(app.fi, tsrc)),
             ("strips", lambda: strips_k.strips(app.strips_spec, tsrc)),
             ("strips_plain", lambda: strips_k.strips_plain(app.strips_spec, tsrc)),
+            ("strips_conv1d", lambda: strips_conv1d(app.strips_spec, tsrc, strips_ws)),
         ):
             iters = 3 if k.endswith("plain") else 20
             ms.setdefault(k, []).append(cuda_ms(fn, iters))
     ms = {k: statistics.median(v) for k, v in ms.items()}
-    for k in ("fused", "fused_plain", "fused_conv2d", "strips", "strips_plain"):
+    for k in ("fused", "fused_plain", "fused_conv2d", "strips", "strips_plain", "strips_conv1d"):
         print(f"[4] {k:13s} {ms[k]:10.3f} ms per {TIMING_FRAMES}-frame fp32 4K->8K luma "
               f"batch ({ms[k] / TIMING_FRAMES:.3f} ms/frame) [{card}]")
     lib_err = {"4K->8K tap8": float(
         (conv2d_interior(app.fi, tsrc) - fused_k.fused_interior(app.fi, tsrc)).abs().max()
     )}  # fmt: skip
+    strips_lib_err = {"4K->8K tap8": float((strips_conv1d(app.strips_spec, tsrc, strips_ws)
+                                            - strips_k.strips(app.strips_spec, tsrc)).abs().max())}
     bounds = {"fused": fused_bound(app.fi, tsrc), "strips": strips_bound(app.strips_spec, tsrc)}
     for k, (b, by) in bounds.items():
         print(f"[4] {k} bound {b:.3f} ms per batch ({by}): kernel at {b / ms[k]:.1%} of it [{card}]")
@@ -1126,20 +1252,20 @@ def main() -> int:
         ("deep_fused", lambda: fused_k.fused_interior(dapp.fi, tsrc_deep)),
         ("deep_fused_conv2d", lambda: conv2d_interior(dapp.fi, tsrc_deep)),
     ]
-    if dapp.strips_spec is not None:
-        deep_runs += [
-            ("deep_strips", lambda: strips_k.strips(dapp.strips_spec, tsrc_deep)),
-            ("deep_strips_plain", lambda: strips_k.strips_plain(dapp.strips_spec, tsrc_deep)),
-        ]
+    deep_ws = strips_conv1d_weights(dapp.strips_spec)
+    deep_runs += [
+        ("deep_strips", lambda: strips_k.strips(dapp.strips_spec, tsrc_deep)),
+        ("deep_strips_plain", lambda: strips_k.strips_plain(dapp.strips_spec, tsrc_deep)),
+        ("deep_strips_conv1d", lambda: strips_conv1d(dapp.strips_spec, tsrc_deep, deep_ws)),
+    ]
     deep_ms = {}
     for order in (deep_runs, deep_runs[::-1]):  # plain, kernel, ..., kernel, plain
         for k, fn in order:
             deep_ms.setdefault(k, []).append(cuda_ms(fn, 3 if k.endswith("plain") else 10))
     deep_ms = {k: statistics.median(v) for k, v in deep_ms.items()}
     ms.update(deep_ms)
-    deep_bounds = {"deep_fused": fused_bound(dapp.fi, tsrc_deep)}
-    if dapp.strips_spec is not None:
-        deep_bounds["deep_strips"] = strips_bound(dapp.strips_spec, tsrc_deep)
+    deep_bounds = {"deep_fused": fused_bound(dapp.fi, tsrc_deep),
+                   "deep_strips": strips_bound(dapp.strips_spec, tsrc_deep)}
     bounds.update(deep_bounds)
     for k, _ in deep_runs:
         print(f"[4] {k:17s} {deep_ms[k]:10.3f} ms per {TIMING_FRAMES}-frame fp32 {deep_geo} tap16 "
@@ -1153,12 +1279,41 @@ def main() -> int:
     lib_err["4K->1080p tap16"] = float(
         (conv2d_interior(dapp.fi, tsrc_deep) - fused_k.fused_interior(dapp.fi, tsrc_deep)).abs().max()
     )
-    del tsrc_deep
+    strips_lib_err["4K->1080p tap16"] = float(
+        (strips_conv1d(dapp.strips_spec, tsrc_deep, deep_ws)
+         - strips_k.strips(dapp.strips_spec, tsrc_deep)).abs().max())  # fmt: skip
+    del tsrc_deep, deep_ws
     e2e(f"fused {deep_geo} tap16 ", deep_r, dclip, DEEP[2] * DEEP[3])
     for geo, k in (("4K->8K tap8", "fused"), (f"{deep_geo} tap16", "deep_fused")):
         print(f"[4] fused interior {geo}: {ms[k] / TIMING_FRAMES:.4f} ms/frame, "
               f"{bounds[k][0] / ms[k]:.1%} of its bound, {ms[k] / ms[k + '_conv2d']:.4f}x "
               f"cuDNN conv2d's time in this run [{card}]")
+    # The strip kernel on the chain's composed luma plane (its bottom strip's
+    # rows step their window start), an 8-frame fp32 batch.
+    tsrc_c = torch.from_numpy(
+        rng.random((TIMING_FRAMES, chain_op.src_height, chain_op.src_width), dtype=np.float32)
+    ).to(dev)
+    chain_ws = strips_conv1d_weights(chain_st)
+    chain_runs = [("chain_strips_plain", lambda: strips_k.strips_plain(chain_st, tsrc_c)),
+                  ("chain_strips", lambda: strips_k.strips(chain_st, tsrc_c)),
+                  ("chain_strips_conv1d", lambda: strips_conv1d(chain_st, tsrc_c, chain_ws))]
+    for order in (chain_runs, chain_runs[::-1]):
+        for k, fn in order:
+            ms.setdefault(k, []).append(cuda_ms(fn, 3 if k.endswith("plain") else 10))
+    for k, _ in chain_runs:
+        ms[k] = statistics.median(ms[k])
+    bounds["chain_strips"] = strips_bound(chain_st, tsrc_c)
+    strips_lib_err["chain luma"] = float(
+        (strips_conv1d(chain_st, tsrc_c, chain_ws) - strips_k.strips(chain_st, tsrc_c)).abs().max())
+    del tsrc_c, chain_ws
+    for geo, k in (("4K->8K tap8", "strips"), (f"{deep_geo} tap16", "deep_strips"),
+                   (f"chain {chain_geo} composed luma", "chain_strips")):
+        b = bounds[k][0]
+        print(f"[4] strips {geo}: {ms[k] / TIMING_FRAMES:.4f} ms/frame, bound "
+              f"{b / TIMING_FRAMES:.4f} ({bounds[k][1]}), {b / ms[k]:.1%} of it, plain form "
+              f"{ms[k + '_plain'] / TIMING_FRAMES:.4f}, conv1d (TF32 off) "
+              f"{ms[k + '_conv1d'] / TIMING_FRAMES:.4f} ms/frame, kernel "
+              f"{ms[k] / ms[k + '_conv1d']:.3f}x conv1d's time in this run [{card}]")
 
     # The full-size 2/3 plan (p=(2,2), q=(3,3), fs=49): the fused kernel
     # once against its plain form on an 8-frame fp32 4K -> 1440p tap-16 batch.
@@ -1418,6 +1573,9 @@ def main() -> int:
     for k, v in lib_err.items():
         print(f"[4] cuDNN conv2d vs fused kernel at {k}: max |err| {v:.3g} (bound {DEEP_TOL:g})")
     assert all(v <= DEEP_TOL for v in lib_err.values()), lib_err
+    for k, v in strips_lib_err.items():
+        print(f"[4] conv1d vs strips kernel at {k}: max |err| {v:.3g} (bound {DEEP_TOL:g})")
+    assert all(v <= DEEP_TOL for v in strips_lib_err.values()), strips_lib_err
 
     print(f"[4] phases 1-4 took {time.perf_counter() - t_start:.1f} s")
     print(card)
@@ -1446,7 +1604,7 @@ def main() -> int:
             "plain_ms": ms["strips_plain"],
             "bound_ms": bounds["strips"][0],
             "bound_by": bounds["strips"][1],
-            "library_ms": None,
+            "library_ms": ms["strips_conv1d"],
         },
         {
             "name": "gather_interior",

@@ -16,7 +16,10 @@ deep-tap forms ``_shift_sum_deep``, ``_shift_sum_scan``, ``_shift_sum_mxu``)
 are not an engine here: every periodic plan, deep taps (fs = 49, 65 at tap
 16) included, runs the fused kernel. Where the strip kernel declines a
 plan's top/bottom strips (``kernels.strips._anchor_blocks`` finds the anchor
-pattern too broken), the strips take the value path, as in the JAX package.
+pattern too broken, or a window row outside the source carries weight), the
+strips take the value path, as in the JAX package. The strip kernel takes
+strips whose rows step their window start (composed chain operators), where
+the JAX package's kernel declines and its value path gives the same values.
 
 No float32 matmul runs here, so a caller's TF32 or bf16 float32-matmul
 setting does not reach the glue: where the windows are already gathered one
@@ -213,19 +216,23 @@ def strip_row_bands(op: PlaneOperator) -> dict:
     return out
 
 
-def _strip_cols_patch(src_f, sy_const: int, fs: int, cols_sx, blocks_sel):
+def _strip_cols_patch(src_f, band_rows, cols_sx, blocks_band):
     """Per-pixel strip values for selected columns: (F, ny, m).
 
-    ``cols_sx`` (m,) are the columns' window starts; ``blocks_sel``
-    (ny, m, fs, fs) their per-pixel blocks (corners + verified exceptions of
-    the strip kernel, kernels/strips.py).
+    ``band_rows`` (nb,) are the strip's source band rows, clamped into the
+    plane as the reference clamps window rows; ``cols_sx`` (m,) the columns'
+    window starts; ``blocks_band`` (ny, m, nb, fs) their per-pixel blocks
+    (corners + verified exceptions of the strip kernel, kernels/strips.py),
+    each row's taps at its window start's offset in the band, zeros
+    elsewhere.
     """
     W = src_f.shape[2]
+    fs = blocks_band.shape[-1]
     taps = torch.arange(fs, device=src_f.device)
-    band = src_f[:, sy_const : sy_const + fs, :]
+    band = src_f[:, band_rows, :]
     cidx = torch.clamp(cols_sx[:, None] + taps[None, :], 0, W - 1)  # (m, fs)
-    P = band[:, :, cidx]  # (F, fs, m, fs)
-    return einsum64("fkml,ymkl->fym", P, blocks_sel)
+    P = band[:, :, cidx]  # (F, nb, m, fs)
+    return einsum64("fkml,ymkl->fym", P, blocks_band)
 
 
 # ---------------------------------------------------------------------------
@@ -291,7 +298,6 @@ class ConvApplier:
             raise ValueError("ConvApplier: plan outside the fused kernel envelope")
         self.fi = fused_k.make_fused_interior(op, plan, self.device, precision)
         self.cop = build_conv_operator(op, plan, self.device)
-        self.fs = op.filter_size
         self._strip_plans = plan_strips(op, plan)
         if self._strip_plans is not None:
             self._strip_idx = window_indices(self.cop.dop, self._strip_plans)
@@ -330,17 +336,20 @@ class ConvApplier:
             return
         spec, patches, meta = r
         kernel_rects = set()
-        for s, cols in patches:
+        fs = op.filter_size
+        for (s, cols), (row_min, _ny, nb) in zip(patches, spec.rows, strict=True):
             kernel_rects.add((s.y0, s.y1, s.x0, s.x1))
             if len(cols) == 0:
                 continue
+            blocks = np.zeros((s.y1 - s.y0, len(cols), nb, fs), dtype=np.float32)
+            for m, d in enumerate(op.start_y[s.y0 : s.y1] - row_min):
+                blocks[m, :, d : d + fs] = s.blocks[m, cols - s.x0]
+            band_rows = np.clip(row_min + np.arange(nb), 0, op.src_height - 1)
             self._strip_patches[(s.y0, s.y1)] = (
-                int(op.start_y[s.y0]),
+                torch.from_numpy(band_rows).to(self.device),
                 torch.from_numpy(cols).to(self.device),
                 torch.from_numpy(op.start_x[cols].astype(np.int64)).to(self.device),
-                torch.from_numpy(np.ascontiguousarray(s.blocks[:, cols - s.x0])).to(
-                    self.device
-                ),
+                torch.from_numpy(blocks).to(self.device),
             )
         self._rem = tuple(
             i
@@ -367,9 +376,9 @@ class ConvApplier:
             row_block[:, :, xlo : xlo + width] = out[:, si, : y1 - y0]
             p = self._strip_patches.get((y0, y1))
             if p is not None:
-                sy_c, cols, cols_sx, blocks_sel = p
+                band_rows, cols, cols_sx, blocks_band = p
                 row_block[:, :, cols] = _strip_cols_patch(
-                    src_f, sy_c, self.fs, cols_sx, blocks_sel
+                    src_f, band_rows, cols_sx, blocks_band
                 )
             blocks.append(((y0, y1, 0, dst_w), row_block))
         if self._rem:

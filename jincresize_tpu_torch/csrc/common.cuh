@@ -18,22 +18,6 @@ inline cudaError_t jt_allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-// One output pixel's (fs, fs) window dot product against a weight block in
-// shared memory. Source reads past the plane's bottom or right edge are
-// skipped, which equals reading zeros (the JAX kernels zero-pad there).
-__device__ __forceinline__ float jt_window_dot(const float* __restrict__ plane, int H, int W,
-                                               int sy0, int sx0, const float* wblk, int fs) {
-  const int ny = min(fs, H - sy0);
-  const int nx = min(fs, W - sx0);
-  float acc = 0.f;
-  for (int ly = 0; ly < ny; ++ly) {
-    const float* row = plane + static_cast<int64_t>(sy0 + ly) * W + sx0;
-    const float* wrow = wblk + ly * fs;
-    for (int lx = 0; lx < nx; ++lx) acc = fmaf(__ldg(row + lx), wrow[lx], acc);
-  }
-  return acc;
-}
-
 __device__ __forceinline__ unsigned jt_smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }

@@ -255,6 +255,179 @@ def test_deep_tap_strips_match_pallas_interpret(g):
         assert np.abs(got[si, : y1 - y0] - w).max() <= DEEP_TOL
 
 
+# The composed operators of tests/test_torch_chain.py's "4x periodic" and
+# "large dedup" pairs: the bottom strip's window start steps from row to row
+# (42 -> 43 and 261 -> 262 -> 263), and its last windows leave the source
+# (43 + 7 > 48, 263 + 10 > 270) with zero weight on the rows past it.
+COMPOSED = {
+    "4x periodic": ((64, 48, 128, 96, 2), (128, 96, 256, 192, 2)),
+    "large dedup": ((480, 270, 960, 540, 3), (960, 540, 1920, 1080, 3)),
+}
+
+
+@pytest.fixture(scope="module")
+def composed():
+    """{name: (port operator, JAX operator)}, each composed by its own package."""
+    from jincresize_tpu import compose as jcompose
+    from jincresize_tpu_torch.compose import compose
+
+    return {
+        name: (
+            compose(*[_op(g, {}) for g in pair]),
+            jcompose.compose(*[_jop(g, {})[0] for g in pair]),
+        )
+        for name, pair in COMPOSED.items()
+    }
+
+
+def _bottom_strip(op):
+    return max(_full_width_strips(op), key=lambda s: s.y0)
+
+
+@pytest.mark.parametrize("name", list(COMPOSED))
+def test_composed_strips_run_the_kernel_path(name, composed):
+    """A composed chain operator's strips take the strip kernel (its plain
+    form on the CPU), per-row window starts included, and the port's
+    ``ConvApplier`` matches the JAX package's applier (whose strip kernel
+    declines, so its strips take the value path) and the host golden."""
+    import jax.numpy as jnp
+
+    from jincresize_tpu.apply_conv import ConvApplier as JaxConvApplier
+    from jincresize_tpu_torch.apply_conv import ConvApplier
+    from jincresize_tpu_torch.golden import apply_plane_numpy
+
+    op, jop = composed[name]
+    plan = plan_phases(op)
+    s = _bottom_strip(op)
+    sy = op.start_y[s.y0 : s.y1]
+    assert (sy != sy[0]).any() and int(sy.max()) + op.filter_size > op.src_height
+    st, _, meta = strips.make_strips(op, plan)
+    assert st.rows[-1] == (int(sy.min()), s.y1 - s.y0, int(sy.max() - sy.min()) + op.filter_size)
+    ap = ConvApplier(op, plan=plan, device="cpu")
+    assert ap.strips_spec is not None and meta["strips"][-1] == (s.y0, s.y1)
+    src = _src(op, 17)
+    got = ap(torch.from_numpy(src)).numpy()
+    want = np.asarray(JaxConvApplier(jop, interior="fused")(jnp.asarray(src)))
+    assert np.abs(got - want).max() <= F32_TOL
+    assert np.abs(got - apply_plane_numpy(op, src)).max() <= F32_TOL
+
+
+@pytest.mark.parametrize("name", list(COMPOSED))
+def test_composed_strips_route_apart_from_jax(name, composed):
+    """A routing difference, pinned: the JAX strip kernel declines strips
+    whose rows do not share one window start; the port's takes them."""
+    from jincresize_tpu.kernels.pallas_strips import make_strips_interior
+
+    op, jop = composed[name]
+    assert make_strips_interior(jop, jphase.plan_phases(jop), interpret=True) is None
+    assert strips.make_strips(op, plan_phases(op)) is not None
+
+
+@pytest.mark.parametrize("inside", [True, False], ids=["row-inside", "row-past-source"])
+def test_weight_past_the_source_declines(inside, composed, monkeypatch):
+    """One nonzero anchor weight on a window row past the source (the
+    kernel reads zeros there, the reference the clamped row) declines the
+    operator; the same weight on a row inside the source does not."""
+    op, _ = composed["4x periodic"]
+    plan = plan_phases(op)
+    bottom = _bottom_strip(op)
+    ly = 0 if inside else op.src_height - int(op.start_y[bottom.y0])
+    assert 0 <= ly < op.filter_size
+    original = strips._anchor_blocks
+
+    def one_weight(s, plan_x, fs):
+        anchors, exc = original(s, plan_x, fs)
+        if s is bottom:
+            anchors = anchors.copy()
+            anchors[0, 0, ly, 0] = 1e-3
+        return anchors, exc
+
+    monkeypatch.setattr(strips, "_anchor_blocks", one_weight)
+    assert (strips.make_strips(op, plan) is not None) == inside
+    why = strips.verified_strips(op, plan)[1]
+    assert why is None if inside else "outside the source" in why
+
+
+def _taken_before(op, plan):
+    """The previous kernel's envelope: one strip row's (px, fs, fs) anchors
+    (odd stride) in shared memory, every full-width strip at one window
+    start, and its anchor pattern verified."""
+    fs = op.filter_size
+    astride = fs * fs if fs % 2 else fs * fs + 1
+    full = _full_width_strips(op)
+    return (
+        plan.x.p * astride * 4 <= fused.MAX_SMEM_BYTES
+        and bool(full)
+        and all(
+            (op.start_y[s.y0 : s.y1] == op.start_y[s.y0]).all()
+            and strips._anchor_blocks(s, plan.x, fs) is not None
+            for s in full
+        )
+    )
+
+
+# (src_w, src_h, dst_w, dst_h, radius): the fused envelope's geometries, the
+# deep-tap ones, and a 1/8 downscale with one phase of (181, 181) anchors
+# (181**2 <= 32768, the largest fs of a one-phase plan).
+STRIP_ENVELOPE = [g[:4] + (radius_for_tap(g[4]),) for g in ENVELOPE_GEOMS + DEEP_GEOMS] + [
+    (1600, 800, 200, 100, 11.3)
+]
+
+
+@pytest.mark.parametrize("g", STRIP_ENVELOPE, ids=lambda g: "{}x{}->{}x{}-r{:.4g}".format(*g))
+def test_strips_envelope_keeps_every_plan(g):
+    """Every plan the previous strip kernel took is still taken, px 1 at
+    fs 181 included, within the shared memory a block may opt into."""
+    op = build_plane_operator(*g)
+    plan = plan_phases(op)
+    r = strips.make_strips(op, plan)
+    if g[-1] == 11.3:
+        assert (plan.x.p, plan.x.q, op.filter_size) == (1, 8, 181) and _taken_before(op, plan)
+    if _taken_before(op, plan):
+        assert r is not None
+    if r is not None:
+        assert r[0].layout.smem_bytes <= fused.MAX_SMEM_BYTES
+
+
+# Reduced planes whose strips have the (px, qx, fs) of the full-size ones:
+# 3840x2160 -> 7680x4320 tap 8, -> 1920x1080 tap 16 and -> 2560x1440 tap 16
+# (2/3), and the fs-181 1/8 downscale (a qx the kernel does not unroll).
+STRIP_LAYOUT_PLANS = {
+    "4k-8k": ((480, 270, 960, 540, radius_for_tap(8)), (2, 1, 17)),
+    "4k-1080p-tap16": ((480, 270, 240, 135, radius_for_tap(16)), (1, 2, 65)),
+    "4k-1440p-tap16": ((480, 270, 320, 180, radius_for_tap(16)), (2, 3, 49)),
+    "1/8-fs181": ((1600, 800, 200, 100, 11.3), (1, 8, 181)),
+}
+
+
+@pytest.mark.parametrize("name", list(STRIP_LAYOUT_PLANS))
+def test_strips_layout_covers_every_read(name):
+    """The kernel's tiling (``strips.layout``): every tap of the 4 anchors
+    a lane owns lies in the block's staged columns; each register-window
+    load (qx 1-3) is a 16-byte-aligned load inside the staged row, and so
+    is every scalar read; the ring's 2*ch slots and the output tile fit the
+    block's shared memory."""
+    g, (px, qx, fs) = STRIP_LAYOUT_PLANS[name]
+    op = build_plane_operator(*g)
+    st = strips.make_strips(op, plan_phases(op))[0]
+    lay = st.layout
+    assert (st.px, st.qx, st.fs) == (px, qx, fs)
+    x0 = qx * strips.ANCHORS * np.arange(32)
+    taps = x0[:, None, None] + qx * np.arange(strips.ANCHORS)[:, None] + np.arange(fs)
+    assert taps.min() == 0 and taps.max() == lay.sw - 1
+    skew = np.vectorize(strips._skew)
+    assert skew(lay.sw - 1) < lay.swp and lay.swp % 4 == 0
+    if qx <= 3:
+        kwin = -(-(qx * (strips.ANCHORS - 1) + strips.CHUNK) // 4) * 4
+        for b0 in range(0, fs - strips.CHUNK + 1, strips.CHUNK):
+            starts = skew(x0[:, None] + b0 + 4 * np.arange(kwin // 4))
+            assert (starts % 4 == 0).all() and (starts + 3 < lay.swp).all()
+    assert lay.rbr % strips.ROWS == 0 and lay.rbr <= strips.ROWS * strips.MAX_WARPS
+    assert lay.nrb * lay.rbr >= st.ny_max and 1 <= lay.ch <= st.nb_max
+    ring = 2 * lay.ch * (fs * lay.rbr + lay.swp)
+    assert lay.smem_bytes == 4 * max(ring, lay.rbr * strips.TILE) <= fused.MAX_SMEM_BYTES
+
+
 def test_envelope_is_shared_memory_alone():
     """Every plan of ``plan_phases`` (cost cap py*px*fs**2 <= 32768) fits
     the 227 KB a block may opt into; a 2/5 tap-16 plan needs the opt-in above
