@@ -29,7 +29,10 @@ Phases (each raises on failure; nothing catches it):
    downscale (8 shards; F = 1, 2, 3, 4, 8) and the full 1920x1080 ->
    3740x2104 tap-8 and 3840x2160 -> 1366x768 tap-16 luma planes (4 shards):
    0 for the gather, band and seg kernels (their plain forms sum in the
-   kernels' order), else 2e-6 absolute for fp32 sources in [0, 1) (4e-6 for deep
+   kernels' order), 0 for the strip kernel against ``strips_chain`` (its sums
+   in its own float32 order; against the float64 ``strips_plain`` within
+   ``f32_chain_bound``, on a second seed's sources too on the four strip
+   cases), else 2e-6 absolute for fp32 sources in [0, 1) (4e-6 for deep
    taps, fs**2 > 1200), <= 1 LSB after ``finalize`` for u8/u16; the ``out_only``
    probe against ``torch.zeros`` at (8, 4320, 7680) and on a ragged
    (2, 100, 300) plane (0); the narrow shape of
@@ -40,8 +43,12 @@ Phases (each raises on failure; nothing catches it):
    setting reaches); then the chain of phase 3 is composed (host time
    printed) and the strip kernel is held to its plain form at every F on
    both composed planes, whose bottom strips step their window start from
-   row to row (a plane it declines is printed with the reason); every launch
-   counted;
+   row to row (a plane it declines is printed with the reason); the bf16
+   modes (``precision='bf16'``: operands rounded to bfloat16) of the fused
+   kernel on every conv case's luma plane and of the narrow shape on the
+   shape cases, and of the seg kernel on its two cases at F = 1, 2, 3, 4 and
+   8, each against its plain form (2e-6, 4e-6 for deep taps; 0 expected) and
+   against the fp32 mode (``kernels.fused.bf16_bound``); every launch counted;
 3. end to end, one path after another, each with the launch counts set to 0
    just before and read just after, on 4-frame yuv420p8 clips:
    3840x2160 -> 7680x4320 tap 8 (periodic: ``fused``), 2560x1440 -> 3840x2160
@@ -69,7 +76,12 @@ Phases (each raises on failure; nothing catches it):
    CLI on a 2-frame 4K -> 8K tap-8 yuv420p8 ``.npz`` in this process and as
    ``python -m jincresize_tpu_torch`` (exit 0, fused on both planes, 0 LSB
    against the API), ``entry.entry()`` and ``entry.dryrun_multichip(4)``
-   on four shards of ``cuda:0``. ``fused_interior_plain`` must be called 0
+   on four shards of ``cuda:0``; ``precision='bf16'``: the 4-frame 4K -> 8K
+   clip (``fused``, the fused kernel's bf16 mode) and two frames of the
+   drifted clip on one card (``fused-seg``) and on four row shards
+   (``sharded/seg``, <= 1 LSB against the single card), each applier's
+   ``effective_precision`` asserted bf16 and each output within
+   ``kernels.fused.bf16_lsb`` of the fp32 run. ``fused_interior_plain`` must be called 0
    times in the phase;
 4. timing -- every tool of ``jincresize_tpu_torch.tools`` in this process at
    reduced repetitions, each with the launch counts set to 0 before and read
@@ -82,12 +94,17 @@ Phases (each raises on failure; nothing catches it):
    CUDA-event medians of each kernel and its plain form on 8-frame
    fp32 luma batches of each path (the band kernel summed over the four
    shards of the aperiodic plane), each beside its bound (operations or
-   bytes over the H100's fp32 and HBM peaks), cuDNN's ``conv2d`` computing
+   bytes over the H100's fp32 and HBM peaks; the bf16 modes' operations at
+   its bf16 tensor-core peak, their fp32-FMA share printed beside), cuDNN's ``conv2d`` computing
    the fused interior at 4K -> 8K and at 4K -> 1080p tap 16 (checked against
    the kernel, 4e-6), the fused kernel's ms/frame, share of its bound and
    ratio to cuDNN's time at both, the same for the strip kernel against one
    ``torch.nn.functional.conv1d`` a strip (TF32 off; 4e-6), and on the
-   chain's composed luma plane, the full-size 2/3 3840x2160 -> 2560x1440
+   chain's composed luma plane, the bf16 modes of the fused kernel at 4K ->
+   8K and 4K -> 1080p tap 16 (beside cuDNN's conv2d on bfloat16 tensors) and
+   of the seg kernel at 1440p -> 4K tap 8, each timed beside its fp32 mode
+   in the same turns, its plain form once (held to it and to the fp32
+   mode), the full-size 2/3 3840x2160 -> 2560x1440
    tap-16 plan once (against its plain form, 0), the seg and gather
    appliers on the same 1440p -> 4K plane, the seg and gather kernels on
    both drifted planes (1440p -> 4K tap 8, 1440p -> 1080p tap 16) beside
@@ -100,7 +117,8 @@ Phases (each raises on failure; nothing catches it):
    with its upload / device / download split (the deep drifted path too; the sharded aperiodic path
    beside the single-card one; the deep aperiodic clip under ``auto`` beside
    ``impl='xla'``), ``python -m jincresize_tpu_torch.bench`` in
-   its three modes, run in this process, and the probe beside its bound and
+   its three modes and the default one under ``--precision bf16``, run in
+   this process, and the probe beside its bound and
    ``torch.zeros``, in one order and the other.
 
 Prints the kernels' JSON line, then as its last line
@@ -185,6 +203,7 @@ E2E_FRAMES = 4
 TIMING_FRAMES = 8
 F32_TOL = 2e-6  # exact fp32 products on both sides; only the summation order differs
 DEEP_TOL = 4e-6  # fs**2 > 1200 (4225 products a pixel at fs=65): the JAX deep-tap bound
+F32_U = 2.0**-24  # unit roundoff of float32: see f32_chain_bound
 ORACLE_SAMPLES = 2000
 DEEP_ORACLE_SAMPLES = 128  # the scalar oracle costs ~45 ms a sample at fs=65
 DEEP_APER_ORACLE_SAMPLES = 32  # ~90 ms a sample at fs=92
@@ -215,6 +234,9 @@ PROBE_REPS = 10  # back-to-back calls a sample of the probe and torch.zeros
 # bytes (each input read once, each output written once) over these.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_S = 3.35e12
+# The bf16 modes multiply bfloat16 operands exactly and sum in fp32, the
+# work of the tensor cores' dense bf16 rate: their bound takes this peak.
+PEAK_BF16_FLOPS = 989e12
 
 
 def card_line() -> str:
@@ -224,9 +246,25 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]  # fmt: skip
 
 
-def bound_ms(ops: float, nbytes: float) -> tuple[float, str]:
-    """The least time the card could take: (ms, 'operations' or 'bytes')."""
-    t_ops = ops / PEAK_FP32_FLOPS * 1e3
+def f32_chain_bound(st, src) -> float:
+    """The rounding of any float32 multiply-add chain over a strip pixel's
+    n = fs**2 taps, against its exact value (the float64 ``strips_plain``,
+    rounded once to float32): (gamma_n + u) * max sum|w| * max|src|, with
+    u = 2**-24, gamma_n = n*u / (1 - n*u) and sum|w| over the strips' rows
+    (a zero tap's multiply-add is exact). A bound of the arithmetic, not of
+    the kernel: the kernel is held to ``strips_chain`` at 0."""
+    from jincresize_tpu_torch.kernels.strips import band_anchors
+
+    n = st.fs**2
+    gamma = n * F32_U / (1 - n * F32_U)
+    s = float(band_anchors(st).abs().sum((3, 4)).max())
+    return (gamma + F32_U) * s * float(src.abs().max())
+
+
+def bound_ms(ops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
+    """The least time the card could take: (ms, 'operations' or 'bytes'),
+    the operations at ``peak`` (fp32 outside the tensor cores by default)."""
+    t_ops = ops / peak * 1e3
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -413,8 +451,8 @@ def main() -> int:
         src = rand_src(op, bits, rng, frames)
         before = (fused_k.fused_interior.launches, strips_k.strips.launches)
         pairs = [("fused", fused_k.fused_interior(fi, src), fused_k.fused_interior_plain(fi, src))]
-        if r is not None:
-            pairs.append(("strips", strips_k.strips(r[0], src), strips_k.strips_plain(r[0], src)))
+        if r is not None:  # the strip kernel against its own fp32 chain: 0
+            pairs.append(("strips", strips_k.strips(r[0], src), strips_k.strips_chain(r[0], src)))
         torch.cuda.synchronize()
         after = (fused_k.fused_interior.launches, strips_k.strips.launches)
         assert after == (before[0] + 1, before[1] + (r is not None)), (name, before, after)
@@ -422,7 +460,7 @@ def main() -> int:
         for kname, got, ref in pairs:
             assert torch.isfinite(got).all(), (name, kname)
             err = err_of(got, ref, bits)
-            assert err <= tol_of(op, bits), (name, kname, err)
+            assert err <= (0 if kname == "strips" else tol_of(op, bits)), (name, kname, err)
             errs[kname] = err
         print(f"[2] {name:28s} p=({plan.y.p},{plan.x.p}) q=({plan.y.q},{plan.x.q}) "
               f"fs={op.filter_size} strips_kernel={r is not None} "
@@ -430,37 +468,67 @@ def main() -> int:
         return errs, bits
 
     def check_strips(name, op, rng, frames_list=KERNEL_FRAMES):
-        """The strip kernel against its plain form on ``op``'s full-width
-        strips at each frame count (fp32 sources); returns the largest
-        |kernel - plain|."""
+        """The strip kernel on ``op``'s full-width strips at each frame count
+        (fp32 sources) against ``strips_chain``, its sums in its own order
+        (0), and against the float64 ``strips_plain`` (``f32_chain_bound``);
+        returns the largest |kernel - strips_chain|."""
         plan = plan_phases(op)
         r = strips_k.make_strips(op, plan, dev)
         assert r is not None, (name, strips_k.verified_strips(op, plan)[1])
         st = r[0]
-        worst = 0.0
+        worst = f64 = 0.0
         for frames in frames_list:
             src = rand_src(op, 32, rng, frames)
             before = counts()
             got = strips_k.strips(st, src)
-            ref = strips_k.strips_plain(st, src)
+            ref = strips_k.strips_chain(st, src)
+            exact = strips_k.strips_plain(st, src)
             torch.cuda.synchronize()
             assert counts() == {**before, "strips": before["strips"] + 1}, (name, frames)
             assert torch.isfinite(got).all(), (name, frames)
             err = float((got - ref).abs().max())
-            assert err <= tol_of(op, 32), (name, frames, err)
-            worst = max(worst, err)
+            d64, bound = float((got - exact).abs().max()), f32_chain_bound(st, src)
+            assert err == 0 and d64 <= bound, (name, frames, err, d64, bound)
+            worst, f64 = max(worst, err), max(f64, d64)
+            strips_f64.append((name, st.fs, frames, d64, bound))
         tail = st.nxb % strips_k.TILE or strips_k.TILE
         print(f"[2] {name:34s} strips rows (start, rows, band)={st.rows} p={st.px} q={st.qx} "
               f"fs={st.fs} {st.nxb} anchors a row (last column tile {tail} of "
-              f"{strips_k.TILE}) F={list(frames_list)} max |err| {worst:.3g}")
+              f"{strips_k.TILE}) F={list(frames_list)} max |err| {worst:.3g}; vs float64 "
+              f"{f64:.3g} (f32_chain_bound {bound:.3g})")
         return worst
 
-    def check_interior(kind, name, op, bits, rng, frames=2):
-        """The gather or seg kernel against its plain form on ``op``."""
+    def check_bf16_fused(name, op, rng, frames=2):
+        """The fused kernel's bf16 mode against its plain form (tol_of: expect
+        0, the fp32 mode's order on rounded operands) and against the fp32
+        mode (bf16_bound), on fp32 sources; returns |bf16 kernel - plain|."""
+        plan = plan_phases(op)
+        fi = fused_k.make_fused_interior(op, plan, dev, "bf16")
+        assert fi.bf16, name
+        src = rand_src(op, 32, rng, frames)
+        before = counts()
+        got = fused_k.fused_interior(fi, src)
+        ref = fused_k.fused_interior_plain(fi, src)
+        torch.cuda.synchronize()
+        assert counts() == {**before, "fused": before["fused"] + 1}, (name, before, counts())
+        assert torch.isfinite(got).all(), name
+        err = float((got - ref).abs().max())
+        f32 = fused_k.fused_interior(fused_k.make_fused_interior(op, plan, dev), src)
+        moved, bound = float((got - f32).abs().max()), fused_k.bf16_bound(op, float(src.max()))
+        print(f"[2] {name:28s} fused bf16 mode fs={op.filter_size} shape="
+              f"{fused_k.shape_name(fi.shape)} g={fi.g}: max |err| vs its plain form {err:.3g}, "
+              f"vs the fp32 mode {moved:.3g} (bound {bound:.3g})")
+        assert err <= tol_of(op, 32) and 0 < moved <= bound, (name, err, moved, bound)
+        return err
+
+    def check_interior(kind, name, op, bits, rng, frames=2, precision="fp32"):
+        """The gather or seg kernel (seg: in its ``precision`` mode) against
+        its plain form on ``op``."""
         if kind == "seg":
             plan = plan_phases_seg(op)
             assert plan is not None and seg_k.is_supported(op, plan), name
-            tables = seg_k.make_seg_interior(op, plan, dev)
+            tables = seg_k.make_seg_interior(op, plan, dev, precision)
+            assert tables.bf16 == (precision == "bf16"), name
             plain = seg_k.seg_interior_plain
             info = (f"p=({plan.y.p},{plan.x.p}) q=({plan.y.q},{plan.x.q}) "
                     f"spread=({plan.y.spread},{plan.x.spread}) "
@@ -480,9 +548,18 @@ def main() -> int:
         assert counts() == {**before, kind: before[kind] + 1}, (name, before, counts())
         assert torch.isfinite(got).all(), name
         err = err_of(got, ref, bits)
-        assert err == 0, (name, kind, err)  # both kernels sum in the plain form's order: exact
+        moved = ""
+        if precision == "fp32":
+            assert err == 0, (name, kind, err)  # both kernels sum in the plain form's order: exact
+        else:  # the fp32 mode's limit (expect 0), and the fp32 mode within bf16_bound
+            assert bits == 32 and err <= tol_of(op, bits), (name, kind, precision, err)
+            f32 = wrappers[kind](seg_k.make_seg_interior(op, plan, dev), src)
+            d, bound = float((got - f32).abs().max()), fused_k.bf16_bound(op, float(src.max()))
+            assert 0 < d <= bound, (name, d, bound)
+            moved = f", vs the fp32 mode {d:.3g} (bound {bound:.3g})"
         print(f"[2] {name:34s} {kind:6s} {info} classes={op.pair_blocks.shape[:2]} "
-              f"fs={op.filter_size} F={frames} err={err:.3g}{'' if bits == 32 else ' LSB'}")
+              f"fs={op.filter_size} F={frames} {precision} err={err:.3g}"
+              f"{'' if bits == 32 else ' LSB'}{moved}")
         return err
 
     def check_band(name, op, n_rows, bits, rng, frames=2):
@@ -515,14 +592,16 @@ def main() -> int:
 
     def check_shapes(name, op, rng, frames=2):
         """The fused kernel's narrow shape against the default on fp32
-        sources: the same sums in the same order, so 0."""
-        fi = fused_k.make_fused_interior(op, plan_phases(op), dev)
-        src = rand_src(op, 32, rng, frames)
-        ref = fused_k.fused_interior(fi, src)
+        sources, in the fp32 and the bf16 mode: the same sums in the same
+        order, so 0."""
         errs = {}
-        for shape in fused_k.SHAPES[1:]:
-            got = fused_k.fused_interior(fi, src, shape)
-            errs[fused_k.shape_name(shape)] = float((got - ref).abs().max())
+        src = rand_src(op, 32, rng, frames)
+        for precision in ("fp32", "bf16"):
+            fi = fused_k.make_fused_interior(op, plan_phases(op), dev, precision)
+            ref = fused_k.fused_interior(fi, src)
+            for shape in fused_k.SHAPES[1:]:
+                got = fused_k.fused_interior(fi, src, shape)
+                errs[f"{fused_k.shape_name(shape)} {precision}"] = float((got - ref).abs().max())
         torch.cuda.synchronize()
         print(f"[2] {name:28s} fused shapes vs {fused_k.shape_name(fi.shape)} (smem "
               f"{fi.layout().smem_bytes} B, {fi.g} phases a block): max |err| {errs}")
@@ -557,8 +636,10 @@ def main() -> int:
         print(f"[2] {name:28s} jinc_resize vs host golden: max diff {d:.3g} ({r.engines})")
 
     rng = np.random.default_rng(2026)
-    max_err = dict.fromkeys(wrappers, 0.0)
-    covered = dict.fromkeys(wrappers, 0)
+    strips_f64 = []  # (plane, fs, F, |strip kernel - float64 plain form|, f32_chain_bound)
+    # The bf16 modes of the fused and seg kernels are counted apart.
+    max_err = dict.fromkeys([*wrappers, "fused_bf16", "seg_bf16"], 0.0)
+    covered = dict.fromkeys(max_err, 0)
     shapes_checked = []
     for shape, tile in PROBE_SHAPES:
         max_err["out_only"] = max(max_err["out_only"], check_probe(shape, tile))
@@ -582,11 +663,18 @@ def main() -> int:
                         if deep:
                             deep_err[k] = max(deep_err[k], v)
         against_golden(name, fmt, r, cfg, sw, sh)
+        err = check_bf16_fused(f"{name} luma", r.op_luma, rng)
+        max_err["fused_bf16"] = max(max_err["fused_bf16"], err)
+        covered["fused_bf16"] += 1
         if name in SHAPE_CASES:
             check_shapes(name, r.op_luma, rng)
         if name in STRIP_FRAME_CASES:
-            max_err["strips"] = max(max_err["strips"], check_strips(f"{name} luma", r.op_luma, rng))
-            covered["strips"] += 1
+            # A second seed's sources too: the float64 readings move with the
+            # data, the kernel's match with its own chain does not.
+            for seed, g in (("", rng), (" seed 2027", np.random.default_rng(2027))):
+                err = check_strips(f"{name} luma{seed}", r.op_luma, g)
+                max_err["strips"] = max(max_err["strips"], err)
+                covered["strips"] += 1
 
     for name, kind, sw, sh, dw, dh, tap in INTERIOR_CASES:
         cfg = JincConfig(target_width=dw, target_height=dh, tap=tap, impl=kind)
@@ -598,6 +686,11 @@ def main() -> int:
             covered[kind] += 1
             if bits == 32:
                 max_err[kind] = max(max_err[kind], err)
+        if kind == "seg":  # the bf16 mode's instances (frames a thread 1, 2, 4, 8)
+            for frames in KERNEL_FRAMES:
+                err = check_interior(kind, name, r.op_luma, 32, rng, frames, "bf16")
+                covered["seg_bf16"] += 1
+                max_err["seg_bf16"] = max(max_err["seg_bf16"], err)
         against_golden(name, gray(8), r, cfg, sw, sh)
 
     for name, sw, sh, dw, dh, tap, n_rows in BAND_CASES:
@@ -660,8 +753,9 @@ def main() -> int:
     err = check_strips("3840x2160->1920x1080 tap16 luma", deep_r.op_luma, rng)
     max_err["strips"] = max(max_err["strips"], err)
     deep_err["strips"] = max(deep_err["strips"], err)
-    print(f"[2] deep taps (fs**2 > 1200), kernel vs plain form on fp32 sources: max |err| "
-          + ", ".join(f"{k} {v:.3g}" for k, v in deep_err.items()) + f" (bound {DEEP_TOL:g})")
+    print(f"[2] deep taps (fs**2 > 1200) on fp32 sources: max |fused kernel - plain form| "
+          f"{deep_err['fused']:.3g} (bound {DEEP_TOL:g}), max |strip kernel - its fp32 chain| "
+          f"{deep_err['strips']:.3g} (bound 0)")
 
     paths = {}
     for key, (sw, sh, dw, dh), seed in (("drift", DRIFT, 200), ("aperiodic", APERIODIC, 300)):
@@ -746,6 +840,12 @@ def main() -> int:
             continue
         err = check_strips(f"chain {chain_geo} {plane}", cop, rng)
         max_err["strips"] = max(max_err["strips"], err)
+    # The float32 chain's rounding against float64, by fs: its largest
+    # reading and that reading's share of f32_chain_bound.
+    for fs in sorted({r[1] for r in strips_f64}):
+        name, _, frames, d64, bound = max((r for r in strips_f64 if r[1] == fs), key=lambda r: r[3])
+        print(f"[2] strips fs={fs}: max |kernel - float64 plain form| {d64:.3g} ({name}, F={frames}), "
+              f"{d64 / bound:.2%} of f32_chain_bound {bound:.3g}")
 
     # ---------------------------------------------------------------- phase 3
     print(f"[3] phase 3 starts at {time.perf_counter() - t_start:.1f} s")
@@ -967,6 +1067,83 @@ def main() -> int:
 
     zeros = dict.fromkeys(wrappers, 0)
 
+    # precision='bf16' (the documented non-parity mode): the 4K -> 8K clip
+    # through a resizer a caller keeps (the fused kernel in its bf16 mode,
+    # the strips in fp32), then two frames of the drifted clip on one card
+    # and on N_SHARDS row shards (the seg kernel in its bf16 mode). Every
+    # launch counted here is a bf16 launch: each applier's tables are
+    # asserted bf16. Each output is held to the fp32 run within bf16_lsb.
+    def bf16_within(what, got_clip, f32_clip, r):
+        d = {}
+        for fo, ff in zip(got_clip.frames, f32_clip.frames):
+            fo.validate()
+            for n in fmt.plane_names:
+                diff = np.abs(fo.planes[n].astype(np.int64) - ff.planes[n].astype(np.int64)).max()
+                d[n] = max(d.get(n, 0), int(diff))
+        bound = {n: fused_k.bf16_lsb(r.op_chroma if n in ("U", "V") else r.op_luma, 255.0)
+                 for n in fmt.plane_names}  # fmt: skip
+        print(f"[3] {what} vs the fp32 run: max LSB {d} (bound {bound})")
+        assert all(d[n] <= bound[n] for n in d), (what, d, bound)
+
+    t0 = time.perf_counter()
+    bf_r = JincResizer(fmt, SRC_W, SRC_H, replace(big_cfg, precision="bf16"),
+                       frame0=clip.frames[0], device=dev)  # fmt: skip
+    built = time.perf_counter() - t0
+    bf_apps = (bf_r._applier_luma, bf_r._applier_chroma)
+    assert bf_r.engines == {"luma": "fused", "chroma": "fused"}, bf_r.engines
+    assert all(a.effective_precision == "bf16" and a.fi.bf16 for a in bf_apps)
+    bf_expect = conv_expect(bf_r)
+    zero_counts()
+    t0 = time.perf_counter()
+    bf_out = bf_r(clip)
+    torch.cuda.synchronize()
+    got = counts()
+    print(f"[3] JincResizer 4x {SRC_W}x{SRC_H} yuv420p8 -> {DST_W}x{DST_H} tap{TAP} "
+          f"precision='bf16' (fused, effective_precision bf16) in {time.perf_counter() - t0:.1f} s "
+          f"(built in {built:.1f} s); launches {got}")
+    assert got == {**zeros, **bf_expect}, (got, bf_expect)
+    launches["fused_bf16"] = got["fused"]
+    bf16_within("bf16 fused engine", bf_out, out, bf_r)
+    del bf_out, bf_apps
+
+    dsw, dsh, ddw, ddh = DRIFT
+    bclip = Clip.from_frames(paths["drift"][1].frames[:2])
+    bf_seg_r = JincResizer(fmt, dsw, dsh, JincConfig(ddw, ddh, tap=TAP, precision="bf16"),
+                           frame0=bclip.frames[0], device=dev)  # fmt: skip
+    assert bf_seg_r.engines == {"luma": "fused-seg", "chroma": "fused-seg"}, bf_seg_r.engines
+    for a in (bf_seg_r._applier_luma, bf_seg_r._applier_chroma):
+        assert a.effective_precision == "bf16" and a.si.bf16
+    zero_counts()
+    bseg_out = bf_seg_r(bclip)
+    torch.cuda.synchronize()
+    got = counts()
+    print(f"[3] JincResizer 2x {dsw}x{dsh} yuv420p8 -> {ddw}x{ddh} tap{TAP} precision='bf16' "
+          f"(fused-seg): launches {got}")
+    assert got == {**zeros, "seg": n_planes}, got
+    launches["seg_bf16"] = got["seg"]
+    bf16_within("bf16 fused-seg engine", bseg_out, Clip.from_frames(pouts["drift"].frames[:2]),
+                bf_seg_r)  # fmt: skip
+    t0 = time.perf_counter()
+    bf_sh = JincResizer(fmt, dsw, dsh, JincConfig(ddw, ddh, tap=TAP, impl="sharded", precision="bf16"),
+                        frame0=bclip.frames[0], device=dev, mesh=mesh)  # fmt: skip
+    built = time.perf_counter() - t0
+    assert bf_sh.engines == {"luma": "sharded/seg", "chroma": "sharded/seg"}, bf_sh.engines
+    for a in (bf_sh._applier_luma, bf_sh._applier_chroma):
+        assert a.effective_precision == "bf16"
+        assert all(s.tables is None or s.tables.bf16 for s in a._fn.shards[0] if s is not None)
+    zero_counts()
+    t0 = time.perf_counter()
+    bsh_out = bf_sh(bclip)
+    torch.cuda.synchronize()
+    got = counts()
+    print(f"[3] JincResizer 2x {dsw}x{dsh} yuv420p8 -> {ddw}x{ddh} tap{TAP} precision='bf16' on "
+          f"{N_SHARDS} row shards of {dev} (sharded/seg) in {time.perf_counter() - t0:.1f} s "
+          f"(built in {built:.1f} s); launches {got}")
+    assert got == {**zeros, "seg": N_SHARDS * n_planes}, got
+    launches["seg_bf16"] += got["seg"]
+    against("sharded/seg bf16 engine", bsh_out, bseg_out, "single-card fused-seg bf16 engine")
+    del bsh_out, bseg_out, bf_sh, bclip
+
     # The chain composed in phase 2: jinc_resize_chain loads the composed
     # operators from the cache and is held to the same composed operators on
     # impl='xla'.
@@ -1108,24 +1285,37 @@ def main() -> int:
               f"{plane_px / e2e_ms / 1e6:.3f} Gpx/s luma [{card}]")
         return e2e_ms
 
-    def conv2d_interior(fi, src):
+    def plain_once(fn):
+        """(fn(), its CUDA-event ms): one call of a slow plain form."""
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        b.synchronize()
+        return out, a.elapsed_time(b)
+
+    def conv2d_interior(fi, src, kernels=None):
         """The one PyTorch call that computes the fused interior: cuDNN's
-        strided conv2d of the phase kernels (``build_conv_kernels``; TF32
-        off), with the plain form's slice and the phase interleave."""
+        strided conv2d of the phase kernels (``build_conv_kernels``, or
+        ``kernels``, of ``src``'s dtype; TF32 off), with the plain form's
+        slice and the phase interleave."""
         F, H, W = src.shape
-        nph, Kh, Kw = fi.kernels.shape
+        kernels = fi.kernels if kernels is None else kernels
+        nph, Kh, Kw = kernels.shape
         eh, ew = (fi.nyb - 1) * fi.qy + Kh, (fi.nxb - 1) * fi.qx + Kw
         pad = (0, max(0, fi.base_x + ew - W), 0, max(0, fi.base_y + eh - H))
         lhs = torch.nn.functional.pad(src, pad)[:, fi.base_y : fi.base_y + eh, fi.base_x : fi.base_x + ew]
-        conv = torch.nn.functional.conv2d(lhs[:, None], fi.kernels[:, None], stride=(fi.qy, fi.qx))
+        conv = torch.nn.functional.conv2d(lhs[:, None], kernels[:, None], stride=(fi.qy, fi.qx))
         return (conv.view(F, fi.py, fi.px, fi.nyb, fi.nxb).permute(0, 3, 1, 4, 2)
                 .reshape(F, fi.py * fi.nyb, fi.px * fi.nxb))  # fmt: skip
 
     def fused_bound(fi, src):
         """(ms, by) of the fused interior on ``src``: 2 fs**2 flops per
-        output pixel; the source, the weights and the output once."""
+        output pixel (at the bf16 peak in the bf16 mode); the source, the
+        weights and the output once."""
         out_px = src.shape[0] * fi.out_shape[0] * fi.out_shape[1]
-        return bound_ms(2 * fi.fs**2 * out_px, tensor_bytes(src, fi, skip=("kernels",)) + 4 * out_px)
+        return bound_ms(2 * fi.fs**2 * out_px, tensor_bytes(src, fi, skip=("kernels",)) + 4 * out_px,
+                        PEAK_BF16_FLOPS if fi.bf16 else PEAK_FP32_FLOPS)  # fmt: skip
 
     card = card_line()
 
@@ -1206,17 +1396,53 @@ def main() -> int:
           f"{busy - htod - dtoh:.3f} ms [{card}]")
     assert any("strips_kernel" in k for k in ops), list(ops)[:10]
 
+    def bf16_mode(key, geo, op, err_key, run, plain, run32, src):
+        """The bf16 mode ``key + '_bf16'`` on an 8-frame fp32 batch, its time
+        (``ms``) taken beside the fp32 mode's (``key``) in the same turns:
+        its plain form once (``plain_once``), |kernel - plain| (tol_of:
+        expect 0) and |kernel - fp32 mode| (bf16_bound), its share of its
+        bound (the bf16 tensor-core peak or bytes), then of the fp32 mode's
+        (the fp32-FMA peak or bytes) and, for the fused kernel, cuDNN's bf16
+        conv2d."""
+        ref, ms[f"{key}_bf16_plain"] = plain_once(plain)
+        got = run()
+        err = float((got - ref).abs().max())
+        moved, bound = float((got - run32()).abs().max()), fused_k.bf16_bound(op, float(src.max()))
+        del ref, got
+        t16, t32, (b, by) = ms[f"{key}_bf16"], ms[key], bounds[f"{key}_bf16"]
+        b32, by32 = bounds[key]
+        lib = ms.get(f"{key}_bf16_conv2d")
+        print(f"[4] {key} bf16 mode {geo}: {t16 / TIMING_FRAMES:.4f} ms/frame, fp32 mode "
+              f"{t32 / TIMING_FRAMES:.4f} (bf16/fp32 {t16 / t32:.3f}), bound {b / TIMING_FRAMES:.4f} "
+              f"({by}, bf16 at {PEAK_BF16_FLOPS / 1e12:g} TFLOP/s), {b / t16:.1%} of it; "
+              f"fp32-FMA bound {b32 / TIMING_FRAMES:.4f} ({by32}): bf16 mode {b32 / t16:.1%}, "
+              f"fp32 mode {b32 / t32:.1%} of it; plain form "
+              f"{ms[f'{key}_bf16_plain'] / TIMING_FRAMES:.3f} ms/frame"
+              + (f", bf16 cuDNN conv2d {lib / TIMING_FRAMES:.4f} ms/frame (kernel {t16 / lib:.3f}x "
+                 f"its time)" if lib is not None else "")
+              + f"; max |err| vs its plain form {err:.3g}, vs the fp32 mode {moved:.3g} "
+              f"(bound {bound:.3g}) [{card}]")  # fmt: skip
+        assert err <= tol_of(op, 32) and 0 < moved <= bound, (key, err, moved, bound)
+        max_err[err_key] = max(max_err[err_key], err)
+        covered[err_key] += 1
+
     app = resizer._applier_luma
     tsrc = torch.from_numpy(
         rng.random((TIMING_FRAMES, SRC_H, SRC_W), dtype=np.float32)
     ).to(dev)
     px_out = TIMING_FRAMES * DST_W * DST_H
     strips_ws = strips_conv1d_weights(app.strips_spec)
+    # The bf16 mode of the same plane, and cuDNN's conv2d on bf16 tensors
+    # (its output is bf16: its time is the yardstick, not its numbers).
+    fi16 = fused_k.make_fused_interior(resizer.op_luma, plan_phases(resizer.op_luma), dev, "bf16")
+    tsrc16, k16 = tsrc.to(torch.bfloat16), fi16.kernels.to(torch.bfloat16)
     ms = {}
     for _ in range(2):  # plain, kernel, kernel, plain -- twice
         for k, fn in (
             ("fused_plain", lambda: fused_k.fused_interior_plain(app.fi, tsrc)),
             ("fused", lambda: fused_k.fused_interior(app.fi, tsrc)),
+            ("fused_bf16", lambda: fused_k.fused_interior(fi16, tsrc)),
+            ("fused_bf16_conv2d", lambda: conv2d_interior(fi16, tsrc16, k16)),
             ("fused_conv2d", lambda: conv2d_interior(app.fi, tsrc)),
             ("strips", lambda: strips_k.strips(app.strips_spec, tsrc)),
             ("strips_plain", lambda: strips_k.strips_plain(app.strips_spec, tsrc)),
@@ -1225,7 +1451,8 @@ def main() -> int:
             iters = 3 if k.endswith("plain") else 20
             ms.setdefault(k, []).append(cuda_ms(fn, iters))
     ms = {k: statistics.median(v) for k, v in ms.items()}
-    for k in ("fused", "fused_plain", "fused_conv2d", "strips", "strips_plain", "strips_conv1d"):
+    for k in ("fused", "fused_plain", "fused_conv2d", "fused_bf16", "fused_bf16_conv2d", "strips",
+              "strips_plain", "strips_conv1d"):
         print(f"[4] {k:13s} {ms[k]:10.3f} ms per {TIMING_FRAMES}-frame fp32 4K->8K luma "
               f"batch ({ms[k] / TIMING_FRAMES:.3f} ms/frame) [{card}]")
     lib_err = {"4K->8K tap8": float(
@@ -1236,7 +1463,12 @@ def main() -> int:
     bounds = {"fused": fused_bound(app.fi, tsrc), "strips": strips_bound(app.strips_spec, tsrc)}
     for k, (b, by) in bounds.items():
         print(f"[4] {k} bound {b:.3f} ms per batch ({by}): kernel at {b / ms[k]:.1%} of it [{card}]")
-    del tsrc
+    bounds["fused_bf16"] = fused_bound(fi16, tsrc)
+    bf16_mode("fused", "4K->8K tap8", resizer.op_luma, "fused_bf16",
+              lambda: fused_k.fused_interior(fi16, tsrc),
+              lambda: fused_k.fused_interior_plain(fi16, tsrc),
+              lambda: fused_k.fused_interior(app.fi, tsrc), tsrc)  # fmt: skip
+    del tsrc, tsrc16, k16, fi16
     e2e("", resizer, clip, DST_W * DST_H)
     print(f"[4] interior kernel {px_out / ms['fused'] / 1e6:.2f} Gpx/s "
           f"(output px / kernel time) [{card}]")
@@ -1247,9 +1479,13 @@ def main() -> int:
     tsrc_deep = torch.from_numpy(
         rng.random((TIMING_FRAMES, DEEP[1], DEEP[0]), dtype=np.float32)
     ).to(dev)
+    dfi16 = fused_k.make_fused_interior(deep_r.op_luma, plan_phases(deep_r.op_luma), dev, "bf16")
+    dsrc16, dk16 = tsrc_deep.to(torch.bfloat16), dfi16.kernels.to(torch.bfloat16)
     deep_runs = [
         ("deep_fused_plain", lambda: fused_k.fused_interior_plain(dapp.fi, tsrc_deep)),
         ("deep_fused", lambda: fused_k.fused_interior(dapp.fi, tsrc_deep)),
+        ("deep_fused_bf16", lambda: fused_k.fused_interior(dfi16, tsrc_deep)),
+        ("deep_fused_bf16_conv2d", lambda: conv2d_interior(dfi16, dsrc16, dk16)),
         ("deep_fused_conv2d", lambda: conv2d_interior(dapp.fi, tsrc_deep)),
     ]
     deep_ws = strips_conv1d_weights(dapp.strips_spec)
@@ -1282,7 +1518,12 @@ def main() -> int:
     strips_lib_err["4K->1080p tap16"] = float(
         (strips_conv1d(dapp.strips_spec, tsrc_deep, deep_ws)
          - strips_k.strips(dapp.strips_spec, tsrc_deep)).abs().max())  # fmt: skip
-    del tsrc_deep, deep_ws
+    bounds["deep_fused_bf16"] = fused_bound(dfi16, tsrc_deep)
+    bf16_mode("deep_fused", f"{deep_geo} tap16", deep_r.op_luma, "fused_bf16",
+              lambda: fused_k.fused_interior(dfi16, tsrc_deep),
+              lambda: fused_k.fused_interior_plain(dfi16, tsrc_deep),
+              lambda: fused_k.fused_interior(dapp.fi, tsrc_deep), tsrc_deep)  # fmt: skip
+    del tsrc_deep, deep_ws, dfi16, dsrc16, dk16
     e2e(f"fused {deep_geo} tap16 ", deep_r, dclip, DEEP[2] * DEEP[3])
     for geo, k in (("4K->8K tap8", "fused"), (f"{deep_geo} tap16", "deep_fused")):
         print(f"[4] fused interior {geo}: {ms[k] / TIMING_FRAMES:.4f} ms/frame, "
@@ -1345,9 +1586,11 @@ def main() -> int:
     tsrc_a = torch.from_numpy(
         rng.random((TIMING_FRAMES, APERIODIC[1], APERIODIC[0]), dtype=np.float32)
     ).to(dev)
+    si16 = bf_seg_r._applier_luma.si  # the bf16 mode's tables (phase 3)
     runs = (
         ("seg_plain", lambda: seg_k.seg_interior_plain(seg_app.si, tsrc_d)),
         ("seg", lambda: seg_k.seg_interior(seg_app.si, tsrc_d)),
+        ("seg_bf16", lambda: seg_k.seg_interior(si16, tsrc_d)),
         ("gather_drift", lambda: gather_k.gather_interior(gather_app.gi, tsrc_d)),
         ("seg_applier", lambda: seg_app(tsrc_d)),
         ("gather_applier", lambda: gather_app(tsrc_d)),
@@ -1398,11 +1641,13 @@ def main() -> int:
         return 2 * tables.fs**2 * out_px, tensor_bytes(src, tables) + 4 * out_px
 
     def seg_bound(si, src):
-        """(ms, by) of a seg launch: 2 fs**2 flops a pixel; its source, the
-        kernel's tables (not the plain form's) and its output once."""
+        """(ms, by) of a seg launch: 2 fs**2 flops a pixel (at the bf16 peak
+        in the bf16 mode); its source, the kernel's tables (not the plain
+        form's) and its output once."""
         out_px = src.shape[0] * si.out_shape[0] * si.out_shape[1]
         plain_only = ("pair_blocks_t", "cls_y", "cls_x", "roff_y", "roff_x")
-        return bound_ms(2 * si.fs**2 * out_px, tensor_bytes(src, si, skip=plain_only) + 4 * out_px)
+        return bound_ms(2 * si.fs**2 * out_px, tensor_bytes(src, si, skip=plain_only) + 4 * out_px,
+                        PEAK_BF16_FLOPS if si.bf16 else PEAK_FP32_FLOPS)  # fmt: skip
 
     bounds["gather"] = bound_ms(*gather_like_bound(gi_aper, tsrc_a, *gi_aper.out_shape))
     bounds["seg"] = seg_bound(seg_app.si, tsrc_d)
@@ -1414,20 +1659,17 @@ def main() -> int:
     for k in ("gather", "seg", "gather_band"):
         b, by = bounds[k]
         print(f"[4] {k} bound {b:.3f} ms per batch ({by}): kernel at {b / ms[k]:.1%} of it [{card}]")
-    del tsrc_d, tsrc_a, gather_app, shard_runs
+    bounds["seg_bf16"] = seg_bound(si16, tsrc_d)
+    bf16_mode("seg", f"{drift_geo} tap8", drift_r.op_luma, "seg_bf16",
+              lambda: seg_k.seg_interior(si16, tsrc_d),
+              lambda: seg_k.seg_interior_plain(si16, tsrc_d),
+              lambda: seg_k.seg_interior(seg_app.si, tsrc_d), tsrc_d)  # fmt: skip
+    del tsrc_d, tsrc_a, gather_app, shard_runs, si16, bf_seg_r
 
     # The deep aperiodic plane: the gather kernel and the band kernel (its
     # four row shards, summed) on an 8-frame fp32 4K -> 1366x768 tap-16 luma
     # batch beside their bounds. Each plain form runs once (2-3 s a call at
     # fs = 92), timed by events, and its output holds the kernel's (0).
-    def plain_once(fn):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        out = fn()
-        b.record()
-        b.synchronize()
-        return out, a.elapsed_time(b)
-
     dgi = deep_aper_r._applier_luma.gi
     tsrc_da = torch.from_numpy(rng.random((TIMING_FRAMES, dash, dasw), dtype=np.float32)).to(dev)
     ms["deep_gather"] = cuda_ms(lambda: gather_k.gather_interior(dgi, tsrc_da), 10)
@@ -1527,14 +1769,17 @@ def main() -> int:
           f"impl='xla' {e_xla:.2f} ms/frame ({e_xla / e_auto:.2f}x) [{card}]")
     del xla_r
 
-    # The bench twin in its three modes, in this process, at 2 queued calls.
-    for mode in ([], ["--downscale"], ["--tap16-downscale"]):
+    # The bench twin in its three modes and the default one under
+    # --precision bf16, in this process, at 2 queued calls.
+    for mode in ([], ["--downscale"], ["--tap16-downscale"], ["--precision", "bf16"]):
         buf = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
             res = bench.main([*mode, "--iters", "2"])
         assert json.loads(buf.getvalue().strip().splitlines()[-1]) == res, buf.getvalue()
         assert res["engine"] == "fused" and res["value"] > 0, res
+        want = "bf16" if "bf16" in mode else "fp32"
+        assert res["precision"] == res["effective_precision"] == want, res
         print(f"[4] python -m jincresize_tpu_torch.bench {' '.join(mode)} --iters 2 "
               f"({time.perf_counter() - t0:.1f} s): {json.dumps(res)}")
 
@@ -1594,6 +1839,19 @@ def main() -> int:
             "library_ms": ms["fused_conv2d"],
         },
         {
+            "name": "fused_interior[bf16]",
+            "route": "cuda",
+            "source": "jincresize_tpu_torch/csrc/fused_interior.cu",
+            "replaces": "jincresize_tpu/kernels/pallas_fused.py:235",
+            "launches": launches["fused_bf16"],
+            "max_abs_err": max_err["fused_bf16"],
+            "ms": ms["fused_bf16"],
+            "plain_ms": ms["fused_bf16_plain"],
+            "bound_ms": bounds["fused_bf16"][0],
+            "bound_by": bounds["fused_bf16"][1],
+            "library_ms": ms["fused_bf16_conv2d"],
+        },
+        {
             "name": "strips",
             "route": "cuda",
             "source": "jincresize_tpu_torch/csrc/strips.cu",
@@ -1630,6 +1888,19 @@ def main() -> int:
             "plain_ms": ms["seg_plain"],
             "bound_ms": bounds["seg"][0],
             "bound_by": bounds["seg"][1],
+            "library_ms": None,
+        },
+        {
+            "name": "seg_interior[bf16]",
+            "route": "cuda",
+            "source": "jincresize_tpu_torch/csrc/seg_interior.cu",
+            "replaces": "jincresize_tpu/kernels/pallas_fused_seg.py:397",
+            "launches": launches["seg_bf16"],
+            "max_abs_err": max_err["seg_bf16"],
+            "ms": ms["seg_bf16"],
+            "plain_ms": ms["seg_bf16_plain"],
+            "bound_ms": bounds["seg_bf16"][0],
+            "bound_by": bounds["seg_bf16"][1],
             "library_ms": None,
         },
         {

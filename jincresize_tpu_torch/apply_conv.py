@@ -270,7 +270,12 @@ class ConvApplier:
     interiors are not ported. Every plan of ``phase.plan_phases`` is inside
     ``kernels.fused.is_supported`` (deep taps included); a plan outside it
     raises ValueError. ``precision`` is ``'fp32'`` or ``'fp32_u8src'`` (both
-    run the exact fp32 kernel); ``'bf16'`` raises NotImplementedError.
+    run the exact fp32 kernel) or ``'bf16'``, the documented non-parity mode:
+    the interior kernel on bfloat16-rounded operands (``kernels/fused.py``);
+    the strips kernel and the glue stay fp32, as in the JAX package.
+    ``effective_precision`` reports the interior's mode (the JAX package's
+    attribute; there it is ``'fp32'`` off the TPU, where its ``shift``
+    interior runs).
     """
 
     def __init__(
@@ -282,7 +287,7 @@ class ConvApplier:
         device="cuda",
     ):
         self.device = resolve_device(device)
-        if precision not in ("fp32", "bf16", "fp32_u8src"):
+        if precision not in fused_k.PRECISIONS:
             raise ValueError(f"ConvApplier: unknown precision {precision!r}")
         if interior != "fused":
             raise NotImplementedError(
@@ -290,6 +295,7 @@ class ConvApplier:
                 "fused kernel interior exists in this package"
             )
         self.precision = precision
+        self.effective_precision = precision
         if plan is None:
             plan = plan_phases(op)
         if plan is None:

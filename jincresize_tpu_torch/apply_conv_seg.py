@@ -32,8 +32,9 @@ class SegConvApplier:
     Interface-compatible with ``ConvApplier``/``GatherApplier``. Raises
     ValueError when the geometry has no segment-periodic plan or the plan is
     outside the kernel envelope. ``precision`` is ``'fp32'`` or
-    ``'fp32_u8src'`` (both run the exact fp32 kernel); ``'bf16'`` raises
-    NotImplementedError.
+    ``'fp32_u8src'`` (both run the exact fp32 kernel) or ``'bf16'``, the
+    documented non-parity mode: the interior kernel on bfloat16-rounded
+    operands (``kernels/seg.py``); strips and fixups stay fp32.
     """
 
     def __init__(
@@ -44,7 +45,7 @@ class SegConvApplier:
         device="cuda",
     ):
         self.device = resolve_device(device)
-        if precision not in ("fp32", "bf16", "fp32_u8src"):
+        if precision not in seg_k.PRECISIONS:
             raise ValueError(f"SegConvApplier: unknown precision {precision!r}")
         if plan is None:
             plan = plan_phases_seg(op)

@@ -11,8 +11,9 @@ program), with the same modes, metric names and baseline:
 Flags: ``--small`` (the JAX bench's reduced sizes), ``--frames`` (default 32,
 one resident batch), ``--iters`` (queued calls of the dispatch path),
 ``--impl {auto,conv,xla,pallas,seg,gather}`` (the API's engine selectors;
-``auto`` is ``api._select_engine``'s rule), ``--precision`` (``bf16`` raises
-NotImplementedError: ROADMAP still to port #2) and ``--device`` (default
+``auto`` is ``api._select_engine``'s rule), ``--precision`` (``bf16``: the
+documented non-parity mode, the fused and seg interiors on bfloat16-rounded
+operands; the metric names stay the JAX bench's) and ``--device`` (default
 ``cuda``; raises when no card is visible, never falls back). ``--scaling``
 waits for the multi-process port (ROADMAP still to port #6). The operator is
 built each run (seconds with the native builder), not taken from the
@@ -28,9 +29,11 @@ say nothing of a card: the JSON's ``device`` key names what ran.
 Prints diagnostics on stderr, each naming the engine, its interior and the
 card (``nvidia-smi`` name and power limit), and as the last line of stdout
 ONE JSON object ``{"metric", "value", "unit", "vs_baseline", "engine",
-"device"}``. ``vs_baseline`` is computed as the JAX bench computes it: against
-the reference's analytic AVX-512 per-socket bar (``BASELINE.md``), scaled to
-the geometry's padded MAC cost for the downscales.
+"precision", "effective_precision", "device"}``: ``effective_precision`` is
+the engine's (``'fp32'`` where the engine has no precision mode).
+``vs_baseline`` is computed as the JAX bench computes it: against the
+reference's analytic AVX-512 per-socket bar (``BASELINE.md``), scaled to the
+geometry's padded MAC cost for the downscales.
 """
 
 from __future__ import annotations
@@ -101,7 +104,8 @@ def card_line(device: torch.device) -> str:
 
 
 def make_engine(op, impl: str, precision: str, device: torch.device):
-    """(fn, engine): the applier ``impl`` selects, as ``JincResizer`` builds it."""
+    """(fn, engine): the applier ``impl`` selects, as ``JincResizer`` builds
+    it; the plain ``xla`` engine is a function."""
     app, engine = (None, "xla") if impl == "xla" else _select_engine(op, impl, precision, device)
     if app is not None:
         return app, engine
@@ -114,11 +118,6 @@ def main(argv=None, size: tuple[int, int, int, int] | None = None) -> dict:
     mode's geometry (the tests run tiny planes on the CPU). Returns the
     JSON object it prints."""
     args = parse_args(argv)
-    if args.precision == "bf16":
-        raise NotImplementedError(
-            "precision='bf16' (one-pass bf16 interior) is not ported yet "
-            "(ROADMAP, still to port #2)"
-        )
     device = apply_xla.resolve_device(args.device)
     sw, sh, dw, dh, tap = geometry(args)
     if size is not None:
@@ -130,8 +129,9 @@ def main(argv=None, size: tuple[int, int, int, int] | None = None) -> dict:
     print(f"# operator built in {time.time() - t0:.1f}s: {op.stats()}", file=sys.stderr)
 
     fn, engine = make_engine(op, args.impl, args.precision, device)
+    effective = getattr(fn, "effective_precision", "fp32")
     interior = INTERIORS[engine] if device.type == "cuda" else "plain PyTorch forms (CPU tensors)"
-    tag = f"engine={engine} interior={interior} [{card}]"
+    tag = f"engine={engine} interior={interior} precision={effective} [{card}]"
     print(f"# {tag}", file=sys.stderr)
     frames = max(args.frames, 1)
     rng = np.random.default_rng(0)
@@ -207,6 +207,8 @@ def main(argv=None, size: tuple[int, int, int, int] | None = None) -> dict:
         "unit": "px/s",
         "vs_baseline": vs,
         "engine": engine,
+        "precision": args.precision,
+        "effective_precision": effective,
         "device": card,
     }
     print(json.dumps(result))

@@ -145,7 +145,8 @@ def main(argv=None) -> int:
         "--precision",
         default="fp32",
         choices=["fp32", "bf16"],
-        help="interior precision (bf16: documented non-parity mode, not ported: raises)",
+        help="interior precision (bf16: documented non-parity mode, the fused and seg "
+        "interiors on bfloat16-rounded operands; strips and gather stay fp32)",
     )
     ap.add_argument(
         "--pos-precision",

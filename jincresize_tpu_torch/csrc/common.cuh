@@ -6,6 +6,7 @@
 // cudaGetLastError() so the wrapper can raise on a refused launch.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -16,6 +17,20 @@ inline cudaError_t jt_allow_smem(Kernel kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+// A source value as a product operand of the interior kernels: itself, or
+// under BF16 (precision='bf16') rounded to the nearest bfloat16, ties to
+// even, as torch.bfloat16 rounds on the host. The products of two rounded
+// operands are exact in fp32, so each fmaf chain adds the same terms as the
+// plain form on rounded operands.
+template <bool BF16>
+__device__ __forceinline__ float jt_operand(float x) {
+  if constexpr (BF16) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  } else {
+    return x;
+  }
 }
 
 __device__ __forceinline__ unsigned jt_smem_addr(const void* p) {

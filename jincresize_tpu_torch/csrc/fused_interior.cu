@@ -38,11 +38,21 @@
 //
 // The shapes (TX, R, C*G) are compile-time (kernels/fused.py SHAPES: the
 // default, and a narrow block for plans whose default window row does not
-// fit, 2 shapes x G in {1, 4} x qx in {1, 2, other} = 12 instances); qx = 1
-// and 2 are compile-time too, so the register window is indexed statically;
-// other qx load one anchor's 8 taps at a time. The arithmetic that places a
-// block's window and a thread's register window is mirrored in
-// kernels/fused.py (layout, block_origin, thread_window) and tested there.
+// fit, 2 shapes x G in {1, 4} x qx in {1, 2, other} x {fp32, bf16} = 24
+// instances); qx = 1 and 2 are compile-time too, so the register window is
+// indexed statically; other qx load one anchor's 8 taps at a time. The
+// arithmetic that places a block's window and a thread's register window is
+// mirrored in kernels/fused.py (layout, block_origin, thread_window) and
+// tested there.
+//
+// precision='bf16' (the Pallas kernel's one-pass DEFAULT dot, :235) is the
+// compile-time BF16 flag: the host rounds the weights to bfloat16 once
+// (kernels/fused.py make_fused_interior), and each staged source value is
+// rounded as it is read into registers (jt_operand); the ring, the tiling
+// and the fmaf chain are the fp32 mode's. A product of two bfloat16 values
+// is exact in fp32, so this is the MXU's one-pass dot with exact products
+// and fp32 sums, and the kernel still equals its plain form (on rounded
+// operands) bit for bit.
 //
 // TPU workarounds dropped: split3 (the output is stored interleaved),
 // residue planes (threads read strided anchors from registers), wsplit3
@@ -77,8 +87,9 @@ __device__ __forceinline__ void load4(const float* p, float* v) {
 }
 
 // One staged source row s (window-relative) into the accumulators of every
-// anchor row c that reads it (kernel row a = s - qy*c).
-template <int R, int C, int G, int QX>
+// anchor row c that reads it (kernel row a = s - qy*c). Under BF16 each
+// source value is rounded to bfloat16 as it is read into registers.
+template <int R, int C, int G, int QX, bool BF16>
 __device__ __forceinline__ void row_taps(const float* __restrict__ row,
                                          const float* __restrict__ wsm, int s, int x0, int qx,
                                          int qy, int kh, int kw, int kwp,
@@ -90,6 +101,8 @@ __device__ __forceinline__ void row_taps(const float* __restrict__ row,
       float win[kWin];
 #pragma unroll
       for (int v = 0; v < kWin / 4; ++v) load4<4>(row + skew(x0 + b0 + 4 * v), win + 4 * v);
+#pragma unroll
+      for (int v = 0; v < kWin; ++v) win[v] = jt_operand<BF16>(win[v]);
 #pragma unroll
       for (int c = 0; c < C; ++c) {
         const int a = s - qy * c;
@@ -115,7 +128,7 @@ __device__ __forceinline__ void row_taps(const float* __restrict__ row,
         for (int r = 0; r < R; ++r) {
           float v[kChunk];
 #pragma unroll
-          for (int b = 0; b < kChunk; ++b) v[b] = row[skew(x0 + qx * r + b0 + b)];
+          for (int b = 0; b < kChunk; ++b) v[b] = jt_operand<BF16>(row[skew(x0 + qx * r + b0 + b)]);
 #pragma unroll
           for (int b = 0; b < kChunk; ++b)
 #pragma unroll
@@ -127,7 +140,7 @@ __device__ __forceinline__ void row_taps(const float* __restrict__ row,
   for (int b = b0; b < kw; ++b) {  // the last kw % 8 taps, one at a time
     float v[R];
 #pragma unroll
-    for (int r = 0; r < R; ++r) v[r] = row[skew(x0 + qx * r + b)];
+    for (int r = 0; r < R; ++r) v[r] = jt_operand<BF16>(row[skew(x0 + qx * r + b)]);
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       const int a = s - qy * c;
@@ -147,7 +160,7 @@ __device__ __forceinline__ void row_taps(const float* __restrict__ row,
   }
 }
 
-template <int TX, int R, int C, int G, int QX>
+template <int TX, int R, int C, int G, int QX, bool BF16>
 __global__ void __launch_bounds__(TX, 512 / TX) fused_interior_kernel(const FusedArgs a) {
   extern __shared__ __align__(16) float smem[];
   constexpr int BJ = TX * R;             // anchor columns of a block
@@ -204,8 +217,8 @@ __global__ void __launch_bounds__(TX, 512 / TX) fused_interior_kernel(const Fuse
     __syncthreads();
     const int s1 = min(nr, (k + 1) * a.ch);
     for (int s = k * a.ch; s < s1; ++s)
-      row_taps<R, C, G, QX>(ring + (s % a.slots) * a.swp, wsm, s, x0, qx, a.qy, a.kh, a.kw,
-                            a.kwp, acc);
+      row_taps<R, C, G, QX, BF16>(ring + (s % a.slots) * a.swp, wsm, s, x0, qx, a.qy, a.kh,
+                                  a.kw, a.kwp, acc);
     __syncthreads();
   }
 
@@ -247,31 +260,37 @@ __global__ void __launch_bounds__(TX, 512 / TX) fused_interior_kernel(const Fuse
   }
 }
 
-template <int TX, int R, int C, int G, int QX>
+template <int TX, int R, int C, int G, int QX, bool BF16>
 cudaError_t launch(const FusedArgs& a, int F, cudaStream_t stream) {
   constexpr int BJ = TX * R;
   constexpr int BJP = BJ + BJ / 32 + 1;
   const int region = a.slots * a.swp > C * G * BJP ? a.slots * a.swp : C * G * BJP;
   const size_t smem = (static_cast<size_t>(a.kh) * a.kwp * G + region) * sizeof(float);
-  cudaError_t err = jt_allow_smem(fused_interior_kernel<TX, R, C, G, QX>, smem);
+  cudaError_t err = jt_allow_smem(fused_interior_kernel<TX, R, C, G, QX, BF16>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.nxb + BJ - 1) / BJ, (a.nyb + C - 1) / C, F * a.ngroups);
-  fused_interior_kernel<TX, R, C, G, QX><<<grid, TX, smem, stream>>>(a);
+  fused_interior_kernel<TX, R, C, G, QX, BF16><<<grid, TX, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <int TX, int R, int CG, int QX>
+template <int TX, int R, int CG, int QX, bool BF16>
 cudaError_t launch_g(const FusedArgs& a, int F, int g, cudaStream_t stream) {
-  if (g == 4) return launch<TX, R, CG / 4, 4, QX>(a, F, stream);
-  if (g == 1) return launch<TX, R, CG, 1, QX>(a, F, stream);
+  if (g == 4) return launch<TX, R, CG / 4, 4, QX, BF16>(a, F, stream);
+  if (g == 1) return launch<TX, R, CG, 1, QX, BF16>(a, F, stream);
   return cudaErrorInvalidValue;
 }
 
+template <int TX, int R, int CG, bool BF16>
+cudaError_t launch_qx(const FusedArgs& a, int F, int g, cudaStream_t stream) {
+  if (a.qx == 1) return launch_g<TX, R, CG, 1, BF16>(a, F, g, stream);
+  if (a.qx == 2) return launch_g<TX, R, CG, 2, BF16>(a, F, g, stream);
+  return launch_g<TX, R, CG, 0, BF16>(a, F, g, stream);
+}
+
 template <int TX, int R, int CG>
-cudaError_t launch_shape(const FusedArgs& a, int F, int g, cudaStream_t stream) {
-  if (a.qx == 1) return launch_g<TX, R, CG, 1>(a, F, g, stream);
-  if (a.qx == 2) return launch_g<TX, R, CG, 2>(a, F, g, stream);
-  return launch_g<TX, R, CG, 0>(a, F, g, stream);
+cudaError_t launch_shape(const FusedArgs& a, int F, int g, bool bf16, cudaStream_t stream) {
+  return bf16 ? launch_qx<TX, R, CG, true>(a, F, g, stream)
+              : launch_qx<TX, R, CG, false>(a, F, g, stream);
 }
 
 }  // namespace
@@ -279,18 +298,21 @@ cudaError_t launch_shape(const FusedArgs& a, int F, int g, cudaStream_t stream) 
 // src (F, H, W) f32; w (ngroups, kh, kwp, g) f32, phase ph = group*g + e's
 // kernel at [group, :, :kw, e], zeros beyond kw; out (F, py*nyb, px*nxb)
 // f32. All contiguous. ch/slots/swp: the ring (kernels/fused.py layout).
-// (tx, r, cg): the shape, one of kernels/fused.py SHAPES.
+// (tx, r, cg): the shape, one of kernels/fused.py SHAPES. bf16: round each
+// source value to bfloat16 at its register load (precision='bf16'; the
+// weights come rounded from the host).
 extern "C" int jt_fused_interior(const float* src, const float* w, float* out, int F, int H,
                                  int W, int py, int px, int qy, int qx, int base_y, int base_x,
                                  int nyb, int nxb, int kh, int kw, int kwp, int g, int ngroups,
-                                 int ch, int slots, int swp, int tx, int r, int cg,
+                                 int ch, int slots, int swp, int tx, int r, int cg, int bf16,
                                  cudaStream_t stream) {
   if (g * ngroups != py * px || ch < 1 || slots < 1 || kwp % 4 != 0 || swp % 4 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const FusedArgs a{src, w, out, H, W, py, px, qy, qx, base_y, base_x, nyb, nxb,
                     kh, kw, kwp, ngroups, ch, slots, swp};
 #define JT_SHAPE(TX, R, CG) \
-  if (tx == TX && r == R && cg == CG) return static_cast<int>(launch_shape<TX, R, CG>(a, F, g, stream));
+  if (tx == TX && r == R && cg == CG)  \
+    return static_cast<int>(launch_shape<TX, R, CG>(a, F, g, bf16 != 0, stream));
   JT_SHAPE(128, 4, 8)
   JT_SHAPE(32, 4, 8)
 #undef JT_SHAPE

@@ -72,6 +72,14 @@
 // layout; the WMAX weight gates, the 12 MB VMEM budget, the
 // JINCRESIZE_SEG_* overrides and the fs**2 <= 1200 envelope (the Mosaic
 // VMEM budget) -- fs is a run-time value and shared memory is the envelope.
+//
+// precision='bf16' (the Pallas kernel's one-pass DEFAULT dot, :397) is the
+// compile-time BF16 flag (4 more instances, frames a thread in {1, 2, 4,
+// 8}): the host rounds the pair blocks to bfloat16 once (kernels/seg.py
+// make_seg_interior), and each staged source value is rounded as a thread
+// reads it (jt_operand). Products of two bfloat16 values are exact in fp32,
+// so the sums, their order and the staged layout are the fp32 mode's, and
+// the kernel equals its plain form on rounded operands bit for bit.
 #include <climits>
 
 #include "common.cuh"
@@ -105,8 +113,9 @@ struct SegArgs {
 };
 
 // NB taps (the first NB of a chunk of 4) of NF frames into each row's sums:
-// the source values of a tap once, one weight a tap and row.
-template <int NB, int NF, int FP>
+// the source values of a tap once (under BF16 rounded to bfloat16 as they
+// are read), one weight a tap and row.
+template <int NB, int NF, int FP, bool BF16>
 __device__ __forceinline__ void seg_taps(const float* s, int plane_stride,
                                          const float4 (&w)[kSegRows],
                                          float (&row)[kSegRows][NF]) {
@@ -114,6 +123,8 @@ __device__ __forceinline__ void seg_taps(const float* s, int plane_stride,
   for (int b = 0; b < NB; ++b) {
     float v[NF];
     jt_load_frames<NF>(s + b * FP, plane_stride, v);
+#pragma unroll
+    for (int e = 0; e < NF; ++e) v[e] = jt_operand<BF16>(v[e]);
 #pragma unroll
     for (int c = 0; c < kSegRows; ++c) {
       const float wv = b == 0 ? w[c].x : b == 1 ? w[c].y : b == 2 ? w[c].z : w[c].w;
@@ -123,7 +134,7 @@ __device__ __forceinline__ void seg_taps(const float* s, int plane_stride,
   }
 }
 
-template <int NF>
+template <int NF, bool BF16>
 __global__ void __launch_bounds__(kSegThreads, 2) seg_tile_kernel(const SegArgs a) {
   extern __shared__ __align__(16) float smem[];
   constexpr int FP = NF < 4 ? NF : 4;  // frames of a staged plane
@@ -236,13 +247,13 @@ __global__ void __launch_bounds__(kSegThreads, 2) seg_tile_kernel(const SegArgs 
       for (int c = 0; c < kSegRows; ++c) w[c] = *reinterpret_cast<const float4*>(wr[c] + 4 * q);
       const float* const sq = srow + 4 * q * FP;
       if (q + 1 < nq || nb == 4) {
-        seg_taps<4, NF, FP>(sq, plane_stride, w, row);
+        seg_taps<4, NF, FP, BF16>(sq, plane_stride, w, row);
       } else if (nb == 3) {
-        seg_taps<3, NF, FP>(sq, plane_stride, w, row);
+        seg_taps<3, NF, FP, BF16>(sq, plane_stride, w, row);
       } else if (nb == 2) {
-        seg_taps<2, NF, FP>(sq, plane_stride, w, row);
+        seg_taps<2, NF, FP, BF16>(sq, plane_stride, w, row);
       } else {
-        seg_taps<1, NF, FP>(sq, plane_stride, w, row);
+        seg_taps<1, NF, FP, BF16>(sq, plane_stride, w, row);
       }
     }
 #pragma unroll
@@ -265,15 +276,26 @@ __global__ void __launch_bounds__(kSegThreads, 2) seg_tile_kernel(const SegArgs 
   }
 }
 
-template <int NF>
+template <int NF, bool BF16>
 cudaError_t seg_launch(const SegArgs& a, cudaStream_t stream) {
   const size_t ring = static_cast<size_t>(kSegGroups) * kSlots * a.swp * NF;
   const size_t smem = (static_cast<size_t>(a.pairs) * a.bstride + ring) * sizeof(float);
-  cudaError_t err = jt_allow_smem(seg_tile_kernel<NF>, smem);
+  cudaError_t err = jt_allow_smem(seg_tile_kernel<NF, BF16>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.wout + kTX - 1) / kTX, (a.hout + kSegTY - 1) / kSegTY, (a.F + NF - 1) / NF);
-  seg_tile_kernel<NF><<<grid, dim3(kTX, kSegGroups), smem, stream>>>(a);
+  seg_tile_kernel<NF, BF16><<<grid, dim3(kTX, kSegGroups), smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <bool BF16>
+cudaError_t seg_launch_nf(const SegArgs& a, int nf, cudaStream_t stream) {
+  switch (nf) {
+    case 1: return seg_launch<1, BF16>(a, stream);
+    case 2: return seg_launch<2, BF16>(a, stream);
+    case 4: return seg_launch<4, BF16>(a, stream);
+    case 8: return seg_launch<8, BF16>(a, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -282,12 +304,14 @@ cudaError_t seg_launch(const SegArgs& a, cudaStream_t stream) {
 // sx, lcx (wout) int32; tcy (ceil(hout / 32), ky), ncy (ceil(hout / 32)),
 // tcx (ceil(wout / 32), kx), ncx (ceil(wout / 32)) int32; out (F, hout,
 // wout) f32. All contiguous. bstride, pairs, nf, swp: the shared-memory
-// layout (kernels/seg.py smem_bytes).
+// layout (kernels/seg.py smem_bytes). bf16: round each source value to
+// bfloat16 as it is read (precision='bf16'; the blocks come rounded from
+// the host).
 extern "C" int jt_seg_interior(const float* src, const float* blocks, const int* sy,
                                const int* sx, const int* lcy, const int* lcx, const int* tcy,
                                const int* tcx, const int* ncy, const int* ncx, float* out, int F,
                                int H, int W, int hout, int wout, int n_ux, int fs, int fsp,
-                               int bstride, int ky, int kx, int pairs, int nf, int swp,
+                               int bstride, int ky, int kx, int pairs, int nf, int swp, int bf16,
                                cudaStream_t stream) {
   if (hout <= 0 || wout <= 0 || F <= 0) return 0;
   if (swp % 4 != 0 || fsp % 4 != 0 || fsp < fs || bstride % 4 != 0 ||
@@ -295,11 +319,6 @@ extern "C" int jt_seg_interior(const float* src, const float* blocks, const int*
     return static_cast<int>(cudaErrorInvalidValue);
   const SegArgs a{src, blocks, sy, sx, lcy, lcx, tcy, tcx, ncy, ncx, out, F, H,
                   W, hout, wout, n_ux, fs, fsp, bstride, ky, kx, pairs, swp};
-  switch (nf) {
-    case 1: return static_cast<int>(seg_launch<1>(a, stream));
-    case 2: return static_cast<int>(seg_launch<2>(a, stream));
-    case 4: return static_cast<int>(seg_launch<4>(a, stream));
-    case 8: return static_cast<int>(seg_launch<8>(a, stream));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return static_cast<int>(bf16 ? seg_launch_nf<true>(a, nf, stream)
+                               : seg_launch_nf<false>(a, nf, stream));
 }

@@ -35,6 +35,19 @@ rare beside the FMAs:
 Every output is one ``fmaf`` chain over its ``(Kh, Kw)`` kernel in row-major
 order, the plain form's order (the zero taps of the offset padding add
 exact zeros), so the kernel equals ``fused_interior_plain`` bit for bit.
+
+``precision='bf16'`` is the documented non-parity mode, the Pallas kernel's
+DEFAULT dot (``pallas_fused.py:235``): the MXU rounds both operands to
+bfloat16 in one pass, multiplies exactly and sums in fp32. Here the weights
+are rounded once on the host (``round_bf16``: ties to even, kept float32),
+and the kernel, built with its compile-time bf16 flag, rounds each source
+value as it reads it into registers; the ring, the tiling and the ``fmaf``
+chain are the fp32 mode's. What the mode drops is the one-pass MXU dot: a
+product of two bfloat16 values is exact in fp32, so an fp32 FMA on the
+rounded operands computes what that dot computes, summed in the plain
+form's order, and the kernel still equals ``fused_interior_plain`` (which
+rounds the source first) bit for bit. A bfloat16 tensor-core form is later
+work (ROADMAP).
 ``layout`` keeps in Python the arithmetic that places a block's staged
 window and a thread's register window; the tests check it on the CPU.
 
@@ -85,12 +98,42 @@ DEFAULT_SHAPE = (128, 4, 8)
 NARROW_SHAPE = (32, 4, 8)
 SHAPES = (DEFAULT_SHAPE, NARROW_SHAPE)
 CHUNK = 8  # taps of a register window (csrc/fused_interior.cu kChunk)
+# precision modes: 'fp32' and 'fp32_u8src' run the exact fp32 kernel, 'bf16'
+# the same kernel on bfloat16-rounded operands.
+PRECISIONS = ("fp32", "fp32_u8src", "bf16")
 # Shared memory a block aims to stay under: a window that does not fit
 # whole streams through the ring in stages of a few rows, so that one
 # stage's copies overlap the last one's FMAs (faster on the card than one
 # stage of the whole window); a plan whose weights alone pass it streams
 # one row a stage.
 SMEM_TARGET = 40 * 1024
+
+
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to the nearest bfloat16, ties to even, kept float32:
+    the operand rounding of ``precision='bf16'`` (the kernels' own, on the
+    card, is ``__float2bfloat16_rn``)."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+BF16_U = 2.0**-8  # unit roundoff of bfloat16 (8 significand bits)
+BF16_SUM_TOL = 2e-6  # the fp32 summation limit of the kernels' fp32 modes
+
+
+def bf16_bound(op, max_src: float = 1.0) -> float:
+    """The analytic bound of a bf16 interior against its fp32 mode on the
+    plane of ``op``: each product w*s becomes w*s*(1 + d1)*(1 + d2) with
+    |d| <= u, so a pixel moves by at most (2u + u**2) * sum|w| * max|src|,
+    sum|w| over the plane's largest class-pair block; plus the fp32
+    summation limit."""
+    s = float(np.abs(op.pair_blocks).sum((2, 3)).max())
+    return (2 * BF16_U + BF16_U**2) * s * max_src + BF16_SUM_TOL
+
+
+def bf16_lsb(op, peak: float) -> int:
+    """``bf16_bound`` at ``max|src| = 1`` in LSB of an integer format of
+    ``peak``: floor(bound * peak) + 1."""
+    return int(bf16_bound(op) * peak) + 1
 
 
 def shape_name(shape) -> str:
@@ -238,6 +281,7 @@ class FusedInterior:
     fs: int
     shape: tuple  # the kernel shape engines launch (fit_shape)
     g: int  # phases a block (fit_shape; the layout of w)
+    bf16: bool  # precision='bf16': w and kernels rounded, the source in the kernel
 
     @property
     def out_shape(self) -> tuple[int, int]:
@@ -254,15 +298,14 @@ def make_fused_interior(
     device: torch.device | str = "cpu",
     precision: str = "fp32",
 ) -> FusedInterior:
-    """Host build of the fused interior's weights for ``plan`` on ``device``."""
-    if precision == "bf16":
-        raise NotImplementedError(
-            "precision='bf16' (one-pass bf16 interior) is not ported yet "
-            "(ROADMAP, still to port #2)"
-        )
-    if precision not in ("fp32", "fp32_u8src"):
+    """Host build of the fused interior's weights for ``plan`` on ``device``
+    (``precision='bf16'``: rounded to bfloat16 here, once per geometry)."""
+    if precision not in PRECISIONS:
         raise ValueError(f"make_fused_interior: unknown precision {precision!r}")
+    bf16 = precision == "bf16"
     K = build_conv_kernels(op, plan)[:, 0]
+    if bf16:
+        K = round_bf16(torch.from_numpy(K)).numpy()
     nph, kh, kw = K.shape
     fit = fit_shape(plan.y.p, plan.x.p, plan.y.q, plan.x.q, kh, kw)
     if fit is None:
@@ -285,6 +328,7 @@ def make_fused_interior(
         fs=op.filter_size,
         shape=shape,
         g=g,
+        bf16=bf16,
     )
 
 
@@ -292,11 +336,14 @@ def fused_interior_plain(fi: FusedInterior, src_f: torch.Tensor) -> torch.Tensor
     """Plain PyTorch form: shift-sum over the conv kernels + phase interleave.
 
     ``src_f`` (F, H, W) float32 -> (F, py*nyb, px*nxb) float32. Reads past the
-    plane are zeros (padding), as in the kernel. Calls are counted in
-    ``fused_interior_plain.calls``, so that a run on the card can show that
-    no engine took the plain form.
+    plane are zeros (padding), as in the kernel. Under ``fi.bf16`` the
+    source is rounded to bfloat16 first (the kernels come rounded). Calls
+    are counted in ``fused_interior_plain.calls``, so that a run on the card
+    can show that no engine took the plain form.
     """
     fused_interior_plain.calls += 1
+    if fi.bf16:
+        src_f = round_bf16(src_f)
     F, H, W = src_f.shape
     K = fi.kernels
     nph, Kh, Kw = K.shape
@@ -357,7 +404,7 @@ def fused_interior(fi: FusedInterior, src_f: torch.Tensor, shape=None) -> torch.
             src_f.data_ptr(), fi.w.data_ptr(), out.data_ptr(),
             F, H, W, fi.py, fi.px, fi.qy, fi.qx, fi.base_y, fi.base_x, fi.nyb, fi.nxb,
             lay.kh, lay.kw, lay.kwp, lay.g, lay.ngroups, lay.ch, lay.slots, lay.swp,
-            *shape, _build.stream_of(src_f),
+            *shape, int(fi.bf16), _build.stream_of(src_f),
         )  # fmt: skip
     _build.check(rc, "jt_fused_interior")
     fused_interior.launches += 1

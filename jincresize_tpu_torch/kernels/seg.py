@@ -64,8 +64,15 @@ TPU workarounds of the Pallas kernel that this one drops:
   ``JINCRESIZE_SEG_*`` overrides and ``FS2_MAX`` -- the compact dictionary
   is the only weight tensor, and the envelope is shared memory.
 
-``precision='bf16'`` (one-pass bf16) raises NotImplementedError (ROADMAP,
-still to port #2).
+``precision='bf16'`` (the documented non-parity mode, the Pallas kernel's
+DEFAULT dot at ``pallas_fused_seg.py:397``: both operands rounded to
+bfloat16 in one MXU pass, fp32 sums) rounds the pair blocks once on the host
+(``fused.round_bf16``) and runs the kernel's compile-time bf16 flag, which
+rounds each source value as a thread reads it. What it drops is the one-pass
+MXU dot: the products of rounded operands are exact in fp32, so the same
+FMA chains on them compute that dot, and the kernel equals
+``seg_interior_plain`` (which rounds the source first) bit for bit. The
+staged block layout (``block_stride``) and the envelope are the fp32 mode's.
 
 Weights and state: the operator and the plan are the port's copies of the
 JAX package's NumPy ``PlaneOperator`` and ``SegPhasePlan`` (the same arrays,
@@ -84,7 +91,7 @@ from ..operator import PlaneOperator
 from ..phase import SegAxisPlan, SegPhasePlan
 
 from . import _build
-from .fused import MAX_SMEM_BYTES
+from .fused import MAX_SMEM_BYTES, PRECISIONS, round_bf16
 from .gather import (
     FRAMES,
     check_window_starts,
@@ -174,6 +181,7 @@ class SegInterior:
     win_w: int  # source columns of the widest tile window: a staged row's span
     pairs: int  # pair blocks of the largest tile (ky * kx)
     frames_per_block: int  # the most frames a thread that fit beside the pairs
+    bf16: bool  # precision='bf16': blocks rounded, the source in the kernel
 
     @property
     def out_shape(self) -> tuple[int, int]:
@@ -212,13 +220,9 @@ def make_seg_interior(
     device: torch.device | str = "cpu",
     precision: str = "fp32",
 ) -> SegInterior:
-    """Host tables of ``plan`` plus the device dictionary."""
-    if precision == "bf16":
-        raise NotImplementedError(
-            "precision='bf16' (one-pass bf16 interior) is not ported yet "
-            "(ROADMAP, still to port #2)"
-        )
-    if precision not in ("fp32", "fp32_u8src"):
+    """Host tables of ``plan`` plus the device dictionary
+    (``precision='bf16'``: rounded to bfloat16 here, once per geometry)."""
+    if precision not in PRECISIONS:
         raise ValueError(f"make_seg_interior: unknown precision {precision!r}")
     L = _layout(op, plan)
     if L is None:
@@ -232,7 +236,11 @@ def make_seg_interior(
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device)
 
-    blocks = padded_blocks(op.pair_blocks, device)
+    bf16 = precision == "bf16"
+    pair_blocks = op.pair_blocks
+    if bf16:
+        pair_blocks = round_bf16(torch.from_numpy(pair_blocks)).numpy()
+    blocks = padded_blocks(pair_blocks, device)
     return SegInterior(
         blocks=blocks,
         pair_blocks_t=class_minor_view(blocks),
@@ -261,6 +269,7 @@ def make_seg_interior(
         win_w=win_w,
         pairs=ty.ids.shape[1] * tx.ids.shape[1],
         frames_per_block=nfb,
+        bf16=bf16,
     )
 
 
@@ -272,7 +281,11 @@ def frames_of(si: SegInterior, n_frames: int) -> int:
 
 
 def seg_interior_plain(si: SegInterior, src_f: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch form: (F, H, W) -> (F, py*nyb, px*nxb)."""
+    """Plain PyTorch form: (F, H, W) -> (F, py*nyb, px*nxb); under
+    ``si.bf16`` the source is rounded to bfloat16 first (the blocks come
+    rounded)."""
+    if si.bf16:
+        src_f = round_bf16(src_f)
     return window_sum_plain(src_f, si.start_y, si.cls_y, si.start_x, si.cls_x, si.pair_blocks_t)
 
 
@@ -305,7 +318,7 @@ def seg_interior(si: SegInterior, src_f: torch.Tensor) -> torch.Tensor:
             si.lcy.data_ptr(), si.lcx.data_ptr(), si.tcy.data_ptr(), si.tcx.data_ptr(),
             si.ncy.data_ptr(), si.ncx.data_ptr(), out.data_ptr(), F, H, W, hout, wout,
             si.blocks.shape[1], si.fs, si.blocks.shape[3], block_stride(si.fs),
-            si.tcy.shape[1], si.tcx.shape[1], si.pairs, frames_of(si, F), swp,
+            si.tcy.shape[1], si.tcx.shape[1], si.pairs, frames_of(si, F), swp, int(si.bf16),
             _build.stream_of(src_f),
         )  # fmt: skip
     _build.check(rc, "jt_seg_interior")

@@ -284,29 +284,51 @@ def band_anchors(st: Strips) -> torch.Tensor:
     )
 
 
-def strips_plain(st: Strips, src_f: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch form: band im2col + einsum against the banded anchors.
-
-    ``src_f`` (F, H, W) float32 -> (F, n_strips, ny_max, px*nxb) float32.
-    Reads past the plane are zeros, as in the kernel.
-    """
+def _strip_windows(st: Strips, src_f: torch.Tensor):
+    """Each strip's ``(si, ny, P, A)``: ``P`` (F, nb, nxb, px, fs) the
+    source windows of its band (zeros past the plane, as in the kernel),
+    ``A`` (ny, px, nb, fs) its rows' banded anchors."""
     F, H, W = src_f.shape
     need_w = int(st.cols.max()) + 1
     src_p = torch.nn.functional.pad(src_f, (0, max(0, need_w - W)))
-    out = torch.zeros(
-        (F, st.n_strips, st.ny_max, st.px * st.nxb),
-        dtype=torch.float32,
-        device=src_f.device,
-    )
     A = band_anchors(st)
     for si, (row_min, ny, nb) in enumerate(st.rows):
         band = src_p.new_zeros((F, nb, src_p.shape[2]))
         lo, hi = max(row_min, 0), min(row_min + nb, H)
         if hi > lo:
             band[:, lo - row_min : hi - row_min] = src_p[:, lo:hi]
-        P = band[:, :, st.cols]  # (F, nb, nxb, px, fs)
-        vals = einsum64("fkjrl,mrkl->fmjr", P, A[si, :ny, :, :nb])
+        yield si, ny, band[:, :, st.cols], A[si, :ny, :, :nb]
+
+
+def strips_plain(st: Strips, src_f: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch form: band im2col + einsum against the banded anchors.
+
+    ``src_f`` (F, H, W) float32 -> (F, n_strips, ny_max, px*nxb) float32.
+    Reads past the plane are zeros, as in the kernel.
+    """
+    F = src_f.shape[0]
+    out = src_f.new_zeros((F, st.n_strips, st.ny_max, st.px * st.nxb))
+    for si, ny, P, A in _strip_windows(st, src_f):
+        vals = einsum64("fkjrl,mrkl->fmjr", P, A)
         out[:, si, :ny] = vals.reshape(F, ny, st.nxb * st.px)
+    return out
+
+
+def strips_chain(st: Strips, src_f: torch.Tensor) -> torch.Tensor:
+    """``strips_plain``'s sums as the kernel takes them: float32, one
+    multiply-add a tap in (band row, tap) order, zero taps included (exact
+    no-ops). On a CUDA tensor each ``addcmul_`` step is one fused
+    multiply-add, so this equals ``csrc/strips.cu`` bit for bit; it is the
+    reference the kernel is held to at 0, where the float64 ``strips_plain``
+    differs from any float32 chain by that chain's rounding."""
+    F = src_f.shape[0]
+    out = src_f.new_zeros((F, st.n_strips, st.ny_max, st.px * st.nxb))
+    for si, ny, P, A in _strip_windows(st, src_f):
+        acc = src_f.new_zeros((F, ny, st.nxb, st.px))
+        for k in range(P.shape[1]):
+            for lx in range(st.fs):
+                acc.addcmul_(A[None, :, None, :, k, lx], P[:, None, k, :, :, lx])
+        out[:, si, :ny] = acc.reshape(F, ny, st.nxb * st.px)
     return out
 
 

@@ -801,8 +801,9 @@ def make_sharded_apply(
     scan-gather; ``'conv'`` and ``'seg'`` run theirs or raise; ``'gather'``
     runs the band kernel, or the scan-gather where its envelope declines, as
     in the JAX package. ``precision`` is the fused and seg interiors'
-    (``'fp32'`` or ``'fp32_u8src'``, the same exact kernels; ``'bf16'``
-    raises NotImplementedError); the gather interiors are fp32.
+    (``'fp32'`` or ``'fp32_u8src'``, the same exact kernels, or ``'bf16'``,
+    the kernels on bfloat16-rounded operands, reported in
+    ``info['precision']``); the gather interiors and every patch are fp32.
     ``apply_fn.info['interior']`` records which interior was built.
     """
     if impl not in ("auto", "conv", "seg", "gather"):

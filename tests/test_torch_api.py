@@ -204,8 +204,14 @@ def test_unported_engines_raise(impl):
 
 
 def test_bf16_raises_and_conv_requires_periodic():
-    with pytest.raises(NotImplementedError, match="bf16.*ROADMAP"):
-        api.jinc_resize(_clip(gray()), 64, 48, precision="bf16", device="cpu")
+    """'bf16' runs (it raised before it was ported; tests/test_torch_bf16.py
+    holds its numbers); impl='conv' still requires periodic geometry."""
+    r = api.JincResizer(gray(), 32, 24, api.JincConfig(64, 48, precision="bf16"), device="cpu")
+    assert r.engines == {"luma": "fused"} and r._applier_luma.effective_precision == "bf16"
+    out = r(_clip(gray()))
+    assert out.frames[0].planes["Y"].shape == (48, 64)
+    with pytest.raises(api.JincError, match="unknown precision"):
+        api.jinc_resize(_clip(gray()), 64, 48, precision="fp16", device="cpu")
     clip = _clip(gray(), w=96, h=64)
     with pytest.raises(api.JincError, match="impl='conv' requires periodic"):
         api.jinc_resize(clip, 288, 192, tap=2, impl="conv", device="cpu")
@@ -215,8 +221,10 @@ def test_bf16_raises_and_conv_requires_periodic():
     assert api.JincResizer(clip.format, 96, 64, cfg, device="cpu").engines == {
         "luma": "fused-seg"
     }
-    with pytest.raises(NotImplementedError, match="bf16.*ROADMAP"):
-        api.jinc_resize(clip, 288, 192, tap=2, impl="seg", precision="bf16", device="cpu")
+    cfg = api.JincConfig(288, 192, tap=2, impl="seg", precision="bf16")
+    r = api.JincResizer(clip.format, 96, 64, cfg, device="cpu")
+    assert r.engines == {"luma": "fused-seg"} and r._applier_luma.effective_precision == "bf16"
+    assert r(clip).frames[0].planes["Y"].shape == (192, 288)
 
 
 @pytest.mark.parametrize("impl", ["conv", "pallas", "xla", "numpy"])

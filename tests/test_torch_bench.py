@@ -94,8 +94,12 @@ def test_seg_and_gather_impls():
 
 
 def test_bf16_and_missing_card_raise(monkeypatch):
-    with pytest.raises(NotImplementedError, match="bf16.*still to port #2"):
-        bench.main(["--precision", "bf16", *CPU], size=(48, 32, 96, 64))
+    """'bf16' runs (it raised before it was ported) and names its precision;
+    a missing card still raises."""
+    res = bench.main(["--precision", "bf16", *CPU], size=(48, 32, 96, 64))
+    assert res["metric"] == "jinc256_4k_to_8k_fp32_px_per_s_per_chip"  # the JAX bench's names
+    assert (res["engine"], res["precision"]) == ("fused", "bf16")
+    assert res["effective_precision"] == "bf16"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         bench.main(["--frames", "1"], size=(48, 32, 96, 64))

@@ -162,8 +162,12 @@ def test_precision_modes():
         for prec in ("fp32", "fp32_u8src")
     )
     assert torch.equal(a, b)  # the u8-source mode runs the same exact kernel
-    with pytest.raises(NotImplementedError, match="bf16"):
-        apply_conv.ConvApplier(op, precision="bf16", device="cpu")
+    # bf16 (tests/test_torch_bf16.py): u8 sources are bf16-exact, only the
+    # weights round, so the output stays within 2 LSB here.
+    ap = apply_conv.ConvApplier(op, precision="bf16", device="cpu")
+    assert ap.fi.bf16 and ap.effective_precision == "bf16"
+    c = ap(src, out_dtype=np.uint8, peak=255.0)
+    assert (c.int() - a.int()).abs().max() <= 2
     with pytest.raises(ValueError, match="unknown precision"):
         apply_conv.ConvApplier(op, precision="fp16", device="cpu")
     with pytest.raises(NotImplementedError, match="shift"):

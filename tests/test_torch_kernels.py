@@ -138,6 +138,31 @@ def test_strips_plain_matches_pallas_interpret(g, kw):
         assert not got[si, y1 - y0 :].any()  # unused rows of a shorter strip
 
 
+@pytest.mark.parametrize("g,kw", STRIP_GEOMS, ids=IDS[:4])
+def test_strips_chain_matches_pallas_interpret(g, kw):
+    """``strips_chain`` (the strip kernel's float32 multiply-add chain, the
+    reference ``chip_smoke.py`` holds the kernel to at 0) computes the same
+    strips as the JAX kernel and the float64 ``strips_plain``, on 2 frames."""
+    import jax.numpy as jnp
+
+    from jincresize_tpu.kernels.pallas_strips import make_strips_interior
+
+    op = _op(g, kw)
+    st, _, meta = strips.make_strips(op, plan_phases(op))
+    jfn, _, jmeta = make_strips_interior(*_jop(g, kw), interpret=True)
+    src = _src(op, 9, frames=2)
+    got = strips.strips_chain(st, torch.from_numpy(src)).numpy()
+    assert got.shape == strips.strips_plain(st, torch.from_numpy(src)).shape
+    assert np.abs(got - strips.strips_plain(st, torch.from_numpy(src)).numpy()).max() <= F32_TOL
+    ny_p = jmeta["ny_p"]
+    for f in range(2):
+        want = np.asarray(jfn(jnp.asarray(src[f])))
+        for si, (y0, y1) in enumerate(meta["strips"]):
+            w = want[si * ny_p : si * ny_p + (y1 - y0)]
+            assert np.abs(got[f, si, : y1 - y0] - w).max() <= F32_TOL
+            assert not got[f, si, y1 - y0 :].any()
+
+
 @pytest.mark.parametrize(
     "g,kw",
     GEOMS + [((160, 120, 400, 300, 3), {}), ((320, 180, 480, 270, 3), {})],
@@ -446,9 +471,26 @@ def test_envelope_is_shared_memory_alone():
 
 
 def test_bf16_not_ported():
+    """'bf16' is ported (it raised before): the weights come rounded to
+    bfloat16, the layout is the fp32 mode's, the plain form rounds the
+    source (tests/test_torch_bf16.py holds it to the JAX kernel); an unknown
+    mode still raises."""
     op = _op(*GEOMS[0])
-    with pytest.raises(NotImplementedError, match="bf16"):
-        fused.make_fused_interior(op, plan_phases(op), precision="bf16")
+    plan = plan_phases(op)
+    fi = fused.make_fused_interior(op, plan, precision="bf16")
+    f32 = fused.make_fused_interior(op, plan)
+    assert fi.bf16 and not f32.bf16 and (fi.shape, fi.g) == (f32.shape, f32.g)
+    assert torch.equal(fi.kernels, fused.round_bf16(f32.kernels))
+    assert torch.equal(fi.w, fused.round_bf16(f32.w))
+    src = torch.from_numpy(_src(op, 5, frames=1))
+    want = fused.fused_interior(f32, fused.round_bf16(src))
+    # Rounded weights on a rounded source: what the bf16 plain form computes.
+    f32_rounded = dataclasses.replace(f32, w=fi.w, kernels=fi.kernels)
+    got = fused.fused_interior(fi, src)
+    assert torch.equal(got, fused.fused_interior(f32_rounded, fused.round_bf16(src)))
+    assert not torch.equal(got, want)
+    with pytest.raises(ValueError, match="unknown precision"):
+        fused.make_fused_interior(op, plan, precision="fp16")
 
 
 def test_wrappers_never_fall_back_off_cpu():

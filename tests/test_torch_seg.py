@@ -281,8 +281,12 @@ def test_precision_modes(ops):
         for prec in ("fp32", "fp32_u8src")
     )
     assert torch.equal(a, b)  # the u8-source mode runs the same exact kernel
-    with pytest.raises(NotImplementedError, match="bf16"):
-        SegConvApplier(op, precision="bf16", device="cpu")
+    # bf16 (tests/test_torch_bf16.py): u8 sources are bf16-exact, only the
+    # weights round, so the output stays within 2 LSB here.
+    ap = SegConvApplier(op, precision="bf16", device="cpu")
+    assert ap.si.bf16 and ap.effective_precision == "bf16"
+    c = ap(src, out_dtype=np.uint8, peak=255.0)
+    assert (c.int() - a.int()).abs().max() <= 2
     with pytest.raises(ValueError, match="unknown precision"):
         SegConvApplier(op, precision="fp16", device="cpu")
 

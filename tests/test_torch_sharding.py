@@ -529,8 +529,12 @@ def test_forced_interiors_raise_with_jax_messages(ops):
         sharding.make_sharded_apply(op, _mesh(8), impl="seg")
     with pytest.raises(ValueError, match="unknown impl"):
         sharding.make_sharded_apply(op, _mesh(8), impl="xla")
-    with pytest.raises(NotImplementedError, match="bf16"):
-        sharding.make_sharded_apply(ops["conv-2x-tap8"], _mesh(8), impl="conv", precision="bf16")
+    # 'bf16' runs (it raised before it was ported; tests/test_torch_bf16.py
+    # holds its numbers) and is reported.
+    fn, _ = sharding.make_sharded_apply(
+        ops["conv-2x-tap8"], _mesh(8), impl="conv", precision="bf16"
+    )
+    assert (fn.info["interior"], fn.info["precision"]) == ("conv-fused", "bf16")
 
 
 # ---------------------------------------------------------------- applier, API
