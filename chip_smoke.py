@@ -119,7 +119,22 @@ Phases (each raises on failure; nothing catches it):
    ``impl='xla'``), ``python -m jincresize_tpu_torch.bench`` in
    its three modes and the default one under ``--precision bf16``, run in
    this process, and the probe beside its bound and
-   ``torch.zeros``, in one order and the other.
+   ``torch.zeros``, in one order and the other;
+5. two processes -- ``python3 chip_smoke.py --dist-worker <port> <rank>``,
+   twice, joined by a gloo group (``distributed.init_distributed``; NCCL
+   refuses two ranks on one card, so the halos cross through host buffers),
+   each with two of the four row shards of ``distributed.global_mesh(n_rows=4,
+   devices=[cuda:0] * 2)``: 4 fp32 frames of the 3840x2160 -> 7680x4320
+   (``conv-fused``), 2560x1440 -> 3840x2160 (``seg``) and 1920x1080 ->
+   3740x2104 (``gather``, the band kernel) tap-8 luma planes, the other
+   rank's source rows NaN in each rank's copy, each rank's rows bit-equal
+   (0) to the one-process ``ShardedApplier`` on four shards of the card over
+   the clean source, no NaN, its kernel launched once a local shard (counts
+   set to 0 before the two-rank call, read after); each rank prints the
+   two-rank call's ms/frame beside the one-process call's (rank 0 alone),
+   the halo bytes it sent and received a call and the exchange's share of
+   the call. The parent raises on a nonzero exit, on a timeout of
+   ``DIST_TIMEOUT`` seconds or on a missing ``DIST_OK`` line.
 
 Prints the kernels' JSON line, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
@@ -203,7 +218,6 @@ E2E_FRAMES = 4
 TIMING_FRAMES = 8
 F32_TOL = 2e-6  # exact fp32 products on both sides; only the summation order differs
 DEEP_TOL = 4e-6  # fs**2 > 1200 (4225 products a pixel at fs=65): the JAX deep-tap bound
-F32_U = 2.0**-24  # unit roundoff of float32: see f32_chain_bound
 ORACLE_SAMPLES = 2000
 DEEP_ORACLE_SAMPLES = 128  # the scalar oracle costs ~45 ms a sample at fs=65
 DEEP_APER_ORACLE_SAMPLES = 32  # ~90 ms a sample at fs=92
@@ -228,6 +242,18 @@ STRIP_FRAME_CASES = ("2x upscale qx=1", "2x downscale qx=2", "2/3 downscale px=2
 SHAPE_CASES = ("2x upscale qx=1", "5/2 upscale exceptions", "tap16 2/5 down fs=82 113KB")
 PROBE_SHAPES = [((8, 4320, 7680), (48, 256)), ((2, 100, 300), (48, 256))]
 TOOL_REPS = 5  # back-to-back calls per timing in the tools' runs
+# Phase 5: two gloo ranks, two of the four row shards each, all on cuda:0;
+# (name, (src_w, src_h, dst_w, dst_h), interior, kernel wrapper) at tap 8,
+# four fp32 frames of the luma plane.
+DIST_CASES = [
+    ("4K->8K", (SRC_W, SRC_H, DST_W, DST_H), "conv-fused", "fused"),
+    ("1440p->4K", DRIFT, "seg", "seg"),
+    ("1080p->3740x2104", APERIODIC, "gather", "gather_band"),
+]
+DIST_RANKS = 2
+DIST_FRAMES = 4
+DIST_REPS = 3  # timed calls of each run after its checked one
+DIST_TIMEOUT = 300  # seconds for both workers together
 PROBE_REPS = 10  # back-to-back calls a sample of the probe and torch.zeros
 # H100 SXM peaks (NVIDIA's data sheet, at 700 W): fp32 outside the tensor
 # cores, and HBM3. A kernel's bound is the larger of its operations and its
@@ -253,12 +279,11 @@ def f32_chain_bound(st, src) -> float:
     u = 2**-24, gamma_n = n*u / (1 - n*u) and sum|w| over the strips' rows
     (a zero tap's multiply-add is exact). A bound of the arithmetic, not of
     the kernel: the kernel is held to ``strips_chain`` at 0."""
+    from jincresize_tpu_torch.kernels.fused import f32_sum_bound
     from jincresize_tpu_torch.kernels.strips import band_anchors
 
-    n = st.fs**2
-    gamma = n * F32_U / (1 - n * F32_U)
     s = float(band_anchors(st).abs().sum((3, 4)).max())
-    return (gamma + F32_U) * s * float(src.abs().max())
+    return f32_sum_bound(st.fs**2, s, float(src.abs().max()))
 
 
 def bound_ms(ops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
@@ -354,6 +379,146 @@ def cuda_ms(fn, iters: int, warmup: int = 2, reps: int = 1) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b) / reps)
     return statistics.median(times)
+
+
+def dist_phase(card: str) -> None:
+    """Phase 5: start ``DIST_RANKS`` workers (``--dist-worker``), wait for
+    both within ``DIST_TIMEOUT`` seconds, print their lines, and raise on a
+    nonzero exit, a timeout or a missing ``DIST_OK`` line."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {**os.environ, "GLOO_SOCKET_IFNAME": os.environ.get("GLOO_SOCKET_IFNAME", "lo")}
+    procs = [
+        subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--dist-worker", str(port), str(r)],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for r in range(DIST_RANKS)
+    ]  # fmt: skip
+    outs = []
+    deadline = time.perf_counter() + DIST_TIMEOUT
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=max(1.0, deadline - time.perf_counter()))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.splitlines():
+            print(line if line.startswith("[5]") else f"[5] rank{r}| {line}")
+        if p.returncode != 0:
+            raise RuntimeError(f"phase 5: rank {r} exited with {p.returncode}")
+        if f"DIST_OK rank{r}" not in out:
+            raise RuntimeError(f"phase 5: rank {r} printed no DIST_OK line")
+    print(f"[5] {DIST_RANKS} gloo ranks x {4 // DIST_RANKS} row shards on one card: every row "
+          f"bit-equal to the one-process run, no NaN [{card}]")
+
+
+def dist_worker(port: int, rank: int) -> int:
+    """One rank of phase 5: join the gloo group, take two of the four row
+    shards of ``global_mesh(n_rows=4, devices=[cuda:0] * 2)``, and run each
+    of ``DIST_CASES`` on four fp32 frames whose other rank's source rows are
+    NaN in this rank's copy: its rows must be bit-equal to the one-process
+    ``ShardedApplier`` on four shards of the card over the clean source, with
+    no NaN; then both runs are timed (host clock, the card synchronised
+    around each call; the one-process run on rank 0 alone, rank 1 waiting)."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from jincresize_tpu_torch.distributed import global_mesh, init_distributed
+    from jincresize_tpu_torch.kernels import fused as fused_k
+    from jincresize_tpu_torch.kernels import gather as gather_k
+    from jincresize_tpu_torch.kernels import seg as seg_k
+    from jincresize_tpu_torch.operator import build_plane_operator, radius_for_tap
+    from jincresize_tpu_torch.sharding import Shard, ShardedApplier, make_mesh
+
+    dist = torch.distributed
+    wrappers = {"fused": fused_k.fused_interior, "seg": seg_k.seg_interior,
+                "gather_band": gather_k.gather_band}  # fmt: skip
+    init_distributed(coordinator_address=f"127.0.0.1:{port}", num_processes=DIST_RANKS,
+                     process_id=rank, backend="gloo")  # fmt: skip
+    dev = torch.device("cuda", 0)
+    n_rows = 4
+    mesh = global_mesh(n_rows=n_rows, devices=[dev] * (n_rows // DIST_RANKS))
+    assert mesh.ranks == (tuple(sorted(list(range(DIST_RANKS)) * (n_rows // DIST_RANKS))),)
+    ref_mesh = make_mesh(n_rows=n_rows, devices=[dev] * n_rows)
+    card = card_line()
+
+    def timed(fn, x) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(x)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    for name, (sw, sh, dw, dh), interior, kind in DIST_CASES:
+        t0 = time.perf_counter()
+        op = build_plane_operator(sw, sh, dw, dh, radius_for_tap(TAP))
+        app = ShardedApplier(op, mesh)
+        ref = ShardedApplier(op, ref_mesh)
+        built = time.perf_counter() - t0
+        assert app.interior == ref.interior == interior, (name, app.interior, ref.interior)
+        ts = app._fn.ts
+        src = np.random.default_rng(5).random((DIST_FRAMES, sh, sw), dtype=np.float32)
+        mine = [d for d in range(n_rows) if mesh.ranks[0][d] == rank]
+        poisoned = src.copy()
+        for d in range(n_rows):
+            if d not in mine:
+                poisoned[:, d * ts : (d + 1) * ts] = np.nan
+        src_d = torch.from_numpy(src).to(dev)
+        pois_d = torch.from_numpy(poisoned).to(dev)
+        dist.barrier()
+        want = ref(src_d)
+        for w in wrappers.values():
+            w.launches = 0
+        got = app(pois_d)
+        torch.cuda.synchronize()
+        launched = {k: w.launches for k, w in wrappers.items()}
+        n_local = sum(isinstance(s, Shard) for s in app._fn.shards[0])
+        assert launched == {**dict.fromkeys(wrappers, 0), kind: n_local}, (name, launched)
+        td = -(-dh // n_rows)
+        assert sorted(s.index[1].start for s in got) == [d * td for d in mine], name
+        err = 0.0
+        for s in got:
+            assert not torch.isnan(s.data).any(), (name, s.index)
+            err = max(err, float((s.data - want[s.index]).abs().max()))
+            assert torch.equal(s.data, want[s.index]), (name, s.index, err)
+        del want, got
+        # Timing: both ranks run the two-rank call together; then rank 0
+        # runs the one-process call alone.
+        two, share = [], []
+        for _ in range(DIST_REPS):
+            dist.barrier()
+            dt = timed(app, pois_d)
+            two.append(dt)
+            share.append(app._fn.exchange["seconds"] / dt)
+        ex = dict(app._fn.exchange)
+        one = []
+        dist.barrier()
+        if rank == 0:
+            timed(ref, src_d)
+            one = [timed(ref, src_d) for _ in range(DIST_REPS)]
+        dist.barrier()
+        ms2 = statistics.median(two) * 1e3 / DIST_FRAMES
+        ms1 = f"{statistics.median(one) * 1e3 / DIST_FRAMES:.3f} ms/frame" if one else "on rank 0"
+        print(f"[5] rank{rank} {name} {sw}x{sh}->{dw}x{dh} tap{TAP} {interior} x{DIST_FRAMES} fp32 "
+              f"(built in {built:.1f} s): shards {mine}, launches {launched}, max |2-rank - "
+              f"one-process| {err:g}, no NaN; 2-rank call {ms2:.3f} ms/frame, one-process call "
+              f"{ms1}; halo bytes sent {ex['bytes_sent']} received "
+              f"{ex['bytes_received']} per call; exchange {statistics.median(share):.1%} of the "
+              f"call ({ex['seconds'] * 1e3:.3f} ms) [{card}]", flush=True)  # fmt: skip
+        del src_d, pois_d, app, ref
+        torch.cuda.empty_cache()
+    dist.barrier()
+    dist.destroy_process_group()
+    print(f"DIST_OK rank{rank}", flush=True)
+    return 0
 
 
 def main() -> int:
@@ -1823,6 +1988,12 @@ def main() -> int:
     assert all(v <= DEEP_TOL for v in strips_lib_err.values()), strips_lib_err
 
     print(f"[4] phases 1-4 took {time.perf_counter() - t_start:.1f} s")
+
+    # ---------------------------------------------------------------- phase 5
+    print(f"[5] phase 5 starts at {time.perf_counter() - t_start:.1f} s")
+    torch.cuda.empty_cache()  # the workers share the card
+    dist_phase(card)
+    print(f"[5] phases 1-5 took {time.perf_counter() - t_start:.1f} s")
     print(card)
     kernels = [
         {
@@ -1943,4 +2114,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist-worker"]:
+        sys.exit(dist_worker(int(sys.argv[2]), int(sys.argv[3])))
     sys.exit(main())

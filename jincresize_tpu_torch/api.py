@@ -41,7 +41,10 @@ first hand-written engine of ``fused`` -> ``fused-seg`` -> ``gather`` or
 raises. ``'sharded'``, or
 ``'auto'`` with a ``mesh``, runs the sharded engine on every plane; with no
 mesh it takes ``sharding.make_mesh`` over every visible device of the
-resizer's device type. A mesh with any other ``impl`` raises ``JincError``.
+resizer's device type. A mesh with any other ``impl`` raises ``JincError``,
+and so does a mesh that spans processes (``distributed.global_mesh``): a
+resizer returns whole frames, and there each process holds only its rows
+(``sharding.ShardedApplier`` returns them).
 
 ``ChainResizer`` / ``jinc_resize_chain`` compose a chain of resizes into one
 operator per plane (``compose.compose``), which re-enters the same engine
@@ -229,6 +232,18 @@ def _select_engine(op: PlaneOperator, impl: str, precision: str, device):
     return None, "xla"
 
 
+def _check_mesh(mesh) -> None:
+    """A resizer returns whole frames, so its mesh must be this process's:
+    a mesh that spans processes (``distributed.global_mesh``) holds rows
+    that no one process can return."""
+    if mesh is not None and mesh.spans_ranks:
+        raise JincError(
+            "JincResize: the mesh spans several processes, whose rows no one "
+            "process holds; run each plane through sharding.ShardedApplier, "
+            "which returns this process's rows (.index, .data)."
+        )
+
+
 class JincResizer:
     """Constructed filter instance: operators built once, frames are calls.
 
@@ -248,6 +263,7 @@ class JincResizer:
         mesh=None,
     ):
         _validate(cfg)
+        _check_mesh(mesh)
         if mesh is not None and cfg.impl not in ("auto", "sharded"):
             raise JincError(
                 "JincResize: mesh is only valid with impl='sharded' or 'auto'."
@@ -557,6 +573,7 @@ class ChainResizer(JincResizer):
     ):
         if not cfgs:
             raise JincError("JincResize: chain needs at least one stage.")
+        _check_mesh(mesh)
         from . import compose as compose_mod
         from .cache import default_cache_dir, geometry_key, load_operator, save_operator
 

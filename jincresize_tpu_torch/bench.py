@@ -7,6 +7,7 @@ program), with the same modes, metric names and baseline:
     python -m jincresize_tpu_torch.bench --downscale          # 3840x2160 -> 1920x1080 tap 8 (fs 33)
     python -m jincresize_tpu_torch.bench --tap16-downscale    # 3840x2160 -> 1920x1080 tap 16 (fs 65)
     python -m jincresize_tpu_torch.bench --device cpu --small # control flow only, on the CPU
+    python -m jincresize_tpu_torch.bench --scaling            # nnz/s over 1, 2, 4, 8 row shards
 
 Flags: ``--small`` (the JAX bench's reduced sizes), ``--frames`` (default 32,
 one resident batch), ``--iters`` (queued calls of the dispatch path),
@@ -14,8 +15,7 @@ one resident batch), ``--iters`` (queued calls of the dispatch path),
 ``auto`` is ``api._select_engine``'s rule), ``--precision`` (``bf16``: the
 documented non-parity mode, the fused and seg interiors on bfloat16-rounded
 operands; the metric names stay the JAX bench's) and ``--device`` (default
-``cuda``; raises when no card is visible, never falls back). ``--scaling``
-waits for the multi-process port (ROADMAP still to port #6). The operator is
+``cuda``; raises when no card is visible, never falls back). The operator is
 built each run (seconds with the native builder), not taken from the
 operator cache as the JAX bench does: a 4K -> 1080p tap-16 operator holds
 1.6 GB of border-strip blocks, and the cache only saves start-up time.
@@ -25,6 +25,19 @@ on a resident batch (the twin of the JAX bench's on-device ``fori_loop``);
 the dispatch path from ``iters`` queued calls and one synchronise. On
 ``--device cpu`` both are host-clock times of the CPU's plain forms, which
 say nothing of a card: the JSON's ``device`` key names what ran.
+
+``--scaling`` is the twin of the root bench's ``scaling_main``: 480x272 ->
+960x544 tap 3 on ``F = max(2, min(frames, 4))`` frames, the single-card
+engine at k = 1 and a ``ShardedApplier`` on ``k`` row shards of the one
+device at k = 2, 4 and 8, each timed over 3 calls after a warm-up (CUDA
+events; the host clock on ``--device cpu``). Its last stdout line has the
+root harness's keys (``metric``, ``value`` = nnz/s at the largest k over k
+times nnz/s at k = 1, ``unit``, ``vs_baseline`` = value / 0.9, ``per_k``,
+``mode``, ``mesh_scaling_like_engine``, ``note``), also written to
+``$JINCRESIZE_SCALING_OUT`` when that is set. Its shards share one device
+and run one after another, so it shows the sharded engine's overhead, not
+scaling (``mode`` says ``serial-shards-one-card`` or ``serial-shards-cpu``);
+it runs in one process.
 
 Prints diagnostics on stderr, each naming the engine, its interior and the
 card (``nvidia-smi`` name and power limit), and as the last line of stdout
@@ -40,6 +53,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -78,6 +92,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     )
     ap.add_argument("--precision", default="fp32", choices=["fp32", "bf16"])
     ap.add_argument("--device", default="cuda")
+    ap.add_argument(
+        "--scaling", action="store_true", help="nnz/s over 1, 2, 4 and 8 row shards of the device"
+    )
     return ap.parse_args(argv)
 
 
@@ -113,12 +130,94 @@ def make_engine(op, impl: str, precision: str, device: torch.device):
     return (lambda s: apply_xla.resize_plane_batch(dop, s)), "xla"
 
 
+# The root harness's geometry and shard counts.
+SCALING_SIZE = (480, 272, 960, 544)
+SCALING_TAP = 3
+SCALING_K = (1, 2, 4, 8)
+SCALING_ITERS = 3
+
+
+def scaling_main(args, device: torch.device, size=None) -> dict:
+    """The ``--scaling`` harness; returns the JSON object it prints."""
+    from .sharding import ShardedApplier, make_mesh
+
+    sw, sh, dw, dh = size or SCALING_SIZE
+    op = build_plane_operator(sw, sh, dw, dh, radius_for_tap(SCALING_TAP))
+    nnz = op.stats()["logical_nnz"]
+    F = max(2, min(args.frames, 4))
+    src = torch.from_numpy(np.random.default_rng(0).random((F, sh, sw), dtype=np.float32))
+    src = src.to(device)
+    cuda = device.type == "cuda"
+    print(f"# {card_line(device)}", file=sys.stderr)
+
+    def seconds(fn) -> float:
+        fn(src)  # warm-up: first launches build and load the kernels
+        if cuda:
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(SCALING_ITERS):
+                fn(src)
+            b.record()
+            b.synchronize()
+            return a.elapsed_time(b) / 1e3 / SCALING_ITERS
+        t0 = time.perf_counter()
+        for _ in range(SCALING_ITERS):
+            fn(src)
+        return (time.perf_counter() - t0) / SCALING_ITERS
+
+    rates, engines, per_k = {}, {}, []
+    for k in SCALING_K:
+        if k == 1:
+            fn, engines[k] = make_engine(op, "auto", "fp32", device)
+        else:
+            fn = ShardedApplier(op, make_mesh(n_rows=k, devices=[device] * k))
+            engines[k] = fn.interior
+        dt = seconds(fn)
+        rates[k] = nnz * F / dt
+        per_k.append({"k": k, "ms_batch": dt * 1e3, "gnnz_s": rates[k] / 1e9, "interior": engines[k]})
+        print(f"# n_rows={k}: {dt * 1e3:.3f} ms/batch ({F} frames), {rates[k] / 1e9:.3f} "
+              f"Gnnz/s, interior={engines[k]}", file=sys.stderr)  # fmt: skip
+    kmax = max(rates)
+    eff = rates[kmax] / (kmax * rates[1])
+    # Scaling from the smallest mesh whose interior is kmax's (the root
+    # harness's engine-consistent ratio).
+    k_like = [k for k in rates if k > 1 and engines[k] == engines[kmax]]
+    eff_mesh = None
+    if k_like and min(k_like) < kmax:
+        k0 = min(k_like)
+        eff_mesh = rates[kmax] / ((kmax / k0) * rates[k0])
+    where = "one card" if cuda else "the CPU"
+    result = {
+        "metric": f"nnz_scaling_{kmax}dev",
+        "value": eff,
+        "unit": "fraction_of_linear",
+        "vs_baseline": eff / 0.9,
+        "per_k": per_k,
+        "mode": "serial-shards-one-card" if cuda else "serial-shards-cpu",
+        "mesh_scaling_like_engine": eff_mesh,
+        "note": (
+            f"every shard runs on {where}, one after another, so k shards do the work of "
+            "one device in k pieces: 'value' is the sharded engine's overhead against the "
+            "single-device engine, not scaling; scaling needs a mesh of distinct cards"
+        ),
+    }
+    out_path = os.environ.get("JINCRESIZE_SCALING_OUT")
+    if out_path:
+        with open(out_path, "w") as f:
+            json.dump(result, f, indent=1)
+        print(f"# wrote {out_path}", file=sys.stderr)
+    print(json.dumps(result))
+    return result
+
+
 def main(argv=None, size: tuple[int, int, int, int] | None = None) -> dict:
     """Run the bench; ``size`` = (src_w, src_h, dst_w, dst_h) overrides the
     mode's geometry (the tests run tiny planes on the CPU). Returns the
     JSON object it prints."""
     args = parse_args(argv)
     device = apply_xla.resolve_device(args.device)
+    if args.scaling:
+        return scaling_main(args, device, size)
     sw, sh, dw, dh, tap = geometry(args)
     if size is not None:
         sw, sh, dw, dh = size

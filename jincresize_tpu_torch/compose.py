@@ -18,8 +18,15 @@ Composition arithmetic is float64 over the float32 source blocks, cast to
 float32 at the end. Since each factor's rows sum to 1, composed rows sum to 1
 by construction.
 
-A copy of ``jincresize_tpu/compose.py`` with the code unchanged: it is NumPy
-only, over the port's own ``operator`` module.
+A copy of ``jincresize_tpu/compose.py``, NumPy only, over the port's own
+``operator`` module, with one difference: ``_axis_keys`` clamps the
+intermediate coordinates that B's windows cover to A's destination plane.
+Where B's filter is wider than that plane (a steep second stage, a narrow
+chroma plane), its windows run past the plane's edge; the JAX module indexes
+A's tables there and raises ``IndexError``, while the golden clamps those
+coordinates to the edge, whose taps carry weight. The clamp composes what
+the nested stages compute; where the JAX module does not raise, the two give
+bit-identical operators.
 """
 
 from __future__ import annotations
@@ -50,8 +57,13 @@ def _axis_keys(opA: PlaneOperator, opB: PlaneOperator, axis: str):
         n = opB.dst_height
     fsB = opB.filter_size
 
-    # Mid coordinates covered per dst coordinate: (n, fsB).
+    # Mid coordinates covered per dst coordinate: (n, fsB), clamped to the
+    # intermediate plane as the golden clamps window coordinates. Where B's
+    # filter is wider than that plane its windows run past the edge, and
+    # the taps there weigh the edge row or column: a repeated coordinate
+    # keeps its offset, so its weights add into the same composed taps.
     mids = startB[:, None].astype(np.int64) + np.arange(fsB)[None, :]
+    mids = np.clip(mids, 0, len(startA) - 1)
     sA = startA[mids]  # (n, fsB) A window starts of covered mid coords
     comp_start = sA[:, 0]
     width = sA[:, -1] + opA.filter_size - comp_start

@@ -116,8 +116,18 @@ def round_bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
 
 
+F32_U = 2.0**-24  # unit roundoff of float32
 BF16_U = 2.0**-8  # unit roundoff of bfloat16 (8 significand bits)
 BF16_SUM_TOL = 2e-6  # the fp32 summation limit of the kernels' fp32 modes
+
+
+def f32_sum_bound(n: int, wsum: float, max_src: float) -> float:
+    """The rounding of any float32 multiply-add chain over ``n`` taps
+    against its exact value rounded once to float32: (gamma_n + u) * sum|w|
+    * max|src|, with u = 2**-24 and gamma_n = n*u / (1 - n*u). A bound of
+    the arithmetic, whatever the order of the sum."""
+    gamma = n * F32_U / (1 - n * F32_U)
+    return (gamma + F32_U) * wsum * max_src
 
 
 def bf16_bound(op, max_src: float = 1.0) -> float:

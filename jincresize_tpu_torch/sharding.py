@@ -32,8 +32,18 @@ patched from the uniform operator (``build_uniform``), and each shard is
 finalized (clamp, round half to even, cast) on its device before the shards
 are concatenated on ``mesh.devices[0][0]``. As in the JAX package, the halo
 is exchanged first and computed on after, with no overlap of the two.
-Meshes of several processes (``torch.distributed``) are not part of this
-module.
+
+A mesh may span processes (``distributed.global_mesh``): its ``ranks`` grid
+says which ``torch.distributed`` rank owns each entry. Each rank builds and
+runs only its own shards and uploads only their source rows; the halo rows
+of another rank's shards arrive by ``torch.distributed.batch_isend_irecv``,
+one batch a call, every rank walking the same global (data row, shard, hop)
+order so that the messages between two ranks pair up (the JAX package's
+``ppermute`` chains); a replicated source is assembled with one
+``all_gather``. Under gloo the halos of CUDA shards go through host buffers,
+under NCCL card to card. The call returns this rank's rows as
+``LocalShard``s (``.index``, ``.data``), the twin of
+``jax.Array.addressable_shards``: nothing is concatenated across ranks.
 
 Weights and state: the operator is the port's NumPy ``PlaneOperator`` (a
 copy of the JAX package's, bit-identical).
@@ -47,6 +57,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import time
 from collections.abc import Callable
 from dataclasses import dataclass
 
@@ -171,13 +182,30 @@ def plan_row_shard(op: PlaneOperator, n_devices: int) -> ShardPlan:
 @dataclass(frozen=True)
 class RowMesh:
     """A ('data', 'rows') grid of torch devices, ``devices[j][d]``; devices
-    may repeat (several shards on one card run one after another)."""
+    may repeat (several shards on one card run one after another).
+
+    ``ranks[j][d]`` is the ``torch.distributed`` rank that owns entry (j, d);
+    None means that every entry belongs to this process."""
 
     devices: tuple[tuple[torch.device, ...], ...]
+    ranks: tuple[tuple[int, ...], ...] | None = None
 
     def __post_init__(self):
         if not self.devices or not self.devices[0] or len({len(r) for r in self.devices}) != 1:
             raise ValueError("RowMesh: devices must be a non-empty (n_data, n_rows) grid")
+        if self.ranks is not None and [len(r) for r in self.ranks] != [
+            len(r) for r in self.devices
+        ]:
+            raise ValueError("RowMesh: ranks must be a grid of the devices' shape")
+
+    @property
+    def spans_ranks(self) -> bool:
+        """Whether the entries belong to more than one process."""
+        return self.ranks is not None and len({r for row in self.ranks for r in row}) > 1
+
+    def is_local(self, j: int, d: int) -> bool:
+        """Whether this process owns entry (j, d)."""
+        return self.ranks is None or self.ranks[j][d] == torch.distributed.get_rank()
 
     @property
     def n_data(self) -> int:
@@ -219,8 +247,30 @@ def make_mesh(
 # ---------------------------------------------------------------------------
 
 
+def halo_hops(d: int, ts: int, halo_up: int, halo_dn: int) -> list[tuple[int, int]]:
+    """Shard ``d``'s halo hops in band order, each (i, rows): ``rows`` rows
+    from shard d + i, i < 0 above (the last rows of that shard), i > 0 below
+    (its first rows). Hop i ships ``ts`` rows, the farthest hop only the
+    rows it contributes."""
+    hops_up = -(-halo_up // ts)
+    hops_dn = -(-halo_dn // ts)
+    above = [(-i, halo_up - (i - 1) * ts if i == hops_up else ts) for i in range(hops_up, 0, -1)]
+    below = [(i, halo_dn - (i - 1) * ts if i == hops_dn else ts) for i in range(1, hops_dn + 1)]
+    return above + below
+
+
+def hop_rows(part: torch.Tensor, i: int, rows: int) -> torch.Tensor:
+    """The rows that hop ``i`` takes from its shard's (F, ts, W) part."""
+    return part[:, part.shape[1] - rows :] if i < 0 else part[:, :rows]
+
+
 def collect_band(
-    parts: list[torch.Tensor], d: int, halo_up: int, halo_dn: int, replicate: bool
+    parts: list[torch.Tensor | None],
+    d: int,
+    halo_up: int,
+    halo_dn: int,
+    replicate: bool,
+    received: dict[int, torch.Tensor] | None = None,
 ) -> torch.Tensor:
     """Shard ``d``'s band (F, band_h, W) on its device.
 
@@ -228,24 +278,28 @@ def collect_band(
     band is every shard's rows when ``replicate``, else the last ``halo_up``
     rows above shard d (hop i from shard d - i, the farthest hop shipping only
     the rows it contributes), its own rows, and the first ``halo_dn`` rows
-    below it; rows from beyond the mesh are zeros.
+    below it; rows from beyond the mesh are zeros. ``received[i]`` is hop
+    i's rows where another process owns shard d + i (``parts`` holds None
+    there).
     """
     dev = parts[d].device
     if replicate:
         return torch.cat([p.to(dev) for p in parts], dim=1)
     n = len(parts)
     F, ts, W = parts[d].shape
+    received = received or {}
 
-    def hop(i: int, rows: int) -> torch.Tensor:  # i < 0: from above, i > 0: from below
+    def hop(i: int, rows: int) -> torch.Tensor:
         e = d + i
         if not 0 <= e < n:
             return torch.zeros((F, rows, W), dtype=f32, device=dev)
-        return (parts[e][:, ts - rows :] if i < 0 else parts[e][:, :rows]).to(dev)
+        if i in received:
+            return received[i].to(dev)
+        return hop_rows(parts[e], i, rows).to(dev)
 
-    hops_up = -(-halo_up // ts)
-    hops_dn = -(-halo_dn // ts)
-    above = [hop(-i, halo_up - (i - 1) * ts if i == hops_up else ts) for i in range(hops_up, 0, -1)]
-    below = [hop(i, halo_dn - (i - 1) * ts if i == hops_dn else ts) for i in range(1, hops_dn + 1)]
+    hops = halo_hops(d, ts, halo_up, halo_dn)
+    above = [hop(i, rows) for i, rows in hops if i < 0]
+    below = [hop(i, rows) for i, rows in hops if i > 0]
     return torch.cat([*above, parts[d], *below], dim=1)
 
 
@@ -408,15 +462,50 @@ def _paste(canvas: torch.Tensor, block: torch.Tensor, row: int, col: int) -> Non
         canvas[:, row + a : row + b, col : col + block.shape[2]] = block[:, a:b]
 
 
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+@dataclass(frozen=True)
+class RemoteShard:
+    """Destination rows [r0, r1) of a row shard that another process owns."""
+
+    r0: int
+    r1: int
+    rank: int
+
+
+@dataclass(frozen=True)
+class LocalShard:
+    """Rows of a sharded result that this process holds: ``data`` is
+    ``result[index]``, finalized on the shard's device (the twin of a
+    ``jax.Array``'s addressable shard)."""
+
+    index: tuple[slice, ...]
+    data: torch.Tensor
+
+
+def _drop_frame_axis(out):
+    """The result of a 2-D source from that of its one-frame batch."""
+    if isinstance(out, list):
+        return [LocalShard(s.index[1:], s.data[0]) for s in out]
+    return out[0]
+
+
 class ShardedApply:
     """A built sharded apply: ``fn(src, out_dtype=..., peak=...,
     float_clamp_min=...)`` maps (H, W) or (F, H, W) sources to the finalized
-    (F?, dst_h, dst_w) result on ``mesh.devices[0][0]``.
+    (F?, dst_h, dst_w) result on ``mesh.devices[0][0]``; on a mesh that spans
+    processes, to the list of this process's ``LocalShard``s.
 
     With ``data_axis='data'`` the frames split evenly over the mesh's data
     rows, else every frame runs on data row 0. ``info`` records the interior,
     under the JAX package's keys; ``shards[j][d]`` is row shard d of data row
-    j (None where the shard owns no destination rows).
+    j (None where the shard owns no destination rows, a ``RemoteShard``
+    where another process owns it). ``exchange`` holds the last call's
+    cross-process traffic: the bytes this process sent and received and the
+    host seconds spent exchanging (under gloo the staging copies wait for
+    the card; under NCCL the seconds count only the host's part).
     """
 
     def __init__(
@@ -438,48 +527,159 @@ class ShardedApply:
         self.halo = halo
         self.replicate = replicate
         self.info = info
+        self.exchange = {"bytes_sent": 0, "bytes_received": 0, "seconds": 0.0}
         td = -(-op.dst_height // mesh.n_rows)
+
+        def shard(j, d, dev):
+            r0, r1 = d * td, min((d + 1) * td, op.dst_height)
+            if r0 >= r1:
+                return None
+            if not mesh.is_local(j, d):
+                return RemoteShard(r0, r1, mesh.ranks[j][d])
+            return make_shard(d, dev, r0, r1)
+
         groups = mesh.devices if data_axis else mesh.devices[:1]
-        self.shards = [
-            [
-                make_shard(d, dev, d * td, min((d + 1) * td, op.dst_height))
-                if d * td < op.dst_height
-                else None
-                for d, dev in enumerate(row)
-            ]
-            for row in groups
-        ]
+        self.shards = [[shard(j, d, dev) for d, dev in enumerate(row)] for j, row in enumerate(groups)]
+
+    def _part(self, src_f: torch.Tensor, d: int, dev: torch.device) -> torch.Tensor:
+        """Shard d's (F, ts, W) source rows on ``dev``, zero rows past the source."""
+        ts = self.ts
+        a, b = min(d * ts, src_f.shape[1]), min((d + 1) * ts, src_f.shape[1])
+        part = src_f[:, a:b].to(dev)
+        if b - a < ts:
+            part = torch.nn.functional.pad(part, (0, 0, 0, ts - (b - a)))
+        return part
 
     def bands(self, src_f: torch.Tensor, j: int = 0) -> list[torch.Tensor | None]:
-        """Every shard's band of data row ``j`` from float32 frames (F, src_h, src_w)."""
-        n, ts = self.mesh.n_rows, self.ts
-        src_p = torch.nn.functional.pad(src_f, (0, 0, 0, ts * n - src_f.shape[1]))
-        devices = self.mesh.devices[j]
-        parts = [src_p[:, d * ts : (d + 1) * ts].to(dev) for d, dev in enumerate(devices)]
+        """This process's shards' bands of data row ``j`` from float32
+        frames (F, src_h, src_w); None for the other entries. Only this
+        process's shards' rows of ``src_f`` are read."""
+        mesh = self.mesh
+        local = [isinstance(s, Shard) for s in self.shards[j]]
+        parts = [
+            self._part(src_f, d, dev) if mesh.is_local(j, d) else None
+            for d, dev in enumerate(mesh.devices[j])
+        ]
+        received = {}
+        if mesh.spans_ranks and len(set(mesh.ranks[j])) > 1:
+            shape = (src_f.shape[0], self.ts, src_f.shape[2])
+            if self.replicate:
+                parts = self._gather_parts(parts, j, shape)
+            else:
+                received = self._exchange_halos(parts, j, shape)
         return [
-            None if s is None else collect_band(parts, d, *self.halo, self.replicate)
-            for d, s in enumerate(self.shards[j])
+            collect_band(parts, d, *self.halo, self.replicate, received.get(d))
+            if local[d]
+            else None
+            for d in range(mesh.n_rows)
         ]
 
-    def __call__(self, src, out_dtype=f32, peak=None, float_clamp_min=None) -> torch.Tensor:
+    @staticmethod
+    def _staging(dev: torch.device | None) -> torch.device:
+        """Where rows on ``dev`` (None: this process holds none) cross
+        processes: gloo sends host tensors, so CUDA rows go through host
+        buffers; NCCL sends them from the card."""
+        if torch.distributed.get_backend() != "nccl":
+            return torch.device("cpu")
+        return dev if dev is not None else torch.device("cuda", torch.cuda.current_device())
+
+    def _gather_parts(self, parts, j: int, shape) -> list[torch.Tensor]:
+        """Every shard's part of data row ``j``: this process's own, the
+        others' from one ``all_gather`` of the processes' stacked parts
+        (zero-padded to the largest count)."""
+        dist = torch.distributed
+        ranks = self.mesh.ranks[j]
+        me, world = dist.get_rank(), dist.get_world_size()
+        mine = [p for p in parts if p is not None]
+        t0 = time.perf_counter()
+        send = torch.zeros(
+            (max(map(ranks.count, range(world))), *shape),
+            dtype=f32,
+            device=self._staging(mine[0].device if mine else None),
+        )
+        for i, p in enumerate(mine):
+            send[i] = p
+        recv = [torch.empty_like(send) for _ in range(world)]
+        dist.all_gather(recv, send)
+        out, seen = [], [0] * world
+        for d, r in enumerate(ranks):
+            out.append(parts[d] if r == me else recv[r][seen[r]])
+            seen[r] += 1
+        nbytes = _nbytes([send]) * (world - 1)
+        self._count(time.perf_counter() - t0, nbytes, nbytes)
+        return out
+
+    def _count(self, seconds: float, sent: int, received: int) -> None:
+        self.exchange["seconds"] += seconds
+        self.exchange["bytes_sent"] += sent
+        self.exchange["bytes_received"] += received
+
+    def _exchange_halos(self, parts, j: int, shape) -> dict[int, dict[int, torch.Tensor]]:
+        """The halo rows of data row ``j`` that cross processes, by one
+        ``batch_isend_irecv``: {d: {i: hop i's rows}} for this process's
+        shards d. Every process walks the same (shard, hop) order, and each
+        message's tag is its place in it."""
+        dist = torch.distributed
+        ranks, n, me = self.mesh.ranks[j], self.mesh.n_rows, dist.get_rank()
+        F, ts, W = shape
+        ops, sent, received = [], [], {}
+        tag = 0
+        t0 = time.perf_counter()
+        for d in range(n):
+            if self.shards[j][d] is None:
+                continue
+            for i, rows in halo_hops(d, ts, *self.halo):
+                e = d + i
+                if not 0 <= e < n or ranks[e] == ranks[d]:
+                    continue
+                tag += 1
+                if ranks[e] == me:
+                    buf = hop_rows(parts[e], i, rows)
+                    buf = buf.to(self._staging(buf.device)).contiguous()
+                    ops.append(dist.P2POp(dist.isend, buf, ranks[d], tag=tag))
+                    sent.append(buf)
+                elif ranks[d] == me:
+                    dev = self._staging(parts[d].device)
+                    buf = torch.empty((F, rows, W), dtype=f32, device=dev)
+                    ops.append(dist.P2POp(dist.irecv, buf, ranks[e], tag=tag))
+                    received.setdefault(d, {})[i] = buf
+        if ops:
+            for w in dist.batch_isend_irecv(ops):
+                w.wait()
+        self._count(
+            time.perf_counter() - t0,
+            _nbytes(sent),
+            _nbytes(b for hops in received.values() for b in hops.values()),
+        )
+        return received
+
+    def __call__(self, src, out_dtype=f32, peak=None, float_clamp_min=None):
         if src.dim() == 2:
-            return self(src[None], out_dtype, peak, float_clamp_min)[0]
+            return _drop_frame_axis(self(src[None], out_dtype, peak, float_clamp_min))
         groups = len(self.shards)
         if src.shape[0] % groups:
             raise ValueError(
                 f"sharded apply: {src.shape[0]} frames do not split over {groups} data rows"
             )
+        self.exchange = {"bytes_sent": 0, "bytes_received": 0, "seconds": 0.0}
         src_f = source_f32(src, float_clamp_min)
         dev0 = self.mesh.devices[0][0]
-        out = []
+        fg = src.shape[0] // groups
+        out, local = [], []
         for j, chunk in enumerate(torch.tensor_split(src_f, groups)):
-            rows = [
-                finalize(s(band), out_dtype, peak).to(dev0)
-                for s, band in zip(self.shards[j], self.bands(chunk, j))
-                if s is not None
-            ]
+            pairs = [(s, b) for s, b in zip(self.shards[j], self.bands(chunk, j)) if b is not None]
+            if self.mesh.spans_ranks:
+                local += [
+                    LocalShard(
+                        (slice(j * fg, (j + 1) * fg), slice(s.r0, s.r1), slice(0, self.op.dst_width)),
+                        finalize(s(band), out_dtype, peak),
+                    )
+                    for s, band in pairs
+                ]
+                continue
+            rows = [finalize(s(band), out_dtype, peak).to(dev0) for s, band in pairs]
             out.append(torch.cat(rows, dim=1))
-        return torch.cat(out, dim=0)
+        return local if self.mesh.spans_ranks else torch.cat(out, dim=0)
 
 
 # ---------------------------------------------------------------------------
@@ -851,10 +1051,20 @@ class ShardedApplier:
         self.effective_precision = self.info.get("precision", "fp32")
 
     def __call__(self, src, out_dtype=f32, peak=None, float_clamp_min=None):
+        """The (F?, dst_h, dst_w) result; on a mesh that spans processes,
+        this process's ``LocalShard``s of it (the padded frames cut)."""
         if src.dim() == 2:
-            return self(src[None], out_dtype, peak, float_clamp_min)[0]
+            return _drop_frame_axis(self(src[None], out_dtype, peak, float_clamp_min))
         F = src.shape[0]
         pad = -F % self.mesh.n_data
         if pad:
             src = torch.cat([src, src[-1:].expand(pad, *src.shape[1:])])
-        return self._fn(src, out_dtype, peak, float_clamp_min)[:F]
+        out = self._fn(src, out_dtype, peak, float_clamp_min)
+        if not isinstance(out, list):
+            return out[:F]
+        cut = []
+        for s in out:
+            f0, f1 = s.index[0].start, min(s.index[0].stop, F)
+            if f1 > f0:
+                cut.append(LocalShard((slice(f0, f1), *s.index[1:]), s.data[: f1 - f0]))
+        return cut

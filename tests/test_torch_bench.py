@@ -103,3 +103,38 @@ def test_bf16_and_missing_card_raise(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         bench.main(["--frames", "1"], size=(48, 32, 96, 64))
+
+
+def test_scaling_prints_the_jax_harness_line(tmp_path):
+    """``--scaling --device cpu --frames 2`` as ``python -m``: exit 0, the
+    root ``bench.py --scaling`` keys on the last line, k = 1, 2, 4 and 8,
+    the honest CPU mode, and the same object in ``$JINCRESIZE_SCALING_OUT``."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    out_path = tmp_path / "scaling.json"
+    env = {**os.environ, "JINCRESIZE_SCALING_OUT": str(out_path), "OMP_NUM_THREADS": "1",
+           "PYTHONPATH": str(root) + os.pathsep + os.environ.get("PYTHONPATH", "")}  # fmt: skip
+    r = subprocess.run(
+        [sys.executable, "-m", "jincresize_tpu_torch.bench", "--scaling", "--device", "cpu",
+         "--frames", "2"],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300,
+    )  # fmt: skip
+    assert r.returncode == 0, r.stderr
+    res = json.loads(r.stdout.strip().splitlines()[-1])
+    assert list(res) == ["metric", "value", "unit", "vs_baseline", "per_k", "mode",
+                         "mesh_scaling_like_engine", "note"]  # fmt: skip
+    assert res["metric"] == "nnz_scaling_8dev" and res["unit"] == "fraction_of_linear"
+    assert res["vs_baseline"] == pytest.approx(res["value"] / 0.9)
+    assert [p["k"] for p in res["per_k"]] == [1, 2, 4, 8]
+    assert all(set(p) == {"k", "ms_batch", "gnnz_s", "interior"} for p in res["per_k"])
+    assert res["per_k"][0]["interior"] == "fused"
+    assert all(p["interior"] == "conv-fused" for p in res["per_k"][1:])
+    assert res["mode"] == "serial-shards-cpu" and "one after another" in res["note"]
+    gnnz = [p["gnnz_s"] for p in res["per_k"]]
+    assert res["value"] == pytest.approx(gnnz[-1] / (8 * gnnz[0]))
+    assert json.loads(out_path.read_text()) == res
+    assert "cpu" in r.stderr.splitlines()[0]

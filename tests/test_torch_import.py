@@ -13,8 +13,8 @@ import numpy as np
 import jincresize_tpu_torch
 from jincresize_tpu_torch import (api, apply_conv, apply_conv_seg, apply_gather,
                                   apply_strips_fast, apply_xla, bench, cache, cli, compose,
-                                  entry, filters, geometry, golden, metrics, native, operator,
-                                  phase, sharding)
+                                  distributed, entry, filters, geometry, golden, metrics,
+                                  native, operator, phase, sharding)
 from jincresize_tpu_torch.kernels import _build, fused, gather, probe, seg, strips
 from jincresize_tpu_torch.tools import (_timing, assemble_breakdown, bench_gather,
                                         device_loop_timing, fused_tile_sweep,
