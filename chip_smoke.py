@@ -44,11 +44,15 @@ Phases (each raises on failure; nothing catches it):
    printed) and the strip kernel is held to its plain form at every F on
    both composed planes, whose bottom strips step their window start from
    row to row (a plane it declines is printed with the reason); the bf16
-   modes (``precision='bf16'``: operands rounded to bfloat16) of the fused
-   kernel on every conv case's luma plane and of the narrow shape on the
-   shape cases, and of the seg kernel on its two cases at F = 1, 2, 3, 4 and
-   8, each against its plain form (2e-6, 4e-6 for deep taps; 0 expected) and
-   against the fp32 mode (``kernels.fused.bf16_bound``); every launch counted;
+   modes (``precision='bf16'``: operands rounded to bfloat16, the sums on
+   the tensor cores) of the fused kernel on every conv case's luma plane and
+   the full 3840x2160 -> 1920x1080 tap-16 one, and of the narrow shape on
+   the shape cases (0 against the default shape), and of the seg kernel on
+   its two cases and the full 2560x1440 -> 1920x1080 tap-16 plane (fs 44)
+   at F = 1, 2, 3, 4 and 8, each against its plain form within
+   ``kernels.fused.tc_sum_bound`` (the reading and its share of the bound
+   printed) and against the fp32 mode (``kernels.fused.bf16_bound``); every
+   launch counted;
 3. end to end, one path after another, each with the launch counts set to 0
    just before and read just after, on 4-frame yuv420p8 clips:
    3840x2160 -> 7680x4320 tap 8 (periodic: ``fused``), 2560x1440 -> 3840x2160
@@ -101,11 +105,12 @@ Phases (each raises on failure; nothing catches it):
    ratio to cuDNN's time at both, the same for the strip kernel against one
    ``torch.nn.functional.conv1d`` a strip (TF32 off; 4e-6), and on the
    chain's composed luma plane, the bf16 modes of the fused kernel at 4K ->
-   8K and 4K -> 1080p tap 16 (beside cuDNN's conv2d on bfloat16 tensors) and
-   of the seg kernel at 1440p -> 4K tap 8, each timed beside its fp32 mode
-   in the same turns, its plain form once (held to it and to the fp32
-   mode), the full-size 2/3 3840x2160 -> 2560x1440
-   tap-16 plan once (against its plain form, 0), the seg and gather
+   8K, 4K -> 1080p tap 16 and the 2/3 plan (beside cuDNN's conv2d on
+   bfloat16 tensors) and of the seg kernel at 1440p -> 4K tap 8 and 1440p
+   -> 1080p tap 16, each timed beside its fp32 mode in the same turns and
+   beside the previous bf16 modes' times, its plain form once (held to it
+   within ``tc_sum_bound`` and to the fp32 mode), the full-size 2/3 3840x2160 ->
+   2560x1440 tap-16 plan once (against its plain form, 0), the seg and gather
    appliers on the same 1440p -> 4K plane, the seg and gather kernels on
    both drifted planes (1440p -> 4K tap 8, 1440p -> 1080p tap 16) beside
    their bounds, the previous seg kernel's time and each other, the gather and band kernels on
@@ -230,6 +235,11 @@ PREV_MS_PER_FRAME = {"gather": 1.345, "gather_band": 1.093}
 # 1440p -> 4K tap 8 (PERF.md kernel table, H100 80GB HBM3, 700 W), printed
 # beside this run's.
 PREV_SEG_MS_PER_FRAME = 0.458
+# The previous bf16 modes (the fp32 kernels' FMA chains on operands rounded
+# as they were read), ms/frame on the 8-frame fp32 luma batches (PERF.md
+# kernel table, H100 80GB HBM3, 700 W), printed beside this run's tensor-core
+# kernels. The 2/3 plan and the fs-44 seg plane were not timed in bf16 then.
+PREV_BF16_MS_PER_FRAME = {"fused": 0.745, "deep_fused": 0.687, "seg": 0.297}
 # The chain: 1080p -> 4K -> 8K tap 3 (2x then 2x), two frames.
 CHAIN = ((1920, 1080), (3840, 2160), (7680, 4320))
 CHAIN_TAP = 3
@@ -284,6 +294,21 @@ def f32_chain_bound(st, src) -> float:
 
     s = float(band_anchors(st).abs().sum((3, 4)).max())
     return f32_sum_bound(st.fs**2, s, float(src.abs().max()))
+
+
+def tc_bound(tables, src) -> float:
+    """``kernels.fused.tc_sum_bound`` of a bf16 launch of the fused or seg
+    kernel on ``src``: n the taps a pixel sums (Kh*Kw of the phase kernels,
+    fs**2 of the pair blocks), sum|w| of the largest rounded kernel or pair
+    block, max|src| of the rounded source."""
+    from jincresize_tpu_torch.kernels import fused
+
+    if isinstance(tables, fused.FusedInterior):
+        _, kh, kw = tables.kernels.shape
+        n, w = kh * kw, tables.kernels.abs().sum((1, 2)).max()
+    else:
+        n, w = tables.fs**2, tables.blocks.abs().sum((2, 3)).max()
+    return fused.tc_sum_bound(n, float(w), float(fused.round_bf16(src).abs().max()))
 
 
 def bound_ms(ops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
@@ -664,9 +689,10 @@ def main() -> int:
         return worst
 
     def check_bf16_fused(name, op, rng, frames=2):
-        """The fused kernel's bf16 mode against its plain form (tol_of: expect
-        0, the fp32 mode's order on rounded operands) and against the fp32
-        mode (bf16_bound), on fp32 sources; returns |bf16 kernel - plain|."""
+        """The fused kernel's bf16 mode (the tensor cores) against its plain
+        form (``tc_bound``: the sums run in another order) and against the
+        fp32 mode (bf16_bound), on fp32 sources; returns |bf16 kernel -
+        plain|."""
         plan = plan_phases(op)
         fi = fused_k.make_fused_interior(op, plan, dev, "bf16")
         assert fi.bf16, name
@@ -677,13 +703,15 @@ def main() -> int:
         torch.cuda.synchronize()
         assert counts() == {**before, "fused": before["fused"] + 1}, (name, before, counts())
         assert torch.isfinite(got).all(), name
-        err = float((got - ref).abs().max())
+        err, tcb = float((got - ref).abs().max()), tc_bound(fi, src)
         f32 = fused_k.fused_interior(fused_k.make_fused_interior(op, plan, dev), src)
         moved, bound = float((got - f32).abs().max()), fused_k.bf16_bound(op, float(src.max()))
         print(f"[2] {name:28s} fused bf16 mode fs={op.filter_size} shape="
-              f"{fused_k.shape_name(fi.shape)} g={fi.g}: max |err| vs its plain form {err:.3g}, "
-              f"vs the fp32 mode {moved:.3g} (bound {bound:.3g})")
-        assert err <= tol_of(op, 32) and 0 < moved <= bound, (name, err, moved, bound)
+              f"{fused_k.shape_name(fi.shape)} g={fi.g}: max |err| vs its plain form {err:.3g} "
+              f"(tc_sum_bound {tcb:.3g}, reading / bound {err / tcb:.4f}), vs the fp32 mode "
+              f"{moved:.3g} (bound {bound:.3g})")
+        assert err <= tcb and 0 < moved <= bound, (name, err, tcb, moved, bound)
+        tc_readings.append(err / tcb)
         return err
 
     def check_interior(kind, name, op, bits, rng, frames=2, precision="fp32"):
@@ -716,12 +744,16 @@ def main() -> int:
         moved = ""
         if precision == "fp32":
             assert err == 0, (name, kind, err)  # both kernels sum in the plain form's order: exact
-        else:  # the fp32 mode's limit (expect 0), and the fp32 mode within bf16_bound
-            assert bits == 32 and err <= tol_of(op, bits), (name, kind, precision, err)
+        else:  # tc_sum_bound (the tensor cores' order), and the fp32 mode within bf16_bound
+            tcb = tc_bound(tables, src)
+            assert bits == 32 and err <= tcb, (name, kind, precision, err, tcb)
+            tc_readings.append(err / tcb)
             f32 = wrappers[kind](seg_k.make_seg_interior(op, plan, dev), src)
             d, bound = float((got - f32).abs().max()), fused_k.bf16_bound(op, float(src.max()))
             assert 0 < d <= bound, (name, d, bound)
-            moved = f", vs the fp32 mode {d:.3g} (bound {bound:.3g})"
+            moved = (f" (tc_sum_bound {tcb:.3g}, reading / bound {err / tcb:.4f}, frames a "
+                     f"block {seg_k.frames_of(tables, frames)}), vs the fp32 mode {d:.3g} "
+                     f"(bound {bound:.3g})")
         print(f"[2] {name:34s} {kind:6s} {info} classes={op.pair_blocks.shape[:2]} "
               f"fs={op.filter_size} F={frames} {precision} err={err:.3g}"
               f"{'' if bits == 32 else ' LSB'}{moved}")
@@ -802,6 +834,7 @@ def main() -> int:
 
     rng = np.random.default_rng(2026)
     strips_f64 = []  # (plane, fs, F, |strip kernel - float64 plain form|, f32_chain_bound)
+    tc_readings = []  # |bf16 kernel - plain form| / tc_sum_bound, every bf16 check
     # The bf16 modes of the fused and seg kernels are counted apart.
     max_err = dict.fromkeys([*wrappers, "fused_bf16", "seg_bf16"], 0.0)
     covered = dict.fromkeys(max_err, 0)
@@ -921,6 +954,9 @@ def main() -> int:
     print(f"[2] deep taps (fs**2 > 1200) on fp32 sources: max |fused kernel - plain form| "
           f"{deep_err['fused']:.3g} (bound {DEEP_TOL:g}), max |strip kernel - its fp32 chain| "
           f"{deep_err['strips']:.3g} (bound 0)")
+    err = check_bf16_fused("3840x2160->1920x1080 tap16 luma", deep_r.op_luma, rng)
+    max_err["fused_bf16"] = max(max_err["fused_bf16"], err)
+    covered["fused_bf16"] += 1
 
     paths = {}
     for key, (sw, sh, dw, dh), seed in (("drift", DRIFT, 200), ("aperiodic", APERIODIC, 300)):
@@ -958,6 +994,11 @@ def main() -> int:
         err = check_interior(kind, f"{deep_drift_geo} tap16 luma", deep_drift_r.op_luma, 32, rng)
         covered[kind] += 1
         max_err[kind] = max(max_err[kind], err)
+    for frames in KERNEL_FRAMES:  # the bf16 mode at fs 44: 1, 2 and 4 frames a block
+        err = check_interior("seg", f"{deep_drift_geo} tap16 luma", deep_drift_r.op_luma, 32, rng,
+                             frames, "bf16")
+        covered["seg_bf16"] += 1
+        max_err["seg_bf16"] = max(max_err["seg_bf16"], err)
 
     # The deep aperiodic plane: 4K -> 1366x768 tap 16 (fs = 92), the gather
     # kernel on two frames and the band kernel on its four row shards.
@@ -977,6 +1018,9 @@ def main() -> int:
     max_err["gather_band"] = max(max_err["gather_band"], err)
     assert all(covered.values()), covered
     assert sorted(shapes_checked) == sorted(SHAPE_CASES), shapes_checked
+    print(f"[2] bf16 kernels against their plain forms: {len(tc_readings)} checks, largest "
+          f"reading / tc_sum_bound {max(tc_readings):.4f}; max |err| fused {max_err['fused_bf16']:.3g}, "
+          f"seg {max_err['seg_bf16']:.3g}")
 
     # The chain of phase 3: two 2x stages composed on the host into one
     # operator a plane, here, into a fresh cache directory (phase 3 loads
@@ -1479,7 +1523,8 @@ def main() -> int:
         output pixel (at the bf16 peak in the bf16 mode); the source, the
         weights and the output once."""
         out_px = src.shape[0] * fi.out_shape[0] * fi.out_shape[1]
-        return bound_ms(2 * fi.fs**2 * out_px, tensor_bytes(src, fi, skip=("kernels",)) + 4 * out_px,
+        skip = ("kernels", "w") if fi.bf16 else ("kernels",)  # bf16: the kernel reads wtc
+        return bound_ms(2 * fi.fs**2 * out_px, tensor_bytes(src, fi, skip=skip) + 4 * out_px,
                         PEAK_BF16_FLOPS if fi.bf16 else PEAK_FP32_FLOPS)  # fmt: skip
 
     card = card_line()
@@ -1561,35 +1606,41 @@ def main() -> int:
           f"{busy - htod - dtoh:.3f} ms [{card}]")
     assert any("strips_kernel" in k for k in ops), list(ops)[:10]
 
-    def bf16_mode(key, geo, op, err_key, run, plain, run32, src):
+    bf16_rows = []  # (plane, bf16 ms/frame, fp32 ms/frame, bound ms/frame, by, previous ms/frame)
+
+    def bf16_mode(key, geo, op, err_key, tables, run, plain, run32, src):
         """The bf16 mode ``key + '_bf16'`` on an 8-frame fp32 batch, its time
         (``ms``) taken beside the fp32 mode's (``key``) in the same turns:
-        its plain form once (``plain_once``), |kernel - plain| (tol_of:
-        expect 0) and |kernel - fp32 mode| (bf16_bound), its share of its
-        bound (the bf16 tensor-core peak or bytes), then of the fp32 mode's
-        (the fp32-FMA peak or bytes) and, for the fused kernel, cuDNN's bf16
-        conv2d."""
+        its plain form once (``plain_once``), |kernel - plain| (``tc_bound``)
+        and |kernel - fp32 mode| (bf16_bound), its share of its bound (the
+        bf16 tensor-core peak or bytes), then of the fp32 mode's (the
+        fp32-FMA peak or bytes), the previous bf16 mode's time where there is
+        one and, for the fused kernel, cuDNN's bf16 conv2d."""
         ref, ms[f"{key}_bf16_plain"] = plain_once(plain)
         got = run()
-        err = float((got - ref).abs().max())
+        err, tcb = float((got - ref).abs().max()), tc_bound(tables, src)
         moved, bound = float((got - run32()).abs().max()), fused_k.bf16_bound(op, float(src.max()))
         del ref, got
         t16, t32, (b, by) = ms[f"{key}_bf16"], ms[key], bounds[f"{key}_bf16"]
         b32, by32 = bounds[key]
         lib = ms.get(f"{key}_bf16_conv2d")
+        prev = PREV_BF16_MS_PER_FRAME.get(key)
         print(f"[4] {key} bf16 mode {geo}: {t16 / TIMING_FRAMES:.4f} ms/frame, fp32 mode "
               f"{t32 / TIMING_FRAMES:.4f} (bf16/fp32 {t16 / t32:.3f}), bound {b / TIMING_FRAMES:.4f} "
               f"({by}, bf16 at {PEAK_BF16_FLOPS / 1e12:g} TFLOP/s), {b / t16:.1%} of it; "
               f"fp32-FMA bound {b32 / TIMING_FRAMES:.4f} ({by32}): bf16 mode {b32 / t16:.1%}, "
-              f"fp32 mode {b32 / t32:.1%} of it; plain form "
-              f"{ms[f'{key}_bf16_plain'] / TIMING_FRAMES:.3f} ms/frame"
+              f"fp32 mode {b32 / t32:.1%} of it; "
+              + (f"previous bf16 mode {prev} ms/frame ({prev / (t16 / TIMING_FRAMES):.2f}x this "
+                 f"kernel's time); " if prev is not None else "")
+              + f"plain form {ms[f'{key}_bf16_plain'] / TIMING_FRAMES:.3f} ms/frame"
               + (f", bf16 cuDNN conv2d {lib / TIMING_FRAMES:.4f} ms/frame (kernel {t16 / lib:.3f}x "
                  f"its time)" if lib is not None else "")
-              + f"; max |err| vs its plain form {err:.3g}, vs the fp32 mode {moved:.3g} "
-              f"(bound {bound:.3g}) [{card}]")  # fmt: skip
-        assert err <= tol_of(op, 32) and 0 < moved <= bound, (key, err, moved, bound)
+              + f"; max |err| vs its plain form {err:.3g} (tc_sum_bound {tcb:.3g}, reading / "
+              f"bound {err / tcb:.4f}), vs the fp32 mode {moved:.3g} (bound {bound:.3g}) [{card}]")  # fmt: skip
+        assert err <= tcb and 0 < moved <= bound, (key, err, tcb, moved, bound)
         max_err[err_key] = max(max_err[err_key], err)
         covered[err_key] += 1
+        bf16_rows.append((geo, t16 / TIMING_FRAMES, t32 / TIMING_FRAMES, b / TIMING_FRAMES, by, prev))
 
     app = resizer._applier_luma
     tsrc = torch.from_numpy(
@@ -1629,7 +1680,7 @@ def main() -> int:
     for k, (b, by) in bounds.items():
         print(f"[4] {k} bound {b:.3f} ms per batch ({by}): kernel at {b / ms[k]:.1%} of it [{card}]")
     bounds["fused_bf16"] = fused_bound(fi16, tsrc)
-    bf16_mode("fused", "4K->8K tap8", resizer.op_luma, "fused_bf16",
+    bf16_mode("fused", "4K->8K tap8", resizer.op_luma, "fused_bf16", fi16,
               lambda: fused_k.fused_interior(fi16, tsrc),
               lambda: fused_k.fused_interior_plain(fi16, tsrc),
               lambda: fused_k.fused_interior(app.fi, tsrc), tsrc)  # fmt: skip
@@ -1684,7 +1735,7 @@ def main() -> int:
         (strips_conv1d(dapp.strips_spec, tsrc_deep, deep_ws)
          - strips_k.strips(dapp.strips_spec, tsrc_deep)).abs().max())  # fmt: skip
     bounds["deep_fused_bf16"] = fused_bound(dfi16, tsrc_deep)
-    bf16_mode("deep_fused", f"{deep_geo} tap16", deep_r.op_luma, "fused_bf16",
+    bf16_mode("deep_fused", f"{deep_geo} tap16", deep_r.op_luma, "fused_bf16", dfi16,
               lambda: fused_k.fused_interior(dfi16, tsrc_deep),
               lambda: fused_k.fused_interior_plain(dfi16, tsrc_deep),
               lambda: fused_k.fused_interior(dapp.fi, tsrc_deep), tsrc_deep)  # fmt: skip
@@ -1736,7 +1787,23 @@ def main() -> int:
           f"{ms23 / TIMING_FRAMES:.4f} ms/frame, bound {b23 / TIMING_FRAMES:.4f} ({by23}), "
           f"{b23 / ms23:.1%} of it, max |err| vs plain {err23} [{card}]")
     assert err23 == 0, err23
-    del tsrc23, fi23
+    # Its bf16 mode beside the fp32 mode, in turns, and cuDNN's bf16 conv2d.
+    fi23_16 = fused_k.make_fused_interior(op23, plan23, dev, "bf16")
+    src23_16, k23_16 = tsrc23.to(torch.bfloat16), fi23_16.kernels.to(torch.bfloat16)
+    runs23 = (("thirds_fused", lambda: fused_k.fused_interior(fi23, tsrc23)),
+              ("thirds_fused_bf16", lambda: fused_k.fused_interior(fi23_16, tsrc23)),
+              ("thirds_fused_bf16_conv2d", lambda: conv2d_interior(fi23_16, src23_16, k23_16)))
+    for order in (runs23, runs23[::-1]):
+        for k, fn in order:
+            ms.setdefault(k, []).append(cuda_ms(fn, 10))
+    for k, _ in runs23:
+        ms[k] = statistics.median(ms[k])
+    bounds["thirds_fused"], bounds["thirds_fused_bf16"] = (b23, by23), fused_bound(fi23_16, tsrc23)
+    bf16_mode("thirds_fused", f"{DEEP[0]}x{DEEP[1]}->{THIRDS[0]}x{THIRDS[1]} tap16", op23,
+              "fused_bf16", fi23_16, lambda: fused_k.fused_interior(fi23_16, tsrc23),
+              lambda: fused_k.fused_interior_plain(fi23_16, tsrc23),
+              lambda: fused_k.fused_interior(fi23, tsrc23), tsrc23)  # fmt: skip
+    del tsrc23, fi23, fi23_16, src23_16, k23_16
 
     # The new paths: each kernel and its plain form on its own path's luma
     # plane, the gather kernel on the drifted plane too, and the two
@@ -1811,6 +1878,8 @@ def main() -> int:
         form's) and its output once."""
         out_px = src.shape[0] * si.out_shape[0] * si.out_shape[1]
         plain_only = ("pair_blocks_t", "cls_y", "cls_x", "roff_y", "roff_x")
+        if si.bf16:  # the tensor-core kernel reads tc_blocks and the column lists
+            plain_only += ("blocks", "lcx")
         return bound_ms(2 * si.fs**2 * out_px, tensor_bytes(src, si, skip=plain_only) + 4 * out_px,
                         PEAK_BF16_FLOPS if si.bf16 else PEAK_FP32_FLOPS)  # fmt: skip
 
@@ -1825,7 +1894,7 @@ def main() -> int:
         b, by = bounds[k]
         print(f"[4] {k} bound {b:.3f} ms per batch ({by}): kernel at {b / ms[k]:.1%} of it [{card}]")
     bounds["seg_bf16"] = seg_bound(si16, tsrc_d)
-    bf16_mode("seg", f"{drift_geo} tap8", drift_r.op_luma, "seg_bf16",
+    bf16_mode("seg", f"{drift_geo} tap8", drift_r.op_luma, "seg_bf16", si16,
               lambda: seg_k.seg_interior(si16, tsrc_d),
               lambda: seg_k.seg_interior_plain(si16, tsrc_d),
               lambda: seg_k.seg_interior(seg_app.si, tsrc_d), tsrc_d)  # fmt: skip
@@ -1881,9 +1950,12 @@ def main() -> int:
     # form once, its output held to the kernel's: 0); then both drifted
     # planes side by side, with the previous seg kernel's time.
     dd_si = deep_drift_r._applier_luma.si
+    dd_si16 = seg_k.make_seg_interior(deep_drift_r.op_luma, plan_phases_seg(deep_drift_r.op_luma),
+                                      dev, "bf16")  # fmt: skip
     dd_gi = GatherApplier(deep_drift_r.op_luma, device=dev).gi
     tsrc_dd = torch.from_numpy(rng.random((TIMING_FRAMES, ddsh, ddsw), dtype=np.float32)).to(dev)
     dd_runs = (("deep_seg", lambda: seg_k.seg_interior(dd_si, tsrc_dd)),
+               ("deep_seg_bf16", lambda: seg_k.seg_interior(dd_si16, tsrc_dd)),
                ("deep_gather_drift", lambda: gather_k.gather_interior(dd_gi, tsrc_dd)))  # fmt: skip
     dd_ms = {}
     for order in (dd_runs, dd_runs[::-1]):  # seg, gather, gather, seg
@@ -1897,7 +1969,12 @@ def main() -> int:
     assert err == 0, err
     del ref
     bounds["deep_seg"] = seg_bound(dd_si, tsrc_dd)
+    bounds["deep_seg_bf16"] = seg_bound(dd_si16, tsrc_dd)
     bounds["deep_gather_drift"] = bound_ms(*gather_like_bound(dd_gi, tsrc_dd, *dd_gi.out_shape))
+    bf16_mode("deep_seg", f"{deep_drift_geo} tap16", deep_drift_r.op_luma, "seg_bf16", dd_si16,
+              lambda: seg_k.seg_interior(dd_si16, tsrc_dd),
+              lambda: seg_k.seg_interior_plain(dd_si16, tsrc_dd),
+              lambda: seg_k.seg_interior(dd_si, tsrc_dd), tsrc_dd)  # fmt: skip
     for geo, tap, sk, gk, si, gi in ((drift_geo, 8, "seg", "gather_drift", seg_app.si, gi_drift),
                                      (deep_drift_geo, 16, "deep_seg", "deep_gather_drift", dd_si, dd_gi)):
         (bs, bys), (bg, byg) = bounds[sk], bounds[gk]
@@ -1912,7 +1989,12 @@ def main() -> int:
               f"interior's time in this run [{card}]")
     print(f"[4] seg interior {drift_geo} tap8: {PREV_SEG_MS_PER_FRAME / (ms['seg'] / TIMING_FRAMES):.2f}x "
           f"faster than the previous kernel's {PREV_SEG_MS_PER_FRAME} [{card}]")
-    del tsrc_dd, dd_gi, gi_drift
+    del tsrc_dd, dd_gi, gi_drift, dd_si16
+    # The bf16 modes on the tensor cores, plane by plane, from this run.
+    for geo, t16, t32, b, by, prev in bf16_rows:
+        print(f"[4] bf16 {geo}: {t16:.4f} ms/frame, fp32 {t32:.4f} (bf16/fp32 {t16 / t32:.3f}), "
+              f"bound {b:.4f} ({by}, {b / t16:.1%} of it), previous bf16 mode "
+              f"{'not timed' if prev is None else f'{prev} ms/frame'} [{card}]")
     for key, engine in (("drift", "fused-seg"), ("aperiodic", "gather")):
         pr, pclip = paths[key]
         sw, sh, dw, dh = DRIFT if key == "drift" else APERIODIC

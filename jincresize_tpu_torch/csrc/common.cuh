@@ -19,18 +19,52 @@ inline cudaError_t jt_allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-// A source value as a product operand of the interior kernels: itself, or
-// under BF16 (precision='bf16') rounded to the nearest bfloat16, ties to
-// even, as torch.bfloat16 rounds on the host. The products of two rounded
-// operands are exact in fp32, so each fmaf chain adds the same terms as the
-// plain form on rounded operands.
-template <bool BF16>
-__device__ __forceinline__ float jt_operand(float x) {
-  if constexpr (BF16) {
-    return __bfloat162float(__float2bfloat16_rn(x));
-  } else {
-    return x;
-  }
+// ---- Tensor-core pieces of the bf16 modes (csrc/fused_interior.cu and
+// csrc/seg_interior.cu; mirrored in kernels/fused.py for the CPU tests).
+//
+// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, D = A * B + C, with
+// the fragment maps of the PTX ISA ("Matrix Fragments for mma.m16n8k16",
+// .bf16). A lane holds, with groupID g = lane >> 2 and threadID_in_group
+// t = lane & 3, each b32 two bf16 values, the lower k in the lower half:
+//
+//   A (16 x 16, row-major), 4 x b32: a0 = A[g][2t, 2t+1]     a1 = A[g+8][2t, 2t+1]
+//                                    a2 = A[g][2t+8, 2t+9] a3 = A[g+8][2t+8, 2t+9]
+//   B (16 x 8, "col"),      2 x b32: b0 = B[2t, 2t+1][g]   b1 = B[2t+8, 2t+9][g]
+//   C, D (16 x 8) f32,      4 x f32: d0 = D[g][2t]  d1 = D[g][2t+1]
+//                                    d2 = D[g+8][2t] d3 = D[g+8][2t+1]
+//
+// m16n8k8 (the tail of a tap row of at most 8 taps): a0 = A[g][2t, 2t+1],
+// a1 = A[g+8][2t, 2t+1], b0 = B[2t, 2t+1][g], C and D as above.
+//
+// The K packing of both kernels (kernels/fused.py tap_of_k): k is only a
+// summation index, so a k16 chunk of 16 taps lists them as k = 2t + h ->
+// tap 4t + h and k = 2t + 8 + h -> tap 4t + 2 + h (h in {0, 1}). Lane t's
+// four taps 4t .. 4t+3 are then one run: a0 | a2 of an A row are two
+// consecutive words of a staged source row, and b0 | b1 one 8-byte load
+// of a weight row. A k8 chunk keeps k = tap.
+//
+// The products of two bf16 values are exact in fp32; the tensor core sums
+// them in fp32, in its own order (kernels/fused.py tc_sum_bound).
+__device__ __forceinline__ void jt_mma_k16(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                           uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void jt_mma_k8(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t b0) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5}, {%6}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(b0));
+}
+
+// Two source values rounded to bfloat16 (ties to even, as torch.bfloat16
+// rounds on the host), lo in the lower half: one word of a staged bf16 row.
+__device__ __forceinline__ uint32_t jt_pack_bf16(float lo, float hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
+         static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(hi))) << 16;
 }
 
 __device__ __forceinline__ unsigned jt_smem_addr(const void* p) {
@@ -43,7 +77,14 @@ __device__ __forceinline__ void jt_cp_async4(float* dst, const float* src, bool 
                "r"(ok ? 4 : 0));
 }
 
-__device__ __forceinline__ void jt_cp_async16(float* dst, const float* src) {
+// 16-byte asynchronous copy of the first `bytes` (0 to 16) of src; the
+// rest of the 16 bytes at dst are zeros.
+__device__ __forceinline__ void jt_cp_async16z(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(jt_smem_addr(dst)), "l"(src),
+               "r"(bytes));
+}
+
+__device__ __forceinline__ void jt_cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(jt_smem_addr(dst)), "l"(src));
 }
 

@@ -38,21 +38,70 @@
 //
 // The shapes (TX, R, C*G) are compile-time (kernels/fused.py SHAPES: the
 // default, and a narrow block for plans whose default window row does not
-// fit, 2 shapes x G in {1, 4} x qx in {1, 2, other} x {fp32, bf16} = 24
-// instances); qx = 1 and 2 are compile-time too, so the register window is
-// indexed statically; other qx load one anchor's 8 taps at a time. The
-// arithmetic that places a block's window and a thread's register window is
-// mirrored in kernels/fused.py (layout, block_origin, thread_window) and
-// tested there.
+// fit, 2 shapes x G in {1, 4} x qx in {1, 2, other} = 12 instances); qx = 1
+// and 2 are compile-time too, so the register window is indexed
+// statically; other qx load one anchor's 8 taps at a time. The arithmetic
+// that places a block's window and a thread's register window is mirrored
+// in kernels/fused.py (layout, block_origin, thread_window) and tested
+// there.
 //
-// precision='bf16' (the Pallas kernel's one-pass DEFAULT dot, :235) is the
-// compile-time BF16 flag: the host rounds the weights to bfloat16 once
-// (kernels/fused.py make_fused_interior), and each staged source value is
-// rounded as it is read into registers (jt_operand); the ring, the tiling
-// and the fmaf chain are the fp32 mode's. A product of two bfloat16 values
-// is exact in fp32, so this is the MXU's one-pass dot with exact products
-// and fp32 sums, and the kernel still equals its plain form (on rounded
-// operands) bit for bit.
+// precision='bf16' replaces the Pallas kernel's one-pass DEFAULT dot
+// (pallas_fused.py:235: both operands rounded to bfloat16, exact products,
+// fp32 sums) with fused_tc_kernel below, on the tensor cores (mma.sync
+// m16n8k16 / m16n8k8, bf16 in, fp32 sums; common.cuh). The host rounds the
+// kernels to bfloat16 once and writes them as bf16 weight rows
+// (kernels/fused.py tc_weights). For each staged source row s, every
+// anchor row c that reads it (kernel row a = s - qy*c) gets a product
+//
+//   acc[j, (c, e)] += sum_b A[j, b] * B[b, (c, e)],
+//   A[j, b] = src[row0 + s, col0 + qx*j + b],  B[b, (c, e)] = K[e][s - qy*c][b]
+//
+// (B zero where s - qy*c is outside [0, kh)), the Pallas kernel's own
+// packing (its w is (px*TMo, taps x hbu), pallas_fused.py:225-236):
+//
+// * M (16): anchor columns j; K: the taps b of one row, in k16 chunks and a
+//   k8 tail (k-slots: kw 65 -> 72, 90% useful). Where one tap is left over
+//   (kw = 16n + 1: kw 17 at 4K -> 8K, 65 at tap 16), one k8 mma takes that
+//   tap of 8 staged rows (k = row), so kw 17 costs 16 + 1/8 slots a row,
+//   not 24. N (8): (anchor row c, phase e) pairs, 8 a tile, C*G = 32 a
+//   block (4 n-tiles: C = 8 anchor rows of 4 phases, or 32 of one).
+// * A warp holds 2 m-tiles x 4 n-tiles (32 accumulators a lane): each A
+//   fragment, a Hankel slice of one source row, feeds 4 mmas, each B
+//   fragment 2. Per k16 chunk a warp reads 8 A words and 4 8-byte B loads
+//   for 8 mmas, about 2 wavefronts of shared memory an mma. Every n-tile
+//   runs every row (its B is zero where its rows do not reach): branching
+//   around an idle one made each n-tile's B load wait for the previous
+//   n-tile's mmas (convergence barriers around each), clearly slower on an
+//   H100.
+// * The source lands through a ring of kTcLand stages of ch rows in f32
+//   (16-byte cp.async where rows are 16-byte aligned, else 4-byte; two
+//   stages in flight during the mmas), and each stage is rounded to
+//   bfloat16 once, in one pass, into the bf16 rows the mmas read: a
+//   cp.async cannot convert, and loads into registers held the threads on
+//   each stage's latency. Each pair of columns is stored twice, word m of
+//   copy 0 holding columns (2m, 2m + 1) and of copy 1 (2m + 1, 2m + 2), so
+//   that every A word is one aligned 4-byte load whatever the parity of
+//   qx*j (copy 1 only for odd qx, where that parity changes from anchor to
+//   anchor). Two barriers a stage.
+// * The accumulators go through shared memory to coalesced output rows,
+//   phases interleaved, as in the fp32 kernel (write_tile).
+//
+// What bounds the bf16 form on an H100: at 4K -> 8K the bound is bytes
+// (0.049 ms a frame) and 9.6 G MACs take 0.019 ms at 989 TFLOP/s. A block
+// lands and rounds its rows, runs its mmas, then writes its tile; its SM
+// overlaps these phases only across its 4-5 blocks, and the mmas are
+// bounded by the shared-memory loads of their A and B fragments. Not
+// wgmma: it
+// reads A from shared memory only through a descriptor of 8 x 16-byte core
+// matrices, and a Hankel window, whose rows are one element apart, cannot
+// be described so; A from registers, 64-row warpgroup tiles and TMA are
+// later work. Shapes: SHAPES' thread counts (128 -> 4 warps, 128 anchors a
+// block; 32 -> 1 warp, 32 anchors) x G in {1, 4} = 4 instances, both
+// shapes with the default's stages, so they add alike;
+// kernels/fused.py tc_layout mirrors the layout. The sums run in the
+// tensor core's order, so the kernel is held to its plain form (rounded
+// operands, fp32 FMA order) within kernels/fused.py tc_sum_bound, not bit
+// for bit.
 //
 // TPU workarounds dropped: split3 (the output is stored interleaved),
 // residue planes (threads read strided anchors from registers), wsplit3
@@ -86,10 +135,43 @@ __device__ __forceinline__ void load4(const float* p, float* v) {
   }
 }
 
+// The tile of a block's sums, row (c, e) of anchor row c and phase e at
+// (c*G + e)*BJP, anchor jj at jj + jj/32, -> coalesced output rows, phases
+// interleaved; THREADS threads.
+template <int THREADS, int BJ, int C, int G>
+__device__ __forceinline__ void write_tile(const float* tile, float* out, int t, int f, int grp,
+                                           int i0, int j0, int py, int px, int nyb, int nxb) {
+  constexpr int BJP = BJ + BJ / 32 + 1;
+  const int hout = py * nyb, wout = px * nxb;
+  float* const outf = out + static_cast<int64_t>(f) * hout * wout;
+  const int ph0 = grp * G;
+  const int ry0 = ph0 / px, ry1 = (ph0 + G - 1) / px;
+  const int ncols = min(px * BJ, wout - px * j0);
+  for (int c = 0; c < C && i0 + c < nyb; ++c) {
+    const float* const trow = tile + c * G * BJP;
+    for (int ry = ry0; ry <= ry1; ++ry) {
+      float* const orow = outf + static_cast<int64_t>(py * (i0 + c) + ry) * wout + px * j0;
+      if (THREADS % px == 0) {  // column u = t + THREADS*k keeps phase rx = t % px
+        const int e = ry * px + t % px - ph0;
+        if (e < 0 || e >= G) continue;
+        const int step = THREADS / px;
+        int jj = t / px;
+        for (int u = t; u < ncols; u += THREADS, jj += step)
+          orow[u] = trow[e * BJP + jj + (jj >> 5)];
+      } else {
+        for (int u = t; u < ncols; u += THREADS) {
+          const int jj = u / px;
+          const int e = ry * px + (u - jj * px) - ph0;
+          if (e >= 0 && e < G) orow[u] = trow[e * BJP + jj + (jj >> 5)];
+        }
+      }
+    }
+  }
+}
+
 // One staged source row s (window-relative) into the accumulators of every
-// anchor row c that reads it (kernel row a = s - qy*c). Under BF16 each
-// source value is rounded to bfloat16 as it is read into registers.
-template <int R, int C, int G, int QX, bool BF16>
+// anchor row c that reads it (kernel row a = s - qy*c).
+template <int R, int C, int G, int QX>
 __device__ __forceinline__ void row_taps(const float* __restrict__ row,
                                          const float* __restrict__ wsm, int s, int x0, int qx,
                                          int qy, int kh, int kw, int kwp,
@@ -101,8 +183,6 @@ __device__ __forceinline__ void row_taps(const float* __restrict__ row,
       float win[kWin];
 #pragma unroll
       for (int v = 0; v < kWin / 4; ++v) load4<4>(row + skew(x0 + b0 + 4 * v), win + 4 * v);
-#pragma unroll
-      for (int v = 0; v < kWin; ++v) win[v] = jt_operand<BF16>(win[v]);
 #pragma unroll
       for (int c = 0; c < C; ++c) {
         const int a = s - qy * c;
@@ -128,7 +208,7 @@ __device__ __forceinline__ void row_taps(const float* __restrict__ row,
         for (int r = 0; r < R; ++r) {
           float v[kChunk];
 #pragma unroll
-          for (int b = 0; b < kChunk; ++b) v[b] = jt_operand<BF16>(row[skew(x0 + qx * r + b0 + b)]);
+          for (int b = 0; b < kChunk; ++b) v[b] = row[skew(x0 + qx * r + b0 + b)];
 #pragma unroll
           for (int b = 0; b < kChunk; ++b)
 #pragma unroll
@@ -140,7 +220,7 @@ __device__ __forceinline__ void row_taps(const float* __restrict__ row,
   for (int b = b0; b < kw; ++b) {  // the last kw % 8 taps, one at a time
     float v[R];
 #pragma unroll
-    for (int r = 0; r < R; ++r) v[r] = jt_operand<BF16>(row[skew(x0 + qx * r + b)]);
+    for (int r = 0; r < R; ++r) v[r] = row[skew(x0 + qx * r + b)];
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       const int a = s - qy * c;
@@ -160,7 +240,7 @@ __device__ __forceinline__ void row_taps(const float* __restrict__ row,
   }
 }
 
-template <int TX, int R, int C, int G, int QX, bool BF16>
+template <int TX, int R, int C, int G, int QX>
 __global__ void __launch_bounds__(TX, 512 / TX) fused_interior_kernel(const FusedArgs a) {
   extern __shared__ __align__(16) float smem[];
   constexpr int BJ = TX * R;             // anchor columns of a block
@@ -217,8 +297,8 @@ __global__ void __launch_bounds__(TX, 512 / TX) fused_interior_kernel(const Fuse
     __syncthreads();
     const int s1 = min(nr, (k + 1) * a.ch);
     for (int s = k * a.ch; s < s1; ++s)
-      row_taps<R, C, G, QX, BF16>(ring + (s % a.slots) * a.swp, wsm, s, x0, qx, a.qy, a.kh,
-                                  a.kw, a.kwp, acc);
+      row_taps<R, C, G, QX>(ring + (s % a.slots) * a.swp, wsm, s, x0, qx, a.qy, a.kh, a.kw,
+                            a.kwp, acc);
     __syncthreads();
   }
 
@@ -234,63 +314,284 @@ __global__ void __launch_bounds__(TX, 512 / TX) fused_interior_kernel(const Fuse
         tile[(c * G + e) * BJP + jj + (jj >> 5)] = acc[c][e][r];
       }
   __syncthreads();
-  const int hout = a.py * a.nyb, wout = a.px * a.nxb;
-  float* const outf = a.out + static_cast<int64_t>(f) * hout * wout;
-  const int ph0 = g * G;
-  const int ry0 = ph0 / a.px, ry1 = (ph0 + G - 1) / a.px;
-  const int ncols = min(a.px * BJ, wout - a.px * j0);
-  for (int c = 0; c < C && i0 + c < a.nyb; ++c) {
-    const float* const trow = tile + c * G * BJP;
-    for (int ry = ry0; ry <= ry1; ++ry) {
-      float* const orow = outf + static_cast<int64_t>(a.py * (i0 + c) + ry) * wout + a.px * j0;
-      if (TX % a.px == 0) {  // column u = t + TX*k keeps phase rx = t % px
-        const int e = ry * a.px + t % a.px - ph0;
-        if (e < 0 || e >= G) continue;
-        const int step = TX / a.px;
-        int jj = t / a.px;
-        for (int u = t; u < ncols; u += TX, jj += step) orow[u] = trow[e * BJP + jj + (jj >> 5)];
-      } else {
-        for (int u = t; u < ncols; u += TX) {
-          const int jj = u / a.px;
-          const int e = ry * a.px + (u - jj * a.px) - ph0;
-          if (e >= 0 && e < G) orow[u] = trow[e * BJP + jj + (jj >> 5)];
-        }
-      }
-    }
-  }
+  write_tile<TX, BJ, C, G>(tile, a.out, t, f, g, i0, j0, a.py, a.px, a.nyb, a.nxb);
 }
 
-template <int TX, int R, int C, int G, int QX, bool BF16>
+template <int TX, int R, int C, int G, int QX>
 cudaError_t launch(const FusedArgs& a, int F, cudaStream_t stream) {
   constexpr int BJ = TX * R;
   constexpr int BJP = BJ + BJ / 32 + 1;
   const int region = a.slots * a.swp > C * G * BJP ? a.slots * a.swp : C * G * BJP;
   const size_t smem = (static_cast<size_t>(a.kh) * a.kwp * G + region) * sizeof(float);
-  cudaError_t err = jt_allow_smem(fused_interior_kernel<TX, R, C, G, QX, BF16>, smem);
+  cudaError_t err = jt_allow_smem(fused_interior_kernel<TX, R, C, G, QX>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.nxb + BJ - 1) / BJ, (a.nyb + C - 1) / C, F * a.ngroups);
-  fused_interior_kernel<TX, R, C, G, QX, BF16><<<grid, TX, smem, stream>>>(a);
+  fused_interior_kernel<TX, R, C, G, QX><<<grid, TX, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <int TX, int R, int CG, int QX, bool BF16>
+template <int TX, int R, int CG, int QX>
 cudaError_t launch_g(const FusedArgs& a, int F, int g, cudaStream_t stream) {
-  if (g == 4) return launch<TX, R, CG / 4, 4, QX, BF16>(a, F, stream);
-  if (g == 1) return launch<TX, R, CG, 1, QX, BF16>(a, F, stream);
+  if (g == 4) return launch<TX, R, CG / 4, 4, QX>(a, F, stream);
+  if (g == 1) return launch<TX, R, CG, 1, QX>(a, F, stream);
   return cudaErrorInvalidValue;
 }
 
-template <int TX, int R, int CG, bool BF16>
-cudaError_t launch_qx(const FusedArgs& a, int F, int g, cudaStream_t stream) {
-  if (a.qx == 1) return launch_g<TX, R, CG, 1, BF16>(a, F, g, stream);
-  if (a.qx == 2) return launch_g<TX, R, CG, 2, BF16>(a, F, g, stream);
-  return launch_g<TX, R, CG, 0, BF16>(a, F, g, stream);
+template <int TX, int R, int CG>
+cudaError_t launch_shape(const FusedArgs& a, int F, int g, cudaStream_t stream) {
+  if (a.qx == 1) return launch_g<TX, R, CG, 1>(a, F, g, stream);
+  if (a.qx == 2) return launch_g<TX, R, CG, 2>(a, F, g, stream);
+  return launch_g<TX, R, CG, 0>(a, F, g, stream);
 }
 
-template <int TX, int R, int CG>
-cudaError_t launch_shape(const FusedArgs& a, int F, int g, bool bf16, cudaStream_t stream) {
-  return bf16 ? launch_qx<TX, R, CG, true>(a, F, g, stream)
-              : launch_qx<TX, R, CG, false>(a, F, g, stream);
+// ---- precision='bf16': the tensor-core kernel (header note).
+
+constexpr int kTcMW = 2;  // m-tiles (16 anchor columns each) a warp
+constexpr int kTcNT = 4;  // n-tiles (8 (anchor row, phase) pairs each) a warp and a block
+constexpr int kTcLand = 3;  // stages of f32 rows landing at once: two in flight during the mmas
+
+struct FusedTcArgs {
+  const float* src;
+  const uint32_t* w;  // (ngroups, wn) words: phase group*G + e's row a at (a*G + e)*ws
+  float* out;
+  int H, W, py, px, qy, qx, base_y, base_x, nyb, nxb, kh, kw, kwk, ngroups;
+  int ws;   // words of a weight row (kwk bf16): >= kwk / 2, even
+  int wn;   // words of one phase group's weights: >= kh * G * ws, a multiple of 4
+  int cw;   // words of a staged copy row
+  int ch;   // rows a stage
+  int swf;  // floats of a landing row: >= 2 * (words of a copy row A reads) + 4, 4k
+};
+
+// Blocks an SM: 5 four-phase blocks (the 4K -> 8K plan; faster than 4 on an
+// H100), 4 one-phase ones (the tap-16 plans, slower at 5).
+template <int WARPS, int G>
+__global__ void __launch_bounds__(WARPS * 32, (G == 4 ? 20 : 16) / WARPS)
+    fused_tc_kernel(const FusedTcArgs a) {
+  constexpr int THREADS = WARPS * 32;
+  constexpr int BJ = WARPS * kTcMW * 16;  // anchor columns of a block
+  constexpr int C = kTcNT * 8 / G;        // anchor rows of a block
+  constexpr int BJP = BJ + BJ / 32 + 1;
+  extern __shared__ __align__(16) uint32_t tsm[];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int g = lane >> 2, tq = lane & 3;  // groupID, threadID_in_group
+  const int grp = blockIdx.z % a.ngroups, f = blockIdx.z / a.ngroups;
+  const int i0 = blockIdx.y * C, j0 = blockIdx.x * BJ;
+  const int row0 = a.base_y + a.qy * i0, col0 = a.base_x + a.qx * j0;
+  const int nr = a.qy * (C - 1) + a.kh;              // window rows
+  const int nw = (a.qx * (BJ - 1) + a.kwk + 1) / 2;  // words of a copy row that A reads
+  const int rw = 2 * a.cw;
+  const bool odd = (a.qx & 1) != 0;
+  const int nst = (nr + a.ch - 1) / a.ch;  // stages of ch rows
+  uint32_t* const wsm = tsm;
+  float* const land = reinterpret_cast<float*>(tsm + a.wn);  // kTcLand stages of ch f32 rows
+  uint32_t* const ring = tsm + a.wn + kTcLand * a.ch * a.swf;  // the current stage in bf16
+  const float* const plane = a.src + static_cast<int64_t>(f) * a.H * a.W;
+
+  const uint32_t* const wg = a.w + static_cast<int64_t>(grp) * a.wn;
+  for (int v = t; v < a.wn / 4; v += THREADS) jt_cp_async16(wsm + 4 * v, wg + 4 * v);
+
+  // Stage k's window rows, columns [0, 2nw], as f32 into landing buffer
+  // k % kTcLand, zeros past the plane; one group a call, empty past the
+  // last stage. Where rows are 16-byte aligned (W % 4 == 0) a landing row
+  // starts at the aligned column at or left of col0 (window column 0 at
+  // float dx) and lands in 16-byte copies; else in 4-byte ones (dx = 0).
+  const int nsw = 2 * nw + 1;
+  const bool vec = (a.W & 3) == 0 && col0 >= 0;
+  const int dx = vec ? col0 & 3 : 0;
+  auto issue = [&](int k) {
+    if (k < nst) {
+      const int r0 = k * a.ch, rows = min(nr, r0 + a.ch) - r0;
+      float* const d = land + (k % kTcLand) * a.ch * a.swf;
+      if (vec) {
+        const int nq = (dx + nsw + 3) >> 2;  // 16-byte pieces of a row
+        int r = t / nq, x = t - r * nq;
+        for (int idx = t; idx < rows * nq; idx += THREADS) {
+          const int y = row0 + r0 + r, xx = col0 - dx + 4 * x;
+          const int bytes = static_cast<unsigned>(y) < static_cast<unsigned>(a.H)
+                                ? 4 * max(0, min(4, a.W - xx)) : 0;
+          jt_cp_async16z(d + r * a.swf + 4 * x,
+                         bytes ? plane + static_cast<int64_t>(y) * a.W + xx : plane, bytes);
+          for (x += THREADS; x >= nq; x -= nq) ++r;
+        }
+      } else {
+        int r = t / nsw, x = t - r * nsw;
+        for (int idx = t; idx < rows * nsw; idx += THREADS) {
+          const int y = row0 + r0 + r, xx = col0 + x;
+          const bool ok = static_cast<unsigned>(y) < static_cast<unsigned>(a.H) &&
+                          static_cast<unsigned>(xx) < static_cast<unsigned>(a.W);
+          jt_cp_async4(d + r * a.swf + x, ok ? plane + static_cast<int64_t>(y) * a.W + xx : plane,
+                       ok);
+          for (x += THREADS; x >= nsw; x -= nsw) ++r;
+        }
+      }
+    }
+    jt_cp_async_commit();
+  };
+  // Stage k landed, rounded to bfloat16 once, into the ring: word m of
+  // copy 0 holds columns (2m, 2m + 1), of copy 1 (2m + 1, 2m + 2).
+  auto convert = [&](int k) {
+    const int n = (min(nr, k * a.ch + a.ch) - k * a.ch) * nw;
+    const float* const l = land + (k % kTcLand) * a.ch * a.swf;
+    int r = t / nw, m = t - r * nw;
+    for (int idx = t; idx < n; idx += THREADS) {
+      const float* const p = l + r * a.swf + dx + 2 * m;
+      uint32_t* const d = ring + r * rw;
+      d[m] = jt_pack_bf16(p[0], p[1]);
+      if (odd) d[a.cw + m] = jt_pack_bf16(p[1], p[2]);
+      for (m += THREADS; m >= nw; m -= nw) ++r;
+    }
+  };
+
+  // The lane's A rows: anchors warp*32 + mw*16 + g (+ 8), window column
+  // qx*j, a word of copy (qx*j) & 1.
+  int aoff[kTcMW][2];
+#pragma unroll
+  for (int mw = 0; mw < kTcMW; ++mw)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int x = a.qx * (warp * 32 + mw * 16 + g + 8 * h);
+      aoff[mw][h] = (x & 1) * a.cw + (x >> 1);
+    }
+  const int n16 = a.kwk >> 4;
+  const bool tail8 = (a.kwk & 15) != 0;
+  const bool last1 = (a.kw & 15) == 1;  // the tail is one tap: 8 rows' in one mma (note)
+  float acc[kTcMW][kTcNT][4];
+#pragma unroll
+  for (int mw = 0; mw < kTcMW; ++mw)
+#pragma unroll
+    for (int n = 0; n < kTcNT; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mw][n][i] = 0.f;
+  for (int k = 0; k + 1 < kTcLand; ++k) issue(k);  // the weights ride the first group
+  for (int k = 0; k < nst; ++k) {
+    issue(k + kTcLand - 1);           // into the buffer stage k - 1 left
+    jt_cp_async_wait<kTcLand - 1>();  // stage k (and the weights) landed
+    __syncthreads();                  // ... for every thread; stage k - 1's mmas done
+    convert(k);
+    __syncthreads();
+    const int s1 = min(nr, (k + 1) * a.ch);
+#pragma unroll 2
+    for (int s = k * a.ch; s < s1; ++s) {
+      const uint32_t* const row = ring + (s - k * a.ch) * rw;
+      // n-tile n holds columns 8n .. 8n + 7 = (c, e) = (col / G, col % G);
+      // the lane's B column 8n + g reads weight row (s - qy*c, e), zero
+      // outside [0, kh). Every n-tile runs every row: branching around an
+      // idle one kept the next one's loads from issuing before its mmas.
+      bool bok[kTcNT];
+      const uint32_t* bp[kTcNT];
+#pragma unroll
+      for (int n = 0; n < kTcNT; ++n) {
+        const int col = 8 * n + g, ar = s - a.qy * (col / G);
+        bok[n] = static_cast<unsigned>(ar) < static_cast<unsigned>(a.kh);
+        bp[n] = wsm + ((bok[n] ? ar : 0) * G + col % G) * a.ws;
+      }
+      for (int q = 0; q < n16; ++q) {
+        const int o = 8 * q + 2 * tq;  // lane tq's taps 16q + 4tq .. + 3
+        uint32_t af[kTcMW][4];
+#pragma unroll
+        for (int mw = 0; mw < kTcMW; ++mw) {
+          af[mw][0] = row[aoff[mw][0] + o];
+          af[mw][1] = row[aoff[mw][1] + o];
+          af[mw][2] = row[aoff[mw][0] + o + 1];
+          af[mw][3] = row[aoff[mw][1] + o + 1];
+        }
+        uint2 bf[kTcNT];
+#pragma unroll
+        for (int n = 0; n < kTcNT; ++n)
+          bf[n] = bok[n] ? *reinterpret_cast<const uint2*>(bp[n] + o) : make_uint2(0u, 0u);
+#pragma unroll
+        for (int n = 0; n < kTcNT; ++n)
+#pragma unroll
+          for (int mw = 0; mw < kTcMW; ++mw)
+            jt_mma_k16(acc[mw][n], af[mw][0], af[mw][1], af[mw][2], af[mw][3], bf[n].x, bf[n].y);
+      }
+      if (tail8 && !last1) {
+        const int o = 8 * n16 + tq;  // taps 16 n16 + 2tq, + 1
+        uint32_t af[kTcMW][2], bf[kTcNT];
+#pragma unroll
+        for (int mw = 0; mw < kTcMW; ++mw) {
+          af[mw][0] = row[aoff[mw][0] + o];
+          af[mw][1] = row[aoff[mw][1] + o];
+        }
+#pragma unroll
+        for (int n = 0; n < kTcNT; ++n) bf[n] = bok[n] ? bp[n][o] : 0u;
+#pragma unroll
+        for (int n = 0; n < kTcNT; ++n)
+#pragma unroll
+          for (int mw = 0; mw < kTcMW; ++mw) jt_mma_k8(acc[mw][n], af[mw][0], af[mw][1], bf[n]);
+      }
+    }
+    if (last1) {  // the last tap of 8 stage rows in one k8 mma: k = row r0 + k
+      const int o = 8 * n16;  // its word in a row: the low half, in the copy of the anchor's parity
+      for (int r0 = k * a.ch; r0 < s1; r0 += 8) {
+        uint32_t af[kTcMW][2];
+#pragma unroll
+        for (int mw = 0; mw < kTcMW; ++mw)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            uint32_t v[2];
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              const int r = r0 + 2 * tq + i;  // no row past the stage
+              v[i] = r < s1 ? ring[(r - k * a.ch) * rw + aoff[mw][h] + o] : 0u;
+            }
+            af[mw][h] = __byte_perm(v[0], v[1], 0x5410);
+          }
+#pragma unroll
+        for (int n = 0; n < kTcNT; ++n) {
+          const int col = 8 * n + g;
+          uint32_t v[2];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int ar = r0 + 2 * tq + i - a.qy * (col / G);
+            v[i] = static_cast<unsigned>(ar) < static_cast<unsigned>(a.kh)
+                       ? wsm[(ar * G + col % G) * a.ws + o] : 0u;
+          }
+          const uint32_t b = __byte_perm(v[0], v[1], 0x5410);
+#pragma unroll
+          for (int mw = 0; mw < kTcMW; ++mw) jt_mma_k8(acc[mw][n], af[mw][0], af[mw][1], b);
+        }
+      }
+    }
+  }
+  __syncthreads();  // every warp's mmas done: the tile overlays the landing rows and the ring
+
+  // Fragments -> the tile: d0 anchor g column 2tq, d1 column 2tq + 1, d2
+  // and d3 anchor g + 8.
+  float* const tile = land;
+#pragma unroll
+  for (int mw = 0; mw < kTcMW; ++mw)
+#pragma unroll
+    for (int n = 0; n < kTcNT; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int jj = warp * 32 + mw * 16 + g + 8 * (i >> 1);
+        const int col = 8 * n + 2 * tq + (i & 1);
+        tile[col * BJP + jj + (jj >> 5)] = acc[mw][n][i];
+      }
+  __syncthreads();
+  write_tile<THREADS, BJ, C, G>(tile, a.out, t, f, grp, i0, j0, a.py, a.px, a.nyb, a.nxb);
+}
+
+template <int WARPS, int G>
+cudaError_t tc_launch(const FusedTcArgs& a, int F, cudaStream_t stream) {
+  constexpr int BJ = WARPS * kTcMW * 16;
+  constexpr int C = kTcNT * 8 / G;
+  constexpr int BJP = BJ + BJ / 32 + 1;
+  const size_t rows = static_cast<size_t>(a.ch) * (kTcLand * a.swf + 2 * a.cw), tile = C * G * BJP;
+  const size_t smem = (static_cast<size_t>(a.wn) + (rows > tile ? rows : tile)) * sizeof(uint32_t);
+  cudaError_t err = jt_allow_smem(fused_tc_kernel<WARPS, G>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.nxb + BJ - 1) / BJ, (a.nyb + C - 1) / C, F * a.ngroups);
+  fused_tc_kernel<WARPS, G><<<grid, WARPS * 32, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int WARPS>
+cudaError_t tc_launch_g(const FusedTcArgs& a, int F, int g, cudaStream_t stream) {
+  if (g == 4) return tc_launch<WARPS, 4>(a, F, stream);
+  if (g == 1) return tc_launch<WARPS, 1>(a, F, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -298,13 +599,11 @@ cudaError_t launch_shape(const FusedArgs& a, int F, int g, bool bf16, cudaStream
 // src (F, H, W) f32; w (ngroups, kh, kwp, g) f32, phase ph = group*g + e's
 // kernel at [group, :, :kw, e], zeros beyond kw; out (F, py*nyb, px*nxb)
 // f32. All contiguous. ch/slots/swp: the ring (kernels/fused.py layout).
-// (tx, r, cg): the shape, one of kernels/fused.py SHAPES. bf16: round each
-// source value to bfloat16 at its register load (precision='bf16'; the
-// weights come rounded from the host).
+// (tx, r, cg): the shape, one of kernels/fused.py SHAPES.
 extern "C" int jt_fused_interior(const float* src, const float* w, float* out, int F, int H,
                                  int W, int py, int px, int qy, int qx, int base_y, int base_x,
                                  int nyb, int nxb, int kh, int kw, int kwp, int g, int ngroups,
-                                 int ch, int slots, int swp, int tx, int r, int cg, int bf16,
+                                 int ch, int slots, int swp, int tx, int r, int cg,
                                  cudaStream_t stream) {
   if (g * ngroups != py * px || ch < 1 || slots < 1 || kwp % 4 != 0 || swp % 4 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -312,9 +611,29 @@ extern "C" int jt_fused_interior(const float* src, const float* w, float* out, i
                     kh, kw, kwp, ngroups, ch, slots, swp};
 #define JT_SHAPE(TX, R, CG) \
   if (tx == TX && r == R && cg == CG)  \
-    return static_cast<int>(launch_shape<TX, R, CG>(a, F, g, bf16 != 0, stream));
+    return static_cast<int>(launch_shape<TX, R, CG>(a, F, g, stream));
   JT_SHAPE(128, 4, 8)
   JT_SHAPE(32, 4, 8)
 #undef JT_SHAPE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// precision='bf16', the tensor-core kernel. w (ngroups, wn) words of bf16
+// weights (kernels/fused.py tc_weights: phase group*g + e's kernel row a at
+// word (a*g + e)*ws, kwk = the k-slots of kw, zeros beyond kw); the rest as
+// above. (ws, wn, cw, ch, swf): kernels/fused.py tc_layout; warps: 4 or 1
+// (SHAPES' 128 or 32 threads).
+extern "C" int jt_fused_interior_bf16(const float* src, const void* w, float* out, int F, int H,
+                                      int W, int py, int px, int qy, int qx, int base_y,
+                                      int base_x, int nyb, int nxb, int kh, int kw, int kwk,
+                                      int g, int ngroups, int ws, int wn, int cw, int ch,
+                                      int swf, int warps, cudaStream_t stream) {
+  if (g * ngroups != py * px || ch < 1 || swf % 4 != 0 || kwk % 8 != 0 || kwk < kw ||
+      kwk - kw >= 16 || ws % 2 != 0 || 2 * ws < kwk || wn % 4 != 0 || wn < kh * g * ws)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const FusedTcArgs a{src, static_cast<const uint32_t*>(w), out, H, W, py, px, qy, qx, base_y,
+                      base_x, nyb, nxb, kh, kw, kwk, ngroups, ws, wn, cw, ch, swf};
+  if (warps == 4) return static_cast<int>(tc_launch_g<4>(a, F, g, stream));
+  if (warps == 1) return static_cast<int>(tc_launch_g<1>(a, F, g, stream));
   return static_cast<int>(cudaErrorInvalidValue);
 }

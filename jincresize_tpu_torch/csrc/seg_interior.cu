@@ -73,13 +73,65 @@
 // JINCRESIZE_SEG_* overrides and the fs**2 <= 1200 envelope (the Mosaic
 // VMEM budget) -- fs is a run-time value and shared memory is the envelope.
 //
-// precision='bf16' (the Pallas kernel's one-pass DEFAULT dot, :397) is the
-// compile-time BF16 flag (4 more instances, frames a thread in {1, 2, 4,
-// 8}): the host rounds the pair blocks to bfloat16 once (kernels/seg.py
-// make_seg_interior), and each staged source value is rounded as a thread
-// reads it (jt_operand). Products of two bfloat16 values are exact in fp32,
-// so the sums, their order and the staged layout are the fp32 mode's, and
-// the kernel equals its plain form on rounded operands bit for bit.
+// precision='bf16' replaces the Pallas kernel's one-pass DEFAULT dot
+// (pallas_fused_seg.py:397: both operands rounded to bfloat16, exact
+// products, fp32 sums) with a second kernel, seg_tc_kernel below, on the
+// tensor cores (mma.sync m16n8k16 / m16n8k8, bf16 in, fp32 sums;
+// common.cuh). The host rounds the pair blocks to bfloat16 once
+// (kernels/seg.py make_seg_interior: tc_blocks, tap rows padded with zeros
+// to fsk k-slots). Per class cx of a tile, the sum is a product
+//
+//   out[f, m, x] += sum_lx A[(x, f), lx] * B[lx, m] for each staged row r,
+//   A[(x, f), lx] = src[f, r, sx[x] + lx],
+//   B[lx, m] = blocks[cy[m], cx, r - sy[m], lx] (zero unless 0 <= r - sy[m] < fs):
+//
+// * M (16): slots (column x, frame f) of one column class of the tile:
+//   the host lists each tile's columns grouped by class (kernels/seg.py
+//   tile_columns: pcx, and scx where each class's run starts); a class of
+//   n columns over nf frames takes ceil(n * nf / 16) m-tiles, slot i being
+//   column i % n of frame i / n. Frames fill M: at 1440p -> 4K a 32-column
+//   tile holds 3.9 classes of ~8 columns, so M is 52% useful at one frame
+//   and 94% at eight.
+// * N (8): 8 consecutive output rows m; each lane's B column is its own
+//   row's block, so rows of any class and any start share an mma.
+// * K: the taps lx of one staged source row, in k16 chunks and a k8 tail
+//   (fsk slots: fs 44 -> 48, 92% useful). Where one tap is left over (fs =
+//   16n + 1: fs 17 at 1440p -> 4K), one k8 mma takes that tap of 8 staged
+//   rows (k = row), so fs 17 costs 16 + 1/8 slots a row, not 24 (clearly
+//   faster on an H100 than a k8 mma a row). Along rows an
+//   n-tile runs from its first row's start to its last row's end: fs of
+//   fs + 5 staged rows are useful at 1440p -> 4K (77%), fs of fs + 10 at
+//   1440p -> 1080p tap 16 (81%). All told ~40% of the mma slots are useful
+//   at one frame and ~70% at eight.
+// * A block of 16 warps takes the fp32 kernel's 32 x 32 tile and NF frames.
+//   It stages the tile's pair blocks (16-byte cp.async: bf16 needs no
+//   conversion), its tables (each class-grouped column's start, each row's
+//   start and class, each m-tile's class) and its whole source window for
+//   all NF frames once, in bf16: threads load f32 values from global memory
+//   (four words' values before they store any), round them and store two
+//   copies, word m of copy 0 holding columns (2m, 2m + 1) and of copy 1
+//   (2m + 1, 2m + 2), so that every A fragment word is one aligned 4-byte
+//   load whatever the parity of sx[x] (a cp.async cannot convert, and a
+//   copy in f32 beside the bf16 one would take the room the frames need).
+//   One barrier; then each warp takes items (m-tile, n-tile) in turn with
+//   no further barrier: per staged row of its n-tile and k16 chunk, 4 A
+//   words, one 8-byte B load and one mma, two accumulator sets (even and
+//   odd chunks, the packed tail in the odd one) to keep two mmas in flight;
+//   the sums go from the fragments straight to the output.
+//
+// What bounds it on an H100: the bf16 bound is bytes (0.0142 ms a frame at
+// 1440p -> 4K, 4.8 G useful MACs a frame at 989 TFLOP/s take a third of
+// it); the design is bounded by shared-memory bandwidth, about 6 wavefronts
+// (4 A, 2 B) of 128 bytes per mma, and by the mma issue rate of mma.sync.
+// Not wgmma: it reads A from shared memory only through a descriptor of
+// 8 x 16-byte core matrices, and a Hankel window, whose rows are one
+// element apart, cannot be described so; A from registers, 64-row
+// warpgroup tiles and TMA are later work. The sums run in the tensor
+// core's order, so the kernel is held to its plain form (which rounds the
+// source first and sums in fp32 FMA order) within kernels/fused.py
+// tc_sum_bound, not bit for bit. The window takes win_h rows of 2 * cw
+// words a frame: kernels/seg.py tc_smem_bytes mirrors the layout, and
+// frames_of picks the most frames whose windows fit beside the pairs.
 #include <climits>
 
 #include "common.cuh"
@@ -113,9 +165,8 @@ struct SegArgs {
 };
 
 // NB taps (the first NB of a chunk of 4) of NF frames into each row's sums:
-// the source values of a tap once (under BF16 rounded to bfloat16 as they
-// are read), one weight a tap and row.
-template <int NB, int NF, int FP, bool BF16>
+// the source values of a tap once, one weight a tap and row.
+template <int NB, int NF, int FP>
 __device__ __forceinline__ void seg_taps(const float* s, int plane_stride,
                                          const float4 (&w)[kSegRows],
                                          float (&row)[kSegRows][NF]) {
@@ -123,8 +174,6 @@ __device__ __forceinline__ void seg_taps(const float* s, int plane_stride,
   for (int b = 0; b < NB; ++b) {
     float v[NF];
     jt_load_frames<NF>(s + b * FP, plane_stride, v);
-#pragma unroll
-    for (int e = 0; e < NF; ++e) v[e] = jt_operand<BF16>(v[e]);
 #pragma unroll
     for (int c = 0; c < kSegRows; ++c) {
       const float wv = b == 0 ? w[c].x : b == 1 ? w[c].y : b == 2 ? w[c].z : w[c].w;
@@ -134,7 +183,7 @@ __device__ __forceinline__ void seg_taps(const float* s, int plane_stride,
   }
 }
 
-template <int NF, bool BF16>
+template <int NF>
 __global__ void __launch_bounds__(kSegThreads, 2) seg_tile_kernel(const SegArgs a) {
   extern __shared__ __align__(16) float smem[];
   constexpr int FP = NF < 4 ? NF : 4;  // frames of a staged plane
@@ -247,13 +296,13 @@ __global__ void __launch_bounds__(kSegThreads, 2) seg_tile_kernel(const SegArgs 
       for (int c = 0; c < kSegRows; ++c) w[c] = *reinterpret_cast<const float4*>(wr[c] + 4 * q);
       const float* const sq = srow + 4 * q * FP;
       if (q + 1 < nq || nb == 4) {
-        seg_taps<4, NF, FP, BF16>(sq, plane_stride, w, row);
+        seg_taps<4, NF, FP>(sq, plane_stride, w, row);
       } else if (nb == 3) {
-        seg_taps<3, NF, FP, BF16>(sq, plane_stride, w, row);
+        seg_taps<3, NF, FP>(sq, plane_stride, w, row);
       } else if (nb == 2) {
-        seg_taps<2, NF, FP, BF16>(sq, plane_stride, w, row);
+        seg_taps<2, NF, FP>(sq, plane_stride, w, row);
       } else {
-        seg_taps<1, NF, FP, BF16>(sq, plane_stride, w, row);
+        seg_taps<1, NF, FP>(sq, plane_stride, w, row);
       }
     }
 #pragma unroll
@@ -276,26 +325,240 @@ __global__ void __launch_bounds__(kSegThreads, 2) seg_tile_kernel(const SegArgs 
   }
 }
 
-template <int NF, bool BF16>
+template <int NF>
 cudaError_t seg_launch(const SegArgs& a, cudaStream_t stream) {
   const size_t ring = static_cast<size_t>(kSegGroups) * kSlots * a.swp * NF;
   const size_t smem = (static_cast<size_t>(a.pairs) * a.bstride + ring) * sizeof(float);
-  cudaError_t err = jt_allow_smem(seg_tile_kernel<NF, BF16>, smem);
+  cudaError_t err = jt_allow_smem(seg_tile_kernel<NF>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.wout + kTX - 1) / kTX, (a.hout + kSegTY - 1) / kSegTY, (a.F + NF - 1) / NF);
-  seg_tile_kernel<NF, BF16><<<grid, dim3(kTX, kSegGroups), smem, stream>>>(a);
+  seg_tile_kernel<NF><<<grid, dim3(kTX, kSegGroups), smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <bool BF16>
-cudaError_t seg_launch_nf(const SegArgs& a, int nf, cudaStream_t stream) {
-  switch (nf) {
-    case 1: return seg_launch<1, BF16>(a, stream);
-    case 2: return seg_launch<2, BF16>(a, stream);
-    case 4: return seg_launch<4, BF16>(a, stream);
-    case 8: return seg_launch<8, BF16>(a, stream);
-    default: return cudaErrorInvalidValue;
+// ---- precision='bf16': the tensor-core kernel (header note).
+
+constexpr int kTcWarps = 16;
+constexpr int kTcThreads = 32 * kTcWarps;
+constexpr int kTcLoads = 4;  // staged words a thread loads before it stores any
+
+// The block's tables, ahead of its windows in shared memory (kernels/seg.py
+// tc_table_words): per class-grouped column i its column and its start in
+// the window, per row its start in the window and its class, where each
+// class's run starts, and per m-tile its class and its place in it.
+constexpr int kTabCol = 0, kTabXs = 32, kTabSyr = 64, kTabLcy = 96, kTabRun = 128,
+              kTabNmt = 161, kTabMt = 162;
+
+struct SegTcArgs {
+  const float* src;        // (F, H, W)
+  const uint32_t* blocks;  // (n_uy, n_ux, fs, fsk) bf16 as words, tap rows padded with zeros
+  const int* sy;           // (hout,) window starts
+  const int* sx;           // (wout,)
+  const int* lcy;          // (hout,) row class, as an index into its tile's list
+  const int* tcy;          // (row tiles, ky) each tile's row classes
+  const int* tcx;          // (column tiles, kx)
+  const int* ncy;          // (row tiles,) row classes of each tile
+  const int* ncx;          // (column tiles,)
+  const int* pcx;          // (column tiles, kTX) each tile's columns, grouped by class
+  const int* scx;          // (column tiles, kx + 1) where each class's run starts in pcx
+  float* out;              // (F, hout, wout)
+  int F, H, W, hout, wout, n_ux, fs, fsk, ky, kx;
+  int pairs;  // pair blocks room: max over tiles of ncy * ncx
+  int bs;     // words between staged pair blocks (>= fs * fsk / 2, a multiple of 4)
+  int tab;    // words of the block's tables (>= kTabMt + 2 * NF + 32, a multiple of 4)
+  int cw;     // words of a staged copy row (>= the widest window's words)
+  int plane;  // words of a staged frame (>= its tallest window's rows * 2 * cw)
+};
+
+template <int NF>
+__global__ void __launch_bounds__(kTcThreads) seg_tc_kernel(const SegTcArgs a) {
+  extern __shared__ __align__(16) uint32_t tsm[];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int g = lane >> 2, tq = lane & 3;  // groupID, threadID_in_group
+  const int tx = blockIdx.x, ty = blockIdx.y;
+  const int x0 = tx * kTX, y0 = ty * kSegTY;
+  const int f0 = blockIdx.z * NF;
+  const int nf = min(NF, a.F - f0);
+  const int ncx = __ldg(a.ncx + tx), ncy = __ldg(a.ncy + ty);
+  uint32_t* const wsm = tsm;
+  int* const tab = reinterpret_cast<int*>(tsm + a.pairs * a.bs);
+  uint32_t* const win = tsm + a.pairs * a.bs + a.tab;
+
+  // The tile's class-pair blocks, pair p = (row class p / ncx, column
+  // class p % ncx).
+  const int n4 = a.fs * a.fsk / 8;  // 16-byte pieces of a block
+  for (int i = t; i < ncy * ncx * n4; i += kTcThreads) {
+    const int p = i / n4, v = i - p * n4;
+    const int cy = __ldg(a.tcy + ty * a.ky + p / ncx);
+    const int cx = __ldg(a.tcx + tx * a.kx + p % ncx);
+    jt_cp_async16(wsm + p * a.bs + 4 * v,
+                  a.blocks + (static_cast<int64_t>(cy) * a.n_ux + cx) * (4 * n4) + 4 * v);
   }
+  jt_cp_async_commit();
+
+  // The window: [row_lo, row_hi + fs) x [col_lo, col_hi + fsk), the
+  // columns a k-slot past the last tap read as zeros beyond the plane.
+  const int xl = x0 + lane, yl = y0 + lane;
+  const bool xok = xl < a.wout, yok = yl < a.hout;
+  const int my_sx = xok ? __ldg(a.sx + xl) : INT_MAX;
+  const int my_sy = yok ? __ldg(a.sy + yl) : INT_MAX;
+  const int col_lo = __reduce_min_sync(0xffffffffu, my_sx);
+  const int col_hi = __reduce_max_sync(0xffffffffu, xok ? my_sx : INT_MIN);
+  const int row_lo = __reduce_min_sync(0xffffffffu, my_sy);
+  const int row_hi = __reduce_max_sync(0xffffffffu, yok ? my_sy : INT_MIN);
+  const int nr = row_hi - row_lo + a.fs;
+  const int nw = (col_hi - col_lo + a.fsk + 1) / 2;  // words of a copy row that A reads
+  const int* const sc = a.scx + tx * (a.kx + 1);
+  if (warp == 0) {
+    const int col = __ldg(a.pcx + x0 + lane);  // 0 past a ragged tile's end
+    tab[kTabCol + lane] = col;
+    tab[kTabXs + lane] = __ldg(a.sx + min(x0 + col, a.wout - 1)) - col_lo;
+    tab[kTabSyr + lane] = yok ? my_sy - row_lo : 1 << 20;
+    tab[kTabLcy + lane] = yok ? __ldg(a.lcy + yl) : 0;
+    if (lane < ncx) tab[kTabRun + lane] = __ldg(sc + lane);
+    if (lane == 0) {  // m-tiles: ceil(n * nf / 16) of a class of n columns
+      tab[kTabRun + ncx] = __ldg(sc + ncx);
+      int j = 0;
+      for (int c = 0; c < ncx; ++c) {
+        const int mtc = ((__ldg(sc + c + 1) - __ldg(sc + c)) * nf + 15) >> 4;
+        for (int jc = 0; jc < mtc; ++jc) tab[kTabMt + j++] = c << 16 | jc;
+      }
+      tab[kTabNmt] = j;
+    }
+  }
+  // The window of each frame, rounded to bfloat16 once: row r's word m of
+  // copy 0 holds columns (2m, 2m + 1), of copy 1 (2m + 1, 2m + 2). A thread
+  // loads kTcLoads words' values before it stores any.
+  const int64_t fplane = static_cast<int64_t>(a.H) * a.W;
+  const int nrw = nr * nw, total = nf * nrw;
+  for (int i0 = t; i0 < total; i0 += kTcLoads * kTcThreads) {
+    float v[kTcLoads][3];
+    int d[kTcLoads];
+#pragma unroll
+    for (int i = 0; i < kTcLoads; ++i) {
+      const int idx = i0 + i * kTcThreads;
+      d[i] = -1;
+      if (idx < total) {
+        const int e = idx / nrw, r = (idx - e * nrw) / nw, m = idx - e * nrw - r * nw;
+        const float* const gr = a.src + (f0 + e) * fplane + static_cast<int64_t>(row_lo + r) * a.W;
+        const int c = col_lo + 2 * m;
+        v[i][0] = c < a.W ? __ldg(gr + c) : 0.f;
+        v[i][1] = c + 1 < a.W ? __ldg(gr + c + 1) : 0.f;
+        v[i][2] = c + 2 < a.W ? __ldg(gr + c + 2) : 0.f;
+        d[i] = e * a.plane + r * 2 * a.cw + m;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kTcLoads; ++i)
+      if (d[i] >= 0) {
+        win[d[i]] = jt_pack_bf16(v[i][0], v[i][1]);
+        win[d[i] + a.cw] = jt_pack_bf16(v[i][1], v[i][2]);
+      }
+  }
+  jt_cp_async_wait<0>();
+  __syncthreads();  // the only barrier: the warps run apart from here
+
+  const int mt = tab[kTabNmt];  // m-tiles: 16 slots (column, frame) of one class each
+  const int nt = (min(kSegTY, a.hout - y0) + 7) >> 3;  // n-tiles: 8 rows each
+  const int n16 = a.fsk >> 4;
+  const bool tail8 = (a.fsk & 15) != 0;
+  const bool last1 = (a.fs & 15) == 1;  // the tail is one tap: 8 rows' in one mma (note)
+  const int hw = a.fsk >> 1;  // words of a staged tap row
+  const int64_t oplane = static_cast<int64_t>(a.hout) * a.wout;
+  for (int item = warp; item < mt * nt; item += kTcWarps) {
+    const int j = item / nt, k = item - j * nt;
+    const int cj = tab[kTabMt + j], c = cj >> 16, jc = cj & 0xffff;
+    const int base = tab[kTabRun + c], cnt = tab[kTabRun + c + 1] - base;
+    // The lane's A rows g and g + 8: slot i = column i % cnt of frame i / cnt.
+    int aoff[2], col[2], fr[2];
+    bool sok[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int slot = jc * 16 + g + 8 * h;
+      sok[h] = slot < cnt * nf;
+      fr[h] = sok[h] ? slot / cnt : 0;
+      const int i = base + (sok[h] ? slot - fr[h] * cnt : 0);
+      col[h] = tab[kTabCol + i];
+      const int xs = tab[kTabXs + i];
+      aoff[h] = fr[h] * a.plane + (xs & 1) * a.cw + (xs >> 1);
+    }
+    // The lane's B column: row 8k + g of the tile.
+    const int syr = tab[kTabSyr + 8 * k + g];
+    const bool mok = y0 + 8 * k + g < a.hout;
+    const int boff = (tab[kTabLcy + 8 * k + g] * ncx + c) * a.bs;
+    const int s_lo = __reduce_min_sync(0xffffffffu, mok ? syr : INT_MAX);
+    const int s_hi = __reduce_max_sync(0xffffffffu, mok ? syr : INT_MIN) + a.fs;
+    // Two accumulators, chunks 0, 2, .. and 1, 3, ..: two mmas in flight.
+    float acc0[4] = {0.f, 0.f, 0.f, 0.f}, acc1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 2
+    for (int s = s_lo; s < s_hi; ++s) {
+      const int ly = s - syr;
+      const bool bok = static_cast<unsigned>(ly) < static_cast<unsigned>(a.fs);
+      const uint32_t* const ar = win + s * 2 * a.cw;
+      const uint32_t* const br = wsm + boff + (bok ? ly : 0) * hw;
+      auto k16 = [&](float(&d)[4], int q) {
+        const int o = 8 * q + 2 * tq;  // lane tq's taps 16q + 4tq .. + 3
+        const uint2 b = bok ? *reinterpret_cast<const uint2*>(br + o) : make_uint2(0u, 0u);
+        jt_mma_k16(d, ar[aoff[0] + o], ar[aoff[1] + o], ar[aoff[0] + o + 1], ar[aoff[1] + o + 1],
+                   b.x, b.y);
+      };
+      int q = 0;
+      for (; q + 1 < n16; q += 2) {
+        k16(acc0, q);
+        k16(acc1, q + 1);
+      }
+      if (q < n16) k16(acc0, q);
+      if (tail8 && !last1) {
+        const int o = 8 * n16 + tq;  // taps 16 n16 + 2tq, + 1
+        const uint32_t b = bok ? br[o] : 0u;
+        if (n16 & 1) {
+          jt_mma_k8(acc1, ar[aoff[0] + o], ar[aoff[1] + o], b);
+        } else {
+          jt_mma_k8(acc0, ar[aoff[0] + o], ar[aoff[1] + o], b);
+        }
+      }
+    }
+    if (last1) {  // the last tap of 8 staged rows in one k8 mma: k = row r0 + k
+      const int o = 8 * n16;  // its word in a row: the low half, in the copy of the slot's parity
+      for (int r0 = s_lo; r0 < s_hi; r0 += 8) {
+        uint32_t av[2][2], bv[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int r = r0 + 2 * tq + i, ly = r - syr;
+          const uint32_t* const ar = win + min(r, s_hi - 1) * 2 * a.cw;
+          av[0][i] = r < s_hi ? ar[aoff[0] + o] : 0u;  // no row past the window
+          av[1][i] = r < s_hi ? ar[aoff[1] + o] : 0u;
+          bv[i] = static_cast<unsigned>(ly) < static_cast<unsigned>(a.fs)
+                      ? wsm[boff + ly * hw + o] : 0u;
+        }
+        jt_mma_k8(acc1, __byte_perm(av[0][0], av[0][1], 0x5410),
+                  __byte_perm(av[1][0], av[1][1], 0x5410), __byte_perm(bv[0], bv[1], 0x5410));
+      }
+    }
+    // d0, d1: slot g, rows 2tq and 2tq + 1 of the n-tile; d2, d3: slot g + 8.
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (!sok[h]) continue;
+      float* const o = a.out + (f0 + fr[h]) * oplane + x0 + col[h];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int mm = y0 + 8 * k + 2 * tq + i;
+        if (mm < a.hout) o[static_cast<int64_t>(mm) * a.wout] = acc0[2 * h + i] + acc1[2 * h + i];
+      }
+    }
+  }
+}
+
+template <int NF>
+cudaError_t seg_tc_launch(const SegTcArgs& a, cudaStream_t stream) {
+  if (a.tab < kTabMt + 2 * NF + 32) return cudaErrorInvalidValue;
+  const size_t smem = (static_cast<size_t>(a.pairs) * a.bs + a.tab +
+                       static_cast<size_t>(NF) * a.plane) * sizeof(uint32_t);
+  cudaError_t err = jt_allow_smem(seg_tc_kernel<NF>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.wout + kTX - 1) / kTX, (a.hout + kSegTY - 1) / kSegTY, (a.F + NF - 1) / NF);
+  seg_tc_kernel<NF><<<grid, kTcThreads, smem, stream>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -304,14 +567,12 @@ cudaError_t seg_launch_nf(const SegArgs& a, int nf, cudaStream_t stream) {
 // sx, lcx (wout) int32; tcy (ceil(hout / 32), ky), ncy (ceil(hout / 32)),
 // tcx (ceil(wout / 32), kx), ncx (ceil(wout / 32)) int32; out (F, hout,
 // wout) f32. All contiguous. bstride, pairs, nf, swp: the shared-memory
-// layout (kernels/seg.py smem_bytes). bf16: round each source value to
-// bfloat16 as it is read (precision='bf16'; the blocks come rounded from
-// the host).
+// layout (kernels/seg.py smem_bytes).
 extern "C" int jt_seg_interior(const float* src, const float* blocks, const int* sy,
                                const int* sx, const int* lcy, const int* lcx, const int* tcy,
                                const int* tcx, const int* ncy, const int* ncx, float* out, int F,
                                int H, int W, int hout, int wout, int n_ux, int fs, int fsp,
-                               int bstride, int ky, int kx, int pairs, int nf, int swp, int bf16,
+                               int bstride, int ky, int kx, int pairs, int nf, int swp,
                                cudaStream_t stream) {
   if (hout <= 0 || wout <= 0 || F <= 0) return 0;
   if (swp % 4 != 0 || fsp % 4 != 0 || fsp < fs || bstride % 4 != 0 ||
@@ -319,6 +580,39 @@ extern "C" int jt_seg_interior(const float* src, const float* blocks, const int*
     return static_cast<int>(cudaErrorInvalidValue);
   const SegArgs a{src, blocks, sy, sx, lcy, lcx, tcy, tcx, ncy, ncx, out, F, H,
                   W, hout, wout, n_ux, fs, fsp, bstride, ky, kx, pairs, swp};
-  return static_cast<int>(bf16 ? seg_launch_nf<true>(a, nf, stream)
-                               : seg_launch_nf<false>(a, nf, stream));
+  switch (nf) {
+    case 1: return static_cast<int>(seg_launch<1>(a, stream));
+    case 2: return static_cast<int>(seg_launch<2>(a, stream));
+    case 4: return static_cast<int>(seg_launch<4>(a, stream));
+    case 8: return static_cast<int>(seg_launch<8>(a, stream));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// precision='bf16', the tensor-core kernel. blocks (n_uy, n_ux, fs, fsk)
+// bf16, tap rows padded with zeros to fsk = the k-slots of fs (a multiple
+// of 8); pcx (ceil(wout / 32), 32), scx (ceil(wout / 32), kx + 1) int32
+// (kernels/seg.py tile_columns); the rest as above. pairs, bs, tab, cw,
+// plane, nf: the shared-memory layout (kernels/seg.py tc_smem_bytes).
+extern "C" int jt_seg_interior_bf16(const float* src, const void* blocks, const int* sy,
+                                    const int* sx, const int* lcy, const int* tcy,
+                                    const int* tcx, const int* ncy, const int* ncx,
+                                    const int* pcx, const int* scx, float* out, int F, int H,
+                                    int W, int hout, int wout, int n_ux, int fs, int fsk, int ky,
+                                    int kx, int pairs, int bs, int tab, int cw, int plane,
+                                    int nf, cudaStream_t stream) {
+  if (hout <= 0 || wout <= 0 || F <= 0) return 0;
+  if (fsk % 8 != 0 || fsk < fs || fsk - fs >= 16 || bs % 4 != 0 || 2 * bs < fs * fsk ||
+      pairs < 1 || tab % 4 != 0 || kx > 32 || plane < 2 * cw)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const SegTcArgs a{src, static_cast<const uint32_t*>(blocks), sy, sx, lcy, tcy, tcx, ncy, ncx,
+                    pcx, scx, out, F, H, W, hout, wout, n_ux, fs, fsk, ky, kx, pairs, bs, tab,
+                    cw, plane};
+  switch (nf) {
+    case 1: return static_cast<int>(seg_tc_launch<1>(a, stream));
+    case 2: return static_cast<int>(seg_tc_launch<2>(a, stream));
+    case 4: return static_cast<int>(seg_tc_launch<4>(a, stream));
+    case 8: return static_cast<int>(seg_tc_launch<8>(a, stream));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

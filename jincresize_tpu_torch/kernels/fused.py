@@ -38,16 +38,19 @@ exact zeros), so the kernel equals ``fused_interior_plain`` bit for bit.
 
 ``precision='bf16'`` is the documented non-parity mode, the Pallas kernel's
 DEFAULT dot (``pallas_fused.py:235``): the MXU rounds both operands to
-bfloat16 in one pass, multiplies exactly and sums in fp32. Here the weights
-are rounded once on the host (``round_bf16``: ties to even, kept float32),
-and the kernel, built with its compile-time bf16 flag, rounds each source
-value as it reads it into registers; the ring, the tiling and the ``fmaf``
-chain are the fp32 mode's. What the mode drops is the one-pass MXU dot: a
-product of two bfloat16 values is exact in fp32, so an fp32 FMA on the
-rounded operands computes what that dot computes, summed in the plain
-form's order, and the kernel still equals ``fused_interior_plain`` (which
-rounds the source first) bit for bit. A bfloat16 tensor-core form is later
-work (ROADMAP).
+bfloat16 in one pass, multiplies exactly and sums in fp32. Here the kernels
+are rounded once on the host (``round_bf16``: ties to even; ``w`` and
+``kernels`` keep the rounded values in float32, and ``wtc`` holds them as
+bfloat16 weight rows, ``tc_weights``), and a second kernel of the same
+source runs the sums on the tensor cores (``mma.sync`` m16n8k16 and
+m16n8k8, bf16 in, fp32 sums): for each staged source row, M = 16 anchor
+columns, K = the taps of the row (``k_slots``, in the packing of
+``tap_of_k``), N = 8 (anchor row, phase) pairs whose weight row the source
+row meets, 2 m-tiles by 4 n-tiles a warp (``tc_layout``). The source is
+staged in bfloat16, rounded once as it lands. The products are exact, but
+the tensor core sums in its own order, so the kernel is held to
+``fused_interior_plain`` (which rounds the source first and sums in fp32
+FMA order) within ``tc_sum_bound``, not bit for bit.
 ``layout`` keeps in Python the arithmetic that places a block's staged
 window and a thread's register window; the tests check it on the CPU.
 
@@ -99,7 +102,7 @@ NARROW_SHAPE = (32, 4, 8)
 SHAPES = (DEFAULT_SHAPE, NARROW_SHAPE)
 CHUNK = 8  # taps of a register window (csrc/fused_interior.cu kChunk)
 # precision modes: 'fp32' and 'fp32_u8src' run the exact fp32 kernel, 'bf16'
-# the same kernel on bfloat16-rounded operands.
+# the tensor-core kernel on bfloat16-rounded operands.
 PRECISIONS = ("fp32", "fp32_u8src", "bf16")
 # Shared memory a block aims to stay under: a window that does not fit
 # whole streams through the ring in stages of a few rows, so that one
@@ -119,6 +122,70 @@ def round_bf16(x: torch.Tensor) -> torch.Tensor:
 F32_U = 2.0**-24  # unit roundoff of float32
 BF16_U = 2.0**-8  # unit roundoff of bfloat16 (8 significand bits)
 BF16_SUM_TOL = 2e-6  # the fp32 summation limit of the kernels' fp32 modes
+
+
+def k_slots(n: int) -> int:
+    """K slots of a tap row of ``n`` taps in the bf16 kernels: k16 chunks,
+    the last one a k8 chunk where at most 8 taps are left."""
+    r = n % 16
+    return n - r + (0 if r == 0 else 8 if r <= 8 else 16)
+
+
+def tap_of_k(k):
+    """Tap (within its chunk) of logical k of an m16n8k16 chunk in the bf16
+    kernels' packing: k = 2t + h -> 4t + h, k = 8 + 2t + h -> 4t + 2 + h, so
+    that lane t's taps 4t .. 4t + 3 are a0 | a2 of an A row and b0 | b1 of
+    its B column (csrc/common.cuh). A k8 chunk keeps k = tap."""
+    k = np.asarray(k)
+    hi, r = k >= 8, k % 8
+    return 4 * (r // 2) + r % 2 + 2 * hi
+
+
+def mma_maps(k: int = 16) -> dict[str, np.ndarray]:
+    """The fragment maps of ``mma.sync.m16n8k16`` (``k = 16``) or
+    ``m16n8k8`` (``k = 8``) with bf16 operands and fp32 sums, from the PTX
+    ISA (csrc/common.cuh): for each lane (groupID g = lane >> 2,
+    threadID_in_group t = lane & 3), the (row, column) of every value it
+    holds. ``'a'`` (32, k // 4, 2, 2): A (16 x k), register r, half h
+    (lower k first); ``'b'`` (32, k // 8, 2, 2): B (k x 8) as (k, n);
+    ``'d'`` (32, 4, 2): C and D (16 x 8)."""
+    lane = np.arange(32)
+    g, t = lane >> 2, lane & 3
+    h = np.arange(2)
+
+    def pairs(rows, cols):  # (32, 2 halves, 2): a register's two values
+        return np.stack(np.broadcast_arrays(rows, cols), -1)
+
+    a_rows = [g, g + 8, g, g + 8][: k // 4]
+    a_cols = [2 * t, 2 * t, 2 * t + 8, 2 * t + 8][: k // 4]
+    a = np.stack([pairs(r[:, None], c[:, None] + h) for r, c in zip(a_rows, a_cols)], 1)
+    b = np.stack([pairs(2 * t[:, None] + 8 * i + h, g[:, None]) for i in range(k // 8)], 1)
+    d = np.stack([np.stack([g + 8 * (i >> 1), 2 * t + (i & 1)], -1) for i in range(4)], 1)
+    return {"a": a, "b": b, "d": d}
+
+
+def tc_sum_bound(n: int, wsum: float, max_src: float) -> float:
+    """The bound of the bf16 kernels against their plain forms:
+    (gamma_n(2u) + 2u) * sum|w| * max|src|, u = 2**-24, gamma_n(v) = n*v /
+    (1 - n*v), over the ``n`` taps a pixel sums.
+
+    Both sides multiply the same bfloat16-rounded operands, and a product
+    of two bfloat16 values (8 significand bits each) is exact in fp32, so
+    only the sums differ. The plain form adds the products in fp32 FMA
+    order. The tensor core adds them in fp32 in its own order, and its
+    adder may not round to nearest: it aligns the addends to the largest
+    exponent and may truncate, so each of the n additions is allowed one
+    ulp of its result (2u relative) and the sum is within gamma_n(2u) *
+    sum|products| of the exact one, sum|products| <= sum|w| * max|src|.
+    The last 2u covers one rounding of the exact sum to fp32. The plain
+    form's own error (at most gamma_n(u) of the same, far less in
+    practice) is not added: both the readings on the card (chip_smoke.py
+    prints reading / bound) and the CPU emulation
+    (tests/test_torch_bf16_tc.py) sit far below the bound. It is never
+    below ``f32_sum_bound``, the fp32 modes' bound of the same sum."""
+    v = 2 * F32_U
+    gamma = n * v / (1 - n * v)
+    return (gamma + v) * wsum * max_src
 
 
 def f32_sum_bound(n: int, wsum: float, max_src: float) -> float:
@@ -244,6 +311,107 @@ def thread_window(lay: Layout, qx: int, t: int, b0: int, taps: int = CHUNK) -> r
     return range(x0, x0 + qx * (lay.r - 1) + taps)
 
 
+# The bf16 kernel: a warp holds TC_MW m-tiles of 16 anchor columns by
+# TC_NT n-tiles of 8 (anchor row, phase) pairs (csrc/fused_interior.cu
+# kTcMW, kTcNT); TC_LAND stages of f32 source rows land at once (kTcLand).
+# A stage takes a third of the window's rows, fewer where the stages and
+# the weights would pass TC_SMEM_TARGET (four 128-thread blocks an SM).
+TC_MW, TC_NT, TC_LAND = 2, 4, 3
+TC_SMEM_TARGET = 56 * 1024
+
+
+@dataclass(frozen=True)
+class TcLayout:
+    """How the bf16 kernel tiles one plan (mirrors ``fused_tc_kernel``)."""
+
+    warps: int  # warps a block: SHAPES' threads / 32
+    c: int  # anchor rows a block: TC_NT * 8 / g
+    g: int  # phases a block
+    ngroups: int  # phase groups: gridDim.z = frames * ngroups
+    kh: int
+    kw: int
+    kwk: int  # k-slots of a weight row: k_slots(kw)
+    ws: int  # words of a weight row (a, e): >= kwk / 2, even
+    wn: int  # words of one phase group's weights: >= kh * g * ws, a multiple of 4
+    nr: int  # source rows of a block's window: qy*(c - 1) + kh
+    nw: int  # words of a copy row that A reads: ceil((qx*(bj - 1) + kwk) / 2)
+    cw: int  # words of a staged copy row: >= nw, 16 mod 32
+    ch: int  # rows a stage
+    swf: int  # floats of a landing row: 2*nw + 4 rounded up to a multiple of 4
+    smem_bytes: int
+
+    @property
+    def bj(self) -> int:
+        """Anchor columns of a block."""
+        return self.warps * TC_MW * 16
+
+
+def weight_stride(kwk: int, qy: int, g: int) -> int:
+    """Words of a weight row (a, e) of the bf16 kernel: the least even
+    count >= kwk / 2 that puts the 8-word B reads of lanes g = 0..3 (one
+    half warp of an 8-byte load) on 4 distinct 8-bank groups -- rows e
+    apart (4 phases a block) or qy*g apart (one phase) -- if one within 32
+    words does, else kwk / 2 rounded up to even."""
+    lo = kwk // 2 + (kwk // 2) % 2
+    for ws in range(lo, lo + 32, 2):
+        d = ws if g == 4 else qy * ws
+        offs = sorted((i * d) % 32 for i in range(4))
+        gaps = [b - a for a, b in zip(offs, offs[1:])] + [offs[0] + 32 - offs[-1]]
+        if min(gaps) >= 8:
+            return ws
+    return lo
+
+
+def tc_layout(
+    py: int, px: int, qy: int, qx: int, kh: int, kw: int, shape=DEFAULT_SHAPE, g: int | None = None
+) -> TcLayout:
+    """The bf16 kernel's tiling of a plan with ``(Kh, Kw)`` kernels:
+    ``shape``'s threads in warps, ``g`` phases a block (default 4 where the
+    phases split so). Shared memory: one phase group's weights, then
+    TC_LAND stages of ``ch`` f32 rows and the current stage's ``ch`` bf16
+    rows (two copies of ``cw`` words), or the output tile where larger."""
+    warps = shape[0] // 32
+    nph = py * px
+    if g is None:
+        g = 4 if nph % 4 == 0 else 1
+    c = TC_NT * 8 // g
+    kwk = k_slots(kw)
+    ws = weight_stride(kwk, qy, g)
+    wn = -(-(kh * g * ws) // 4) * 4
+    nr = qy * (c - 1) + kh
+    def rows(bj: int) -> tuple[int, int, int, int]:
+        """(nw, cw, swf, words a row of a stage takes) of a block bj anchors wide."""
+        nw = -(-(qx * (bj - 1) + kwk) // 2)
+        cw = nw + (16 - nw) % 32
+        swf = -(-(2 * nw + 4) // 4) * 4  # 2*nw + 1 floats from up to 3 past an aligned start
+        return nw, cw, swf, TC_LAND * swf + 2 * cw
+
+    bj = warps * TC_MW * 16
+    nw, cw, swf, row = rows(bj)
+    # Stages as the default shape's, whatever the shape: the packed one-tap
+    # tail sums 8 rows of a stage at its end, so every shape adds alike.
+    row_default = rows(DEFAULT_SHAPE[0] // 32 * TC_MW * 16)[3]
+    ch = max(1, min(-(-nr // 3), (TC_SMEM_TARGET // 4 - wn) // row_default))
+    tile = c * g * (bj + bj // 32 + 1)
+    smem = 4 * (wn + max(ch * row, tile))
+    return TcLayout(
+        warps=warps, c=c, g=g, ngroups=nph // g, kh=kh, kw=kw, kwk=kwk, ws=ws, wn=wn, nr=nr,
+        nw=nw, cw=cw, ch=ch, swf=swf, smem_bytes=smem,
+    )  # fmt: skip
+
+
+def tc_weights(K: np.ndarray, lay: TcLayout) -> np.ndarray:
+    """The bf16 kernel's weights from rounded (nph, Kh, Kw) kernels: (ngroups,
+    2 * wn) bfloat16 values as float32, phase group*g + e's row a at
+    bf16 offset 2 * (a*g + e) * ws, zeros beyond kw and in the padding."""
+    nph, kh, kw = K.shape
+    w = np.zeros((lay.ngroups, kh, lay.g, 2 * lay.ws), np.float32)
+    w[..., :kw] = K.reshape(lay.ngroups, lay.g, kh, kw).transpose(0, 2, 1, 3)
+    out = np.zeros((lay.ngroups, 2 * lay.wn), np.float32)
+    out[:, : kh * lay.g * 2 * lay.ws] = w.reshape(lay.ngroups, -1)
+    return out
+
+
 def fit_shape(py: int, px: int, qy: int, qx: int, kh: int, kw: int):
     """(shape, g) a plan runs: the default shape with 4 phases a block where
     the phases split so, else the narrow one (shorter staged rows), then
@@ -291,15 +459,19 @@ class FusedInterior:
     fs: int
     shape: tuple  # the kernel shape engines launch (fit_shape)
     g: int  # phases a block (fit_shape; the layout of w)
-    bf16: bool  # precision='bf16': w and kernels rounded, the source in the kernel
+    bf16: bool  # precision='bf16': w and kernels rounded, the tensor-core kernel
+    # precision='bf16' only: (ngroups, 2 * wn) bf16, tc_weights (the same for every shape)
+    wtc: torch.Tensor | None = None
 
     @property
     def out_shape(self) -> tuple[int, int]:
         return self.py * self.nyb, self.px * self.nxb
 
-    def layout(self, shape=None) -> Layout:
+    def layout(self, shape=None) -> Layout | TcLayout:
+        """The launch's layout: ``layout``, or ``tc_layout`` under bf16."""
         _, kh, kw = self.kernels.shape
-        return layout(self.py, self.px, self.qy, self.qx, kh, kw, shape or self.shape, self.g)
+        lay = tc_layout if self.bf16 else layout
+        return lay(self.py, self.px, self.qy, self.qx, kh, kw, shape or self.shape, self.g)
 
 
 def make_fused_interior(
@@ -324,6 +496,12 @@ def make_fused_interior(
     lay = layout(plan.y.p, plan.x.p, plan.y.q, plan.x.q, kh, kw, shape, g)
     w = np.zeros((lay.ngroups, g, kh, lay.kwp), dtype=np.float32)
     w[..., :kw] = K.reshape(lay.ngroups, g, kh, kw)
+    wtc = None
+    if bf16:
+        tl = tc_layout(plan.y.p, plan.x.p, plan.y.q, plan.x.q, kh, kw, shape, g)
+        if tl.smem_bytes > MAX_SMEM_BYTES:
+            raise ValueError("make_fused_interior: plan outside the bf16 kernel's envelope")
+        wtc = torch.from_numpy(tc_weights(K, tl)).to(torch.bfloat16).to(device)
     return FusedInterior(
         w=torch.from_numpy(np.ascontiguousarray(w.transpose(0, 2, 3, 1))).to(device),
         kernels=torch.from_numpy(K).to(device),
@@ -339,6 +517,7 @@ def make_fused_interior(
         shape=shape,
         g=g,
         bf16=bf16,
+        wtc=wtc,
     )
 
 
@@ -383,10 +562,11 @@ def fused_interior(fi: FusedInterior, src_f: torch.Tensor, shape=None) -> torch.
     """Fused interior of ``src_f`` (F, H, W) float32 in destination layout.
 
     On a CPU tensor this is ``fused_interior_plain``. On a CUDA tensor it
-    launches ``csrc/fused_interior.cu`` (counted in ``fused_interior.launches``)
-    or raises; it never falls back. ``shape`` is the kernel's (threads,
-    R, C*G), one of ``SHAPES`` (default ``fi.shape``); every shape gives the
-    same result.
+    launches ``csrc/fused_interior.cu`` (counted in ``fused_interior.launches``;
+    under ``fi.bf16`` its tensor-core kernel) or raises; it never falls
+    back. ``shape`` is the kernel's (threads, R, C*G), one of ``SHAPES``
+    (default ``fi.shape``); every shape gives the same result (the bf16
+    kernel takes its threads).
     """
     shape = tuple(shape or fi.shape)
     if shape not in SHAPES:
@@ -409,13 +589,20 @@ def fused_interior(fi: FusedInterior, src_f: torch.Tensor, shape=None) -> torch.
         return out
     if F * lay.ngroups > 65535 or -(-fi.nyb // lay.c) > 65535:
         raise ValueError("fused_interior: grid too large (frames x phase groups or anchor rows)")
+    geo = (F, H, W, fi.py, fi.px, fi.qy, fi.qx, fi.base_y, fi.base_x, fi.nyb, fi.nxb)
     with torch.cuda.device(src_f.device):
-        rc = _build.library().jt_fused_interior(
-            src_f.data_ptr(), fi.w.data_ptr(), out.data_ptr(),
-            F, H, W, fi.py, fi.px, fi.qy, fi.qx, fi.base_y, fi.base_x, fi.nyb, fi.nxb,
-            lay.kh, lay.kw, lay.kwp, lay.g, lay.ngroups, lay.ch, lay.slots, lay.swp,
-            *shape, int(fi.bf16), _build.stream_of(src_f),
-        )  # fmt: skip
+        if fi.bf16:
+            rc = _build.library().jt_fused_interior_bf16(
+                src_f.data_ptr(), fi.wtc.data_ptr(), out.data_ptr(), *geo,
+                lay.kh, lay.kw, lay.kwk, lay.g, lay.ngroups, lay.ws, lay.wn, lay.cw, lay.ch,
+                lay.swf, lay.warps, _build.stream_of(src_f),
+            )  # fmt: skip
+        else:
+            rc = _build.library().jt_fused_interior(
+                src_f.data_ptr(), fi.w.data_ptr(), out.data_ptr(), *geo,
+                lay.kh, lay.kw, lay.kwp, lay.g, lay.ngroups, lay.ch, lay.slots, lay.swp,
+                *shape, _build.stream_of(src_f),
+            )  # fmt: skip
     _build.check(rc, "jt_fused_interior")
     fused_interior.launches += 1
     return out

@@ -66,13 +66,21 @@ TPU workarounds of the Pallas kernel that this one drops:
 
 ``precision='bf16'`` (the documented non-parity mode, the Pallas kernel's
 DEFAULT dot at ``pallas_fused_seg.py:397``: both operands rounded to
-bfloat16 in one MXU pass, fp32 sums) rounds the pair blocks once on the host
-(``fused.round_bf16``) and runs the kernel's compile-time bf16 flag, which
-rounds each source value as a thread reads it. What it drops is the one-pass
-MXU dot: the products of rounded operands are exact in fp32, so the same
-FMA chains on them compute that dot, and the kernel equals
-``seg_interior_plain`` (which rounds the source first) bit for bit. The
-staged block layout (``block_stride``) and the envelope are the fp32 mode's.
+bfloat16 in one MXU pass, fp32 sums) runs a second kernel of the same
+source on the tensor cores (``mma.sync`` m16n8k16 and m16n8k8, bf16 in,
+fp32 sums). Per column class of a tile the interior is a product: M slots
+(column, frame) of one class (``tile_columns`` lists each tile's columns
+grouped by class; frames fill the slots a class's few columns leave), N 8
+output rows each with its own block and start, K the taps of one staged
+source row (``fused.k_slots``). The pair blocks are rounded on the host
+once (``fused.round_bf16``) and shipped as bfloat16 (``tc_blocks``, tap rows
+zero-padded to ``k_slots(fs)``); the kernel stages the tile's whole source
+window for its frames once, rounded to bfloat16 (``tc_smem_bytes``), so
+``frames_of`` picks the most frames whose windows fit beside the pairs
+(``tc_frames``), and the fp32 mode's ``frames_per_block`` is kept as it
+was. The products are exact; the sums run in the tensor core's order, so
+the kernel is held to ``seg_interior_plain`` (which rounds the source
+first) within ``fused.tc_sum_bound``, not bit for bit.
 
 Weights and state: the operator and the plan are the port's copies of the
 JAX package's NumPy ``PlaneOperator`` and ``SegPhasePlan`` (the same arrays,
@@ -91,7 +99,7 @@ from ..operator import PlaneOperator
 from ..phase import SegAxisPlan, SegPhasePlan
 
 from . import _build
-from .fused import MAX_SMEM_BYTES, PRECISIONS, round_bf16
+from .fused import MAX_SMEM_BYTES, PRECISIONS, k_slots, round_bf16
 from .gather import (
     FRAMES,
     check_window_starts,
@@ -128,6 +136,54 @@ def tile_classes(cls: np.ndarray, tile: int) -> TileClasses:
         [np.searchsorted(u, cls[i * tile : (i + 1) * tile]) for i, u in enumerate(uniq)]
     )
     return TileClasses(ids, np.array([len(u) for u in uniq], np.int32), local.astype(np.int32))
+
+
+def tile_columns(tc: TileClasses, tile: int) -> tuple[np.ndarray, np.ndarray]:
+    """Each tile's columns grouped by class, for the bf16 kernel's m-tiles,
+    from ``tile_classes`` of tiles of ``tile`` columns: ``(pcx, scx)``,
+    ``pcx`` (tiles, tile) int32 the tile-local columns in order of their
+    class (the order of ``tc.ids``), then of the column (0 past a ragged
+    last tile's end); ``scx`` (tiles, k + 1) int32 where class i's run
+    starts in ``pcx`` (``scx[:, i + 1] - scx[:, i]`` columns; the tile's
+    column count from its last class on)."""
+    n_tiles, k = tc.ids.shape
+    pcx = np.zeros((n_tiles, tile), np.int32)
+    scx = np.zeros((n_tiles, k + 1), np.int32)
+    for i in range(n_tiles):
+        local = tc.local[i * tile : (i + 1) * tile]
+        pcx[i, : len(local)] = np.argsort(local, kind="stable")
+        scx[i, 1:] = np.cumsum(np.bincount(local, minlength=k)[:k])
+    return pcx, scx
+
+
+def tc_words(fs: int, win_h: int, win_w: int) -> tuple[int, int, int]:
+    """(bs, cw, plane) of the bf16 kernel, in 4-byte words: a staged pair
+    block (``fs`` tap rows of ``k_slots(fs)`` bf16, a multiple of 4 words),
+    a copy row of the staged source (the widest window's columns and its
+    last k-slot, two bf16 a word) and a staged frame (the tallest window's
+    rows of two copy rows, 16 mod 32, so that adjacent frames' words fall
+    on the other half of the banks)."""
+    fsk = k_slots(fs)
+    bs = -(-(fs * fsk // 2) // 4) * 4
+    cw = -(-(win_w - fs + fsk + 1) // 2)
+    cw += cw & 1
+    plane = win_h * 2 * cw
+    plane += (16 - plane) % 32
+    return bs, cw, plane
+
+
+def tc_table_words(frames: int) -> int:
+    """Words of the bf16 kernel's per-block tables (csrc/seg_interior.cu
+    kTab*): 162 fixed, then one a m-tile, at most 2 * frames + 32 of them;
+    a multiple of 4."""
+    return -(-(162 + 2 * frames + 32) // 4) * 4
+
+
+def tc_smem_bytes(pairs: int, fs: int, win_h: int, win_w: int, frames: int) -> int:
+    """Shared memory of a bf16 launch: ``pairs`` staged blocks, the block's
+    tables, then the whole source window of each of ``frames`` frames."""
+    bs, _, plane = tc_words(fs, win_h, win_w)
+    return 4 * (pairs * bs + tc_table_words(frames) + frames * plane)
 
 
 def block_stride(fs: int) -> int:
@@ -181,7 +237,12 @@ class SegInterior:
     win_w: int  # source columns of the widest tile window: a staged row's span
     pairs: int  # pair blocks of the largest tile (ky * kx)
     frames_per_block: int  # the most frames a thread that fit beside the pairs
-    bf16: bool  # precision='bf16': blocks rounded, the source in the kernel
+    bf16: bool  # precision='bf16': blocks rounded, the tensor-core kernel
+    # precision='bf16' only (None otherwise): the tensor-core kernel's tables
+    tc_blocks: torch.Tensor | None = None  # (n_uy, n_ux, fs, k_slots(fs)) bf16
+    pcx: torch.Tensor | None = None  # (column tiles, TILE_X) int32, tile_columns
+    scx: torch.Tensor | None = None  # (column tiles, kx + 1) int32
+    tc_frames: int = 0  # the most frames whose windows fit beside the pairs
 
     @property
     def out_shape(self) -> tuple[int, int]:
@@ -238,8 +299,23 @@ def make_seg_interior(
 
     bf16 = precision == "bf16"
     pair_blocks = op.pair_blocks
+    tc = {}
     if bf16:
         pair_blocks = round_bf16(torch.from_numpy(pair_blocks)).numpy()
+        pairs = ty.ids.shape[1] * tx.ids.shape[1]
+        fits = [f for f in FRAMES if tc_smem_bytes(pairs, fs, win_h, win_w, f) <= MAX_SMEM_BYTES]
+        if not fits:
+            raise ValueError("make_seg_interior: plan outside the bf16 kernel's envelope")
+        n_uy, n_ux = pair_blocks.shape[:2]
+        padded = np.zeros((n_uy, n_ux, fs, k_slots(fs)), np.float32)
+        padded[..., :fs] = pair_blocks
+        pcx, scx = tile_columns(tx, TILE_X)
+        tc = dict(
+            tc_blocks=torch.from_numpy(padded).to(torch.bfloat16).to(device),
+            pcx=t(pcx),
+            scx=t(scx),
+            tc_frames=max(fits),
+        )
     blocks = padded_blocks(pair_blocks, device)
     return SegInterior(
         blocks=blocks,
@@ -270,14 +346,16 @@ def make_seg_interior(
         pairs=ty.ids.shape[1] * tx.ids.shape[1],
         frames_per_block=nfb,
         bf16=bf16,
+        **tc,
     )
 
 
 def frames_of(si: SegInterior, n_frames: int) -> int:
-    """Frames a thread of a launch over ``n_frames``: ``frames_per_thread``,
+    """Frames a block of a launch over ``n_frames``: ``frames_per_thread``,
     at most ``frames_per_block`` (the most whose rings fit beside the pair
-    blocks)."""
-    return min(frames_per_thread(n_frames), si.frames_per_block)
+    blocks), or in the bf16 mode ``tc_frames`` (the most whose windows
+    do)."""
+    return min(frames_per_thread(n_frames), si.tc_frames if si.bf16 else si.frames_per_block)
 
 
 def seg_interior_plain(si: SegInterior, src_f: torch.Tensor) -> torch.Tensor:
@@ -293,8 +371,9 @@ def seg_interior(si: SegInterior, src_f: torch.Tensor) -> torch.Tensor:
     """Segment-periodic interior of ``src_f`` (F, H, W) float32.
 
     On a CPU tensor this is ``seg_interior_plain``. On a CUDA tensor it
-    launches ``csrc/seg_interior.cu`` (counted in ``seg_interior.launches``)
-    or raises; it never falls back.
+    launches ``csrc/seg_interior.cu`` (counted in ``seg_interior.launches``;
+    under ``si.bf16`` its tensor-core kernel) or raises; it never falls
+    back.
     """
     if src_f.device.type == "cpu":
         return seg_interior_plain(si, src_f)
@@ -311,16 +390,27 @@ def seg_interior(si: SegInterior, src_f: torch.Tensor) -> torch.Tensor:
     out = torch.empty((F, hout, wout), dtype=torch.float32, device=src_f.device)
     if F == 0:
         return out
-    swp = row_floats(si.win_w, 1)
     with torch.cuda.device(src_f.device):
-        rc = _build.library().jt_seg_interior(
-            src_f.data_ptr(), si.blocks.data_ptr(), si.start_y.data_ptr(), si.start_x.data_ptr(),
-            si.lcy.data_ptr(), si.lcx.data_ptr(), si.tcy.data_ptr(), si.tcx.data_ptr(),
-            si.ncy.data_ptr(), si.ncx.data_ptr(), out.data_ptr(), F, H, W, hout, wout,
-            si.blocks.shape[1], si.fs, si.blocks.shape[3], block_stride(si.fs),
-            si.tcy.shape[1], si.tcx.shape[1], si.pairs, frames_of(si, F), swp, int(si.bf16),
-            _build.stream_of(src_f),
-        )  # fmt: skip
+        if si.bf16:
+            bs, cw, plane = tc_words(si.fs, si.win_h, si.win_w)
+            nf = frames_of(si, F)
+            rc = _build.library().jt_seg_interior_bf16(
+                src_f.data_ptr(), si.tc_blocks.data_ptr(), si.start_y.data_ptr(),
+                si.start_x.data_ptr(), si.lcy.data_ptr(), si.tcy.data_ptr(), si.tcx.data_ptr(),
+                si.ncy.data_ptr(), si.ncx.data_ptr(), si.pcx.data_ptr(), si.scx.data_ptr(),
+                out.data_ptr(), F, H, W, hout, wout, si.blocks.shape[1], si.fs,
+                si.tc_blocks.shape[3], si.tcy.shape[1], si.tcx.shape[1], si.pairs, bs,
+                tc_table_words(nf), cw, plane, nf, _build.stream_of(src_f),
+            )  # fmt: skip
+        else:
+            rc = _build.library().jt_seg_interior(
+                src_f.data_ptr(), si.blocks.data_ptr(), si.start_y.data_ptr(),
+                si.start_x.data_ptr(), si.lcy.data_ptr(), si.lcx.data_ptr(), si.tcy.data_ptr(),
+                si.tcx.data_ptr(), si.ncy.data_ptr(), si.ncx.data_ptr(), out.data_ptr(), F, H, W,
+                hout, wout, si.blocks.shape[1], si.fs, si.blocks.shape[3], block_stride(si.fs),
+                si.tcy.shape[1], si.tcx.shape[1], si.pairs, frames_of(si, F),
+                row_floats(si.win_w, 1), _build.stream_of(src_f),
+            )  # fmt: skip
     _build.check(rc, "jt_seg_interior")
     seg_interior.launches += 1
     return out

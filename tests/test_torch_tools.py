@@ -226,15 +226,18 @@ def test_entries_default_to_the_card(monkeypatch):
 
 def test_probe_kernel_is_built_and_bound():
     """The probe's source and C signature (one pointer, five sizes, the
-    stream); the fused kernel's signature carries the shape, its ring and its
-    bf16 flag; a tensor neither on the CPU nor on a CUDA device is refused,
-    with no launch counted."""
+    stream); the fused kernel's signature carries the shape and its ring, and
+    its bf16 mode (the tensor-core kernel) has an entry of its own with its
+    layout and warps; a tensor neither on the CPU nor on a CUDA device is
+    refused, with no launch counted."""
     from jincresize_tpu_torch.kernels import _build
 
     assert "out_only.cu" in {p.name for p in _build._sources()}
     assert _build._SIGNATURES["jt_out_only"] == [_build._P] + [_build._I] * 5 + [_build._P]
     assert "jt_out_only(" in (_build.CSRC / "out_only.cu").read_text()
-    assert _build._SIGNATURES["jt_fused_interior"] == [_build._P] * 3 + [_build._I] * 23 + [_build._P]
+    assert _build._SIGNATURES["jt_fused_interior"] == [_build._P] * 3 + [_build._I] * 22 + [_build._P]
+    assert _build._SIGNATURES["jt_fused_interior_bf16"] == [_build._P] * 3 + [_build._I] * 22 + [_build._P]
+    assert "jt_fused_interior_bf16(" in (_build.CSRC / "fused_interior.cu").read_text()
     with pytest.raises(RuntimeError, match="unsupported device"):
         probe.out_only(torch.empty((1, 8, 8), device="meta"))
     assert probe.out_only.launches == 0
