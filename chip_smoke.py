@@ -51,7 +51,15 @@ Phases (each raises on failure; nothing catches it):
    its two cases and the full 2560x1440 -> 1920x1080 tap-16 plane (fs 44)
    at F = 1, 2, 3, 4 and 8, each against its plain form within
    ``kernels.fused.tc_sum_bound`` (the reading and its share of the bound
-   printed) and against the fp32 mode (``kernels.fused.bf16_bound``); every
+   printed) and against the fp32 mode (``kernels.fused.bf16_bound``); the
+   wsplit3 modes (what u8 planes run: three bfloat16 parts of the weights
+   on the tensor cores) on u8 sources, the fused kernel on every conv
+   case's luma plane (a plan whose three weight planes pass the shared
+   memory is built in the fp32 mode and printed), the full 4K -> 8K and
+   4K -> 1080p tap-16 planes and the narrow shape (0 against the default),
+   the seg kernel on its two cases at every F, the 1440p -> 4K plane and
+   the fs-44 plane at every F, each against the fp32 mode's plain form
+   within ``kernels.fused.wsplit3_bound`` (the reading printed); every
    launch counted;
 3. end to end, one path after another, each with the launch counts set to 0
    just before and read just after, on 4-frame yuv420p8 clips:
@@ -85,8 +93,15 @@ Phases (each raises on failure; nothing catches it):
    drifted clip on one card (``fused-seg``) and on four row shards
    (``sharded/seg``, <= 1 LSB against the single card), each applier's
    ``effective_precision`` asserted bf16 and each output within
-   ``kernels.fused.bf16_lsb`` of the fp32 run. ``fused_interior_plain`` must be called 0
-   times in the phase;
+   ``kernels.fused.bf16_lsb`` of the fp32 run; two frames of the drifted
+   clip in yuv420p16 (the seg kernel's fp32 mode, <= 1 LSB against the
+   plain engine). On every yuv420p8 path each fused and seg plane (every
+   shard of the sharded runs) is asserted to run the mode the appliers'
+   ``KERNEL_PRECISION`` gives u8 planes (``'wsplit3'``) and to report
+   ``effective_precision='fp32_u8src'``, and the kernel modes launched are
+   counted path by path (``mode_launches``); every mode of both kernels
+   must have been launched over the phase. ``fused_interior_plain`` and
+   ``seg_interior_plain`` must be called 0 times in the phase;
 4. timing -- every tool of ``jincresize_tpu_torch.tools`` in this process at
    reduced repetitions, each with the launch counts set to 0 before and read
    after (``device_loop_timing`` is the probe's main path; the fused shape
@@ -121,7 +136,13 @@ Phases (each raises on failure; nothing catches it):
    end-to-end ms/frame
    with its upload / device / download split (the deep drifted path too; the sharded aperiodic path
    beside the single-card one; the deep aperiodic clip under ``auto`` beside
-   ``impl='xla'``), ``python -m jincresize_tpu_torch.bench`` in
+   ``impl='xla'``), the u8 forms (the wsplit3 modes) on 8-frame u8 luma
+   batches of 4K -> 8K, 4K -> 1080p tap 16, the 2/3 plan, 1440p -> 4K and
+   1440p -> 1080p tap 16, each beside the fp32 FMA and bf16 kernels on the
+   same batch in the same turns (and cuDNN's fp32 conv2d for the fused
+   kernel), its fp32 plain form once (held within ``wsplit3_bound``) and
+   its bound (three passes at the bf16 tensor-core peak, or bytes),
+   ``python -m jincresize_tpu_torch.bench`` in
    its three modes and the default one under ``--precision bf16``, run in
    this process, and the probe beside its bound and
    ``torch.zeros``, in one order and the other;
@@ -309,6 +330,21 @@ def tc_bound(tables, src) -> float:
     else:
         n, w = tables.fs**2, tables.blocks.abs().sum((2, 3)).max()
     return fused.tc_sum_bound(n, float(w), float(fused.round_bf16(src).abs().max()))
+
+
+def wsplit3_bound_of(tables, src) -> float:
+    """``kernels.fused.wsplit3_bound`` of a wsplit3 launch of the fused or
+    seg kernel on the u8 ``src``: n the taps a pixel sums (Kh*Kw of the
+    phase kernels, fs**2 of the pair blocks), sum|w| of the largest
+    unrounded kernel or pair block, max|src|."""
+    from jincresize_tpu_torch.kernels import fused
+
+    if isinstance(tables, fused.FusedInterior):
+        _, kh, kw = tables.kernels.shape
+        n, w = kh * kw, tables.kernels.abs().sum((1, 2)).max()
+    else:
+        n, w = tables.fs**2, tables.blocks.abs().sum((2, 3)).max()
+    return fused.wsplit3_bound(n, float(w), float(src.abs().max()))
 
 
 def bound_ms(ops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
@@ -564,6 +600,9 @@ def main() -> int:
     from jincresize_tpu_torch.phase import plan_phases, plan_phases_seg
     from jincresize_tpu_torch.api import ChainResizer, JincConfig, JincResizer, jinc_resize
     from jincresize_tpu_torch.api import jinc_resize_chain
+    from jincresize_tpu_torch import apply_conv, apply_conv_seg
+    from jincresize_tpu_torch.apply_conv import ConvApplier
+    from jincresize_tpu_torch.apply_conv_seg import SegConvApplier
     from jincresize_tpu_torch.apply_gather import GatherApplier
     from jincresize_tpu_torch.apply_xla import finalize, torch_dtype
     from jincresize_tpu_torch.kernels import _build
@@ -588,12 +627,23 @@ def main() -> int:
         "out_only": probe.out_only,
     }
 
+    # The fused and seg wrappers count their launches by kernel mode too
+    # (fp32, bf16, wsplit3): phase 3 reads them path by path.
+    modes = {"fused": fused_k.fused_interior, "seg": seg_k.seg_interior}
+    main_modes = {}  # phase 3's launches of each kernel mode, summed over its paths
+
     def counts():
         return {k: w.launches for k, w in wrappers.items()}
+
+    def mode_counts():
+        """{'<kernel>_<mode>': launches} since the last zero_counts()."""
+        return {f"{k}_{m}": n for k, w in modes.items() for m, n in w.mode_launches.items()}
 
     def zero_counts():
         for w in wrappers.values():
             w.launches = 0
+        for w in modes.values():
+            w.mode_launches = dict.fromkeys(w.mode_launches, 0)
 
     # ---------------------------------------------------------------- phase 1
     t_start = time.perf_counter()
@@ -714,6 +764,39 @@ def main() -> int:
         tc_readings.append(err / tcb)
         return err
 
+    def check_wsplit3_fused(name, op, rng, frames=2):
+        """The fused kernel's wsplit3 mode (three weight parts on the tensor
+        cores) on u8 sources against the fp32 mode's plain form and the fp32
+        kernel, both within ``wsplit3_bound``; returns |kernel - plain|, or
+        None for a plan past the mode's envelope (built in the fp32 mode)."""
+        plan = plan_phases(op)
+        fi = fused_k.make_fused_interior(op, plan, dev, "wsplit3")
+        if fi.precision != "wsplit3":
+            assert fused_k.kernel_precision(op, plan, "wsplit3") == "fp32", name
+            print(f"[2] {name:28s} fused wsplit3 mode: three weight parts pass the shared "
+                  f"memory; built in the fp32 mode ({fi.precision})")
+            wsplit3_declined.append(name)
+            return None
+        fi32 = fused_k.make_fused_interior(op, plan, dev)
+        src = rand_src(op, 8, rng, frames)
+        before, bm = counts(), mode_counts()
+        got = fused_k.fused_interior(fi, src)
+        f32 = fused_k.fused_interior(fi32, src)
+        ref = fused_k.fused_interior_plain(fi32, src)
+        torch.cuda.synchronize()
+        assert counts() == {**before, "fused": before["fused"] + 2}, (name, before, counts())
+        assert mode_counts()["fused_wsplit3"] == bm["fused_wsplit3"] + 1, name
+        assert torch.isfinite(got).all(), name
+        err, wb = float((got - ref).abs().max()), wsplit3_bound_of(fi32, src)
+        moved = float((got - f32).abs().max())
+        print(f"[2] {name:28s} fused wsplit3 mode fs={op.filter_size} shape="
+              f"{fused_k.shape_name(fi.shape)} g={fi.g} smem {fi.layout().smem_bytes} B: max "
+              f"|err| vs the fp32 plain form {err:.3g} (wsplit3_bound {wb:.3g}, reading / bound "
+              f"{err / wb:.4f}), vs the fp32 kernel {moved:.3g}")
+        assert err <= wb and moved <= wb, (name, err, moved, wb)
+        wsplit3_readings.append(err / wb)
+        return err
+
     def check_interior(kind, name, op, bits, rng, frames=2, precision="fp32"):
         """The gather or seg kernel (seg: in its ``precision`` mode) against
         its plain form on ``op``."""
@@ -721,7 +804,7 @@ def main() -> int:
             plan = plan_phases_seg(op)
             assert plan is not None and seg_k.is_supported(op, plan), name
             tables = seg_k.make_seg_interior(op, plan, dev, precision)
-            assert tables.bf16 == (precision == "bf16"), name
+            assert tables.precision == precision, name
             plain = seg_k.seg_interior_plain
             info = (f"p=({plan.y.p},{plan.x.p}) q=({plan.y.q},{plan.x.q}) "
                     f"spread=({plan.y.spread},{plan.x.spread}) "
@@ -740,10 +823,16 @@ def main() -> int:
         torch.cuda.synchronize()
         assert counts() == {**before, kind: before[kind] + 1}, (name, before, counts())
         assert torch.isfinite(got).all(), name
-        err = err_of(got, ref, bits)
+        err = err_of(got, ref, 32 if precision == "wsplit3" else bits)  # wsplit3: fp32 |err|
         moved = ""
         if precision == "fp32":
             assert err == 0, (name, kind, err)  # both kernels sum in the plain form's order: exact
+        elif precision == "wsplit3":  # u8 sources: exact products, the tensor cores' order
+            wb = wsplit3_bound_of(tables, src)
+            assert bits == 8 and err <= wb, (name, kind, precision, err, wb)
+            wsplit3_readings.append(err / wb)
+            moved = (f" (wsplit3_bound {wb:.3g}, reading / bound {err / wb:.4f}, frames a block "
+                     f"{seg_k.frames_of(tables, frames)})")
         else:  # tc_sum_bound (the tensor cores' order), and the fp32 mode within bf16_bound
             tcb = tc_bound(tables, src)
             assert bits == 32 and err <= tcb, (name, kind, precision, err, tcb)
@@ -754,9 +843,9 @@ def main() -> int:
             moved = (f" (tc_sum_bound {tcb:.3g}, reading / bound {err / tcb:.4f}, frames a "
                      f"block {seg_k.frames_of(tables, frames)}), vs the fp32 mode {d:.3g} "
                      f"(bound {bound:.3g})")
+        unit = "" if bits == 32 or precision == "wsplit3" else " LSB"
         print(f"[2] {name:34s} {kind:6s} {info} classes={op.pair_blocks.shape[:2]} "
-              f"fs={op.filter_size} F={frames} {precision} err={err:.3g}"
-              f"{'' if bits == 32 else ' LSB'}{moved}")
+              f"fs={op.filter_size} F={frames} {precision} err={err:.3g}{unit}{moved}")
         return err
 
     def check_band(name, op, n_rows, bits, rng, frames=2):
@@ -788,17 +877,17 @@ def main() -> int:
         return worst
 
     def check_shapes(name, op, rng, frames=2):
-        """The fused kernel's narrow shape against the default on fp32
-        sources, in the fp32 and the bf16 mode: the same sums in the same
-        order, so 0."""
+        """The fused kernel's narrow shape against the default, in the fp32
+        and the bf16 mode on fp32 sources and in the wsplit3 mode on u8
+        sources: the same sums in the same order, so 0."""
         errs = {}
-        src = rand_src(op, 32, rng, frames)
-        for precision in ("fp32", "bf16"):
+        for precision, bits in (("fp32", 32), ("bf16", 32), ("wsplit3", 8)):
+            src = rand_src(op, bits, rng, frames)
             fi = fused_k.make_fused_interior(op, plan_phases(op), dev, precision)
             ref = fused_k.fused_interior(fi, src)
             for shape in fused_k.SHAPES[1:]:
                 got = fused_k.fused_interior(fi, src, shape)
-                errs[f"{fused_k.shape_name(shape)} {precision}"] = float((got - ref).abs().max())
+                errs[f"{fused_k.shape_name(shape)} {fi.precision}"] = float((got - ref).abs().max())
         torch.cuda.synchronize()
         print(f"[2] {name:28s} fused shapes vs {fused_k.shape_name(fi.shape)} (smem "
               f"{fi.layout().smem_bytes} B, {fi.g} phases a block): max |err| {errs}")
@@ -835,8 +924,11 @@ def main() -> int:
     rng = np.random.default_rng(2026)
     strips_f64 = []  # (plane, fs, F, |strip kernel - float64 plain form|, f32_chain_bound)
     tc_readings = []  # |bf16 kernel - plain form| / tc_sum_bound, every bf16 check
-    # The bf16 modes of the fused and seg kernels are counted apart.
-    max_err = dict.fromkeys([*wrappers, "fused_bf16", "seg_bf16"], 0.0)
+    wsplit3_readings = []  # |wsplit3 kernel - fp32 plain form| / wsplit3_bound, every check
+    wsplit3_declined = []  # fused planes past the wsplit3 mode's envelope
+    # The bf16 and wsplit3 modes of the fused and seg kernels are counted apart.
+    max_err = dict.fromkeys(
+        [*wrappers, "fused_bf16", "seg_bf16", "fused_wsplit3", "seg_wsplit3"], 0.0)
     covered = dict.fromkeys(max_err, 0)
     shapes_checked = []
     for shape, tile in PROBE_SHAPES:
@@ -864,6 +956,10 @@ def main() -> int:
         err = check_bf16_fused(f"{name} luma", r.op_luma, rng)
         max_err["fused_bf16"] = max(max_err["fused_bf16"], err)
         covered["fused_bf16"] += 1
+        err = check_wsplit3_fused(f"{name} luma", r.op_luma, rng)
+        if err is not None:
+            max_err["fused_wsplit3"] = max(max_err["fused_wsplit3"], err)
+            covered["fused_wsplit3"] += 1
         if name in SHAPE_CASES:
             check_shapes(name, r.op_luma, rng)
         if name in STRIP_FRAME_CASES:
@@ -884,11 +980,14 @@ def main() -> int:
             covered[kind] += 1
             if bits == 32:
                 max_err[kind] = max(max_err[kind], err)
-        if kind == "seg":  # the bf16 mode's instances (frames a thread 1, 2, 4, 8)
+        if kind == "seg":  # the bf16 and wsplit3 modes' instances (frames a block 1, 2, 4, 8)
             for frames in KERNEL_FRAMES:
                 err = check_interior(kind, name, r.op_luma, 32, rng, frames, "bf16")
                 covered["seg_bf16"] += 1
                 max_err["seg_bf16"] = max(max_err["seg_bf16"], err)
+                err = check_interior(kind, name, r.op_luma, 8, rng, frames, "wsplit3")
+                covered["seg_wsplit3"] += 1
+                max_err["seg_wsplit3"] = max(max_err["seg_wsplit3"], err)
         against_golden(name, gray(8), r, cfg, sw, sh)
 
     for name, sw, sh, dw, dh, tap, n_rows in BAND_CASES:
@@ -912,17 +1011,24 @@ def main() -> int:
     for k, v in errs.items():
         covered[k] += 1
         max_err[k] = max(max_err[k], v)
+    err = check_wsplit3_fused("3840x2160->7680x4320 tap8 luma", resizer.op_luma, rng)
+    max_err["fused_wsplit3"] = max(max_err["fused_wsplit3"], err)
+    covered["fused_wsplit3"] += 1
     max_err["strips"] = max(max_err["strips"],
                             check_strips("3840x2160->7680x4320 tap8 luma", resizer.op_luma, rng))
     # The caller's matmul precision does not reach the port's fp32 results:
-    # the 4K -> 8K fp32 luma plane under 'high' (TF32 matmuls) against the
-    # default run, and the caller's setting is back after the call.
+    # the 4K -> 8K fp32 luma plane (its fp32 applier: the resizer's u8 planes
+    # run the wsplit3 mode) under 'high' (TF32 matmuls) against the default
+    # run, and the caller's setting is back after the call. The fp32 applier
+    # is phase 4's fp32 mode of this plane too.
+    app32 = ConvApplier(resizer.op_luma, device=dev)
+    assert app32.effective_precision == "fp32" and app32.fi.precision == "fp32"
     f32_src = rand_src(resizer.op_luma, 32, rng, 2)
-    want = resizer._applier_luma(f32_src)
+    want = app32(f32_src)
     prec = torch.get_float32_matmul_precision()
     torch.set_float32_matmul_precision("high")
     try:
-        got = resizer._applier_luma(f32_src)
+        got = app32(f32_src)
         assert torch.get_float32_matmul_precision() == "high"
     finally:
         torch.set_float32_matmul_precision(prec)
@@ -957,6 +1063,9 @@ def main() -> int:
     err = check_bf16_fused("3840x2160->1920x1080 tap16 luma", deep_r.op_luma, rng)
     max_err["fused_bf16"] = max(max_err["fused_bf16"], err)
     covered["fused_bf16"] += 1
+    err = check_wsplit3_fused("3840x2160->1920x1080 tap16 luma", deep_r.op_luma, rng)
+    max_err["fused_wsplit3"] = max(max_err["fused_wsplit3"], err)
+    covered["fused_wsplit3"] += 1
 
     paths = {}
     for key, (sw, sh, dw, dh), seed in (("drift", DRIFT, 200), ("aperiodic", APERIODIC, 300)):
@@ -971,6 +1080,11 @@ def main() -> int:
             err = check_interior(kind, f"{sw}x{sh}->{dw}x{dh} tap8 luma", pr.op_luma, 32, rng)
             covered[kind] += 1
             max_err[kind] = max(max_err[kind], err)
+        if key == "drift":
+            err = check_interior("seg", f"{sw}x{sh}->{dw}x{dh} tap8 luma", pr.op_luma, 8, rng,
+                                 2, "wsplit3")  # fmt: skip
+            covered["seg_wsplit3"] += 1
+            max_err["seg_wsplit3"] = max(max_err["seg_wsplit3"], err)
     sw, sh, dw, dh = APERIODIC
     for bits in (32, 8):
         err = check_band(f"{sw}x{sh}->{dw}x{dh} tap8 luma", paths["aperiodic"][0].op_luma,
@@ -994,11 +1108,15 @@ def main() -> int:
         err = check_interior(kind, f"{deep_drift_geo} tap16 luma", deep_drift_r.op_luma, 32, rng)
         covered[kind] += 1
         max_err[kind] = max(max_err[kind], err)
-    for frames in KERNEL_FRAMES:  # the bf16 mode at fs 44: 1, 2 and 4 frames a block
+    for frames in KERNEL_FRAMES:  # fs 44: bf16 at 1, 2 and 4 frames a block, wsplit3 at 1
         err = check_interior("seg", f"{deep_drift_geo} tap16 luma", deep_drift_r.op_luma, 32, rng,
                              frames, "bf16")
         covered["seg_bf16"] += 1
         max_err["seg_bf16"] = max(max_err["seg_bf16"], err)
+        err = check_interior("seg", f"{deep_drift_geo} tap16 luma", deep_drift_r.op_luma, 8, rng,
+                             frames, "wsplit3")
+        covered["seg_wsplit3"] += 1
+        max_err["seg_wsplit3"] = max(max_err["seg_wsplit3"], err)
 
     # The deep aperiodic plane: 4K -> 1366x768 tap 16 (fs = 92), the gather
     # kernel on two frames and the band kernel on its four row shards.
@@ -1021,6 +1139,11 @@ def main() -> int:
     print(f"[2] bf16 kernels against their plain forms: {len(tc_readings)} checks, largest "
           f"reading / tc_sum_bound {max(tc_readings):.4f}; max |err| fused {max_err['fused_bf16']:.3g}, "
           f"seg {max_err['seg_bf16']:.3g}")
+    print(f"[2] wsplit3 kernels on u8 sources against the fp32 plain forms: "
+          f"{len(wsplit3_readings)} checks, largest reading / wsplit3_bound "
+          f"{max(wsplit3_readings):.4f}; max |err| fused {max_err['fused_wsplit3']:.3g}, seg "
+          f"{max_err['seg_wsplit3']:.3g}; fused planes past the mode's envelope (built fp32): "
+          f"{wsplit3_declined}")
 
     # The chain of phase 3: two 2x stages composed on the host into one
     # operator a plane, here, into a fresh cache directory (phase 3 loads
@@ -1110,7 +1233,46 @@ def main() -> int:
         apps = [r._applier_chroma if n in ("U", "V") else r._applier_luma for n in fmt.plane_names]
         return {"fused": len(apps), "strips": sum(a.strips_spec is not None for a in apps)}
 
-    fused_k.fused_interior_plain.calls = 0  # no engine may take the plain form in phase 3
+    def path_counts():
+        """The launch counts of the path just driven (read once a path); its
+        kernel modes' counts are added to ``main_modes``."""
+        for k, v in mode_counts().items():
+            main_modes[k] = main_modes.get(k, 0) + v
+        return counts()
+
+    def u8_modes(r):
+        """The kernel modes a call of the yuv420p8 resizer ``r`` launches:
+        each fused or seg plane (one card, or every shard of a mesh) must
+        run the mode the appliers' mapping gives u8 planes
+        (``KERNEL_PRECISION['fp32_u8src']``) and report it as its
+        ``effective_precision``. Returns {'<kernel>_<mode>': launches}."""
+        want = {}
+        for n in fmt.plane_names:
+            ap = r._applier_chroma if n in ("U", "V") else r._applier_luma
+            interior = getattr(ap, "interior", None)
+            if isinstance(ap, ConvApplier) or interior == "conv-fused":
+                kind, mode = "fused", apply_conv.KERNEL_PRECISION["fp32_u8src"]
+            elif isinstance(ap, SegConvApplier) or interior == "seg":
+                kind, mode = "seg", apply_conv_seg.KERNEL_PRECISION["fp32_u8src"]
+            else:
+                assert ap is None or ap.effective_precision == "fp32", (n, ap)
+                continue
+            if hasattr(ap, "_fn"):  # sharded: every shard's interior
+                tables = [sh.tables for sh in ap._fn.shards[0] if sh is not None and sh.tables is not None]
+            else:
+                tables = [ap.fi if kind == "fused" else ap.si]
+            assert all(t.precision == mode for t in tables), (n, [t.precision for t in tables])
+            assert ap.effective_precision == fused_k.APPLIER_PRECISION[mode], (n, ap.effective_precision)
+            want[f"{kind}_{mode}"] = want.get(f"{kind}_{mode}", 0) + len(tables)
+        return want
+
+    def assert_modes(what, want):
+        got = {k: v for k, v in mode_counts().items() if v}
+        print(f"[3] {what}: kernel modes launched {got}")
+        assert got == want, (what, got, want)
+
+    # No engine may take a plain form in phase 3.
+    fused_k.fused_interior_plain.calls = seg_k.seg_interior_plain.calls = 0
     assert resizer.engines == {"luma": "fused", "chroma": "fused"}, resizer.engines
     n_planes = len(fmt.plane_names)
     expect = conv_expect(resizer)
@@ -1119,10 +1281,11 @@ def main() -> int:
     t0 = time.perf_counter()
     out = jinc_resize(clip, DST_W, DST_H, tap=TAP, device=DEVICE, operator_cache=False)
     torch.cuda.synchronize()
-    launches = counts()
+    launches = path_counts()
     print(f"[3] jinc_resize 4x 3840x2160 yuv420p8 -> 7680x4320 tap8 in "
           f"{time.perf_counter() - t0:.1f} s (construction included); launches {launches}")
     assert launches == {**dict.fromkeys(wrappers, 0), **expect}, (launches, expect)
+    assert_modes("4K->8K yuv420p8 (jinc_resize builds the resizer's mapping)", u8_modes(resizer))
 
     ref = jinc_resize(clip, DST_W, DST_H, tap=TAP, device=DEVICE, impl="xla", operator_cache=False)
     against("fused engine", out, ref)
@@ -1140,14 +1303,39 @@ def main() -> int:
         t0 = time.perf_counter()
         pout = pr(pclip)
         torch.cuda.synchronize()
-        launches[kind] = counts()[kind]
+        got = path_counts()
+        launches[kind] = got[kind]
         print(f"[3] JincResizer 4x {sw}x{sh} yuv420p8 -> {dw}x{dh} tap8 ({engine}) in "
-              f"{time.perf_counter() - t0:.1f} s; launches {counts()}")
-        assert counts() == {**dict.fromkeys(wrappers, 0), kind: n_planes}, counts()
+              f"{time.perf_counter() - t0:.1f} s; launches {got}")
+        assert got == {**dict.fromkeys(wrappers, 0), kind: n_planes}, got
+        assert_modes(f"{engine} yuv420p8", u8_modes(pr))
         pref = JincResizer(fmt, sw, sh, replace(pr.cfg, impl="xla"), device=dev)(pclip)
         against(f"{engine} engine", pout, pref)
         oracle_check(f"{engine} ", pclip, pout, pr, sw, sh, dw, dh)
         pouts[key] = pout
+
+    # u16 planes take the fp32 modes (only 8-bit planes are bfloat16-exact):
+    # two frames of the drifted geometry in yuv420p16, the seg kernel in its
+    # fp32 mode, <= 1 LSB against the plain engine.
+    fmt16 = yuv420p(16)
+    sw, sh, dw, dh = DRIFT
+    c16 = Clip.from_frames([random_frame(fmt16, sw, sh, seed=250 + i) for i in range(2)])
+    r16 = JincResizer(fmt16, sw, sh, JincConfig(dw, dh, tap=TAP), frame0=c16.frames[0], device=dev)
+    assert r16.engines == {"luma": "fused-seg", "chroma": "fused-seg"}, r16.engines
+    for a in (r16._applier_luma, r16._applier_chroma):
+        assert a.effective_precision == "fp32" and a.si.precision == "fp32"
+    zero_counts()
+    t0 = time.perf_counter()
+    o16 = r16(c16)
+    torch.cuda.synchronize()
+    got = path_counts()
+    print(f"[3] JincResizer 2x {sw}x{sh} yuv420p16 -> {dw}x{dh} tap8 (fused-seg, effective_precision "
+          f"fp32) in {time.perf_counter() - t0:.1f} s; launches {got}")
+    assert got == {**dict.fromkeys(wrappers, 0), "seg": n_planes}, got
+    assert_modes("fused-seg yuv420p16", {"seg_fp32": n_planes})
+    ref16 = JincResizer(fmt16, sw, sh, JincConfig(dw, dh, tap=TAP, impl="xla"), device=dev)(c16)
+    against("fused-seg engine on yuv420p16", o16, ref16)
+    del c16, r16, o16, ref16
 
     # The deep-tap path: 4K -> 1080p tap 16 through the resizer a caller
     # keeps, the fused and strip kernels launched as on the 4K -> 8K path.
@@ -1158,7 +1346,8 @@ def main() -> int:
     t0 = time.perf_counter()
     dout = deep_r(dclip)
     torch.cuda.synchronize()
-    got = counts()
+    got = path_counts()
+    assert_modes("deep-tap fused yuv420p8", u8_modes(deep_r))
     print(f"[3] JincResizer 4x {deep_geo} yuv420p8 tap16 (fused) in "
           f"{time.perf_counter() - t0:.1f} s; launches {got}")
     assert got == {**dict.fromkeys(wrappers, 0), **deep_expect}, (got, deep_expect)
@@ -1178,7 +1367,8 @@ def main() -> int:
     t0 = time.perf_counter()
     aout = deep_aper_r(aclip)
     torch.cuda.synchronize()
-    got = counts()
+    got = path_counts()
+    assert_modes("deep aperiodic gather yuv420p8", u8_modes(deep_aper_r))
     print(f"[3] JincResizer 4x {deep_aper_geo} yuv420p8 tap16 (gather) in "
           f"{time.perf_counter() - t0:.1f} s; launches {got}")
     assert got == {**dict.fromkeys(wrappers, 0), "gather": n_planes}, got
@@ -1200,11 +1390,11 @@ def main() -> int:
     t0 = time.perf_counter()
     ddout = deep_drift_r(ddclip)
     torch.cuda.synchronize()
-    got = counts()
+    got = path_counts()
+    assert_modes("deep drifted fused-seg yuv420p8", u8_modes(deep_drift_r))
     print(f"[3] JincResizer 4x {deep_drift_geo} yuv420p8 tap16 (auto: fused-seg) in "
           f"{time.perf_counter() - t0:.1f} s; launches {got}")
     assert got == {**dict.fromkeys(wrappers, 0), "seg": n_planes}, got
-    launches["seg"] += got["seg"]
     t0 = time.perf_counter()
     ddref = JincResizer(fmt, ddsw, ddsh, replace(dd_cfg, impl="xla"), device=dev)(ddclip)
     torch.cuda.synchronize()
@@ -1247,12 +1437,13 @@ def main() -> int:
         t0 = time.perf_counter()
         sout = sr(sclip)
         torch.cuda.synchronize()
-        got = counts()
+        got = path_counts()
+        assert_modes(f"sharded/{interior} yuv420p8", u8_modes(sr))
         print(f"[3] JincResizer {len(sclip.frames)}x {sw}x{sh} yuv420p8 -> {dw}x{dh} tap{cfg.tap} on "
               f"{N_SHARDS} row shards of {dev} (sharded/{interior}) in "
               f"{time.perf_counter() - t0:.1f} s (built in {built:.1f} s); launches {got}")
         assert got == {**dict.fromkeys(wrappers, 0), kind: N_SHARDS * n_planes}, got
-        if kind in ("gather_band", "seg"):
+        if kind == "gather_band":
             launches[kind] += got[kind]
         single = {"aperiodic": "gather", "drift": "fused-seg", "deep-aperiodic": "gather",
                   "deep-drift": "fused-seg"}.get(key, "fused")
@@ -1306,12 +1497,12 @@ def main() -> int:
     t0 = time.perf_counter()
     bf_out = bf_r(clip)
     torch.cuda.synchronize()
-    got = counts()
+    got = path_counts()
     print(f"[3] JincResizer 4x {SRC_W}x{SRC_H} yuv420p8 -> {DST_W}x{DST_H} tap{TAP} "
           f"precision='bf16' (fused, effective_precision bf16) in {time.perf_counter() - t0:.1f} s "
           f"(built in {built:.1f} s); launches {got}")
     assert got == {**zeros, **bf_expect}, (got, bf_expect)
-    launches["fused_bf16"] = got["fused"]
+    assert_modes("bf16 fused", {"fused_bf16": bf_expect["fused"]})
     bf16_within("bf16 fused engine", bf_out, out, bf_r)
     del bf_out, bf_apps
 
@@ -1325,11 +1516,11 @@ def main() -> int:
     zero_counts()
     bseg_out = bf_seg_r(bclip)
     torch.cuda.synchronize()
-    got = counts()
+    got = path_counts()
     print(f"[3] JincResizer 2x {dsw}x{dsh} yuv420p8 -> {ddw}x{ddh} tap{TAP} precision='bf16' "
           f"(fused-seg): launches {got}")
     assert got == {**zeros, "seg": n_planes}, got
-    launches["seg_bf16"] = got["seg"]
+    assert_modes("bf16 fused-seg", {"seg_bf16": n_planes})
     bf16_within("bf16 fused-seg engine", bseg_out, Clip.from_frames(pouts["drift"].frames[:2]),
                 bf_seg_r)  # fmt: skip
     t0 = time.perf_counter()
@@ -1344,12 +1535,12 @@ def main() -> int:
     t0 = time.perf_counter()
     bsh_out = bf_sh(bclip)
     torch.cuda.synchronize()
-    got = counts()
+    got = path_counts()
     print(f"[3] JincResizer 2x {dsw}x{dsh} yuv420p8 -> {ddw}x{ddh} tap{TAP} precision='bf16' on "
           f"{N_SHARDS} row shards of {dev} (sharded/seg) in {time.perf_counter() - t0:.1f} s "
           f"(built in {built:.1f} s); launches {got}")
     assert got == {**zeros, "seg": N_SHARDS * n_planes}, got
-    launches["seg_bf16"] += got["seg"]
+    assert_modes("bf16 sharded/seg", {"seg_bf16": N_SHARDS * n_planes})
     against("sharded/seg bf16 engine", bsh_out, bseg_out, "single-card fused-seg bf16 engine")
     del bsh_out, bseg_out, bf_sh, bclip
 
@@ -1364,10 +1555,11 @@ def main() -> int:
         t0 = time.perf_counter()
         cout = jinc_resize_chain(cclip, stages, device=DEVICE)
         torch.cuda.synchronize()
-        got = counts()
+        got = path_counts()
         print(f"[3] jinc_resize_chain 2x {chain_geo} yuv420p8 tap{CHAIN_TAP} in "
               f"{time.perf_counter() - t0:.1f} s (composed operators loaded); launches {got}")
         assert got == {**zeros, **cexpect}, (got, cexpect)
+        assert_modes("chain yuv420p8", u8_modes(cr))
         launches["strips"] += got["strips"]
         cref = ChainResizer(fmt, csw, csh, [JincConfig(**st, impl="xla") for st in stages],
                             frame0=cclip.frames[0], device=dev)  # fmt: skip
@@ -1399,10 +1591,11 @@ def main() -> int:
         with contextlib.redirect_stdout(buf):
             rc = cli.main([str(cdir / "in.npz"), str(cdir / "main.npz"), *flags])
         torch.cuda.synchronize()
-        got = counts()
+        got = path_counts()
         print(f"[3] cli.main 2x {SRC_W}x{SRC_H} -> {DST_W}x{DST_H} tap{TAP} .npz in "
               f"{time.perf_counter() - t0:.1f} s: rc {rc}; launches {got}")
         assert rc == 0 and got == {**zeros, **expect}, (rc, got, expect)
+        assert_modes("cli.main yuv420p8", u8_modes(resizer))
         t0 = time.perf_counter()
         sub = subprocess.run(
             [sys.executable, "-m", "jincresize_tpu_torch", str(cdir / "in.npz"),
@@ -1428,7 +1621,7 @@ def main() -> int:
     efn, (esrc,) = entry_mod.entry()
     eout = efn(esrc)
     torch.cuda.synchronize()
-    got = counts()
+    got = path_counts()
     sw, sh, dw, dh, tap = entry_mod.STEP
     ewant = apply_plane_numpy(build_plane_operator(sw, sh, dw, dh, radius_for_tap(tap)),
                               esrc.cpu().numpy())  # fmt: skip
@@ -1437,9 +1630,10 @@ def main() -> int:
           f"{eerr:.3g} against the host golden; launches {got}")
     assert tuple(eout.shape) == (dh, dw) and eerr <= F32_TOL, eerr
     assert got["fused"] == 1 and got == {**zeros, "fused": 1, "strips": got["strips"]}, got
+    assert_modes("entry() fp32", {"fused_fp32": 1})
     zero_counts()
     mout = entry_mod.dryrun_multichip(N_SHARDS, devices=[dev] * N_SHARDS)
-    got = counts()
+    got = path_counts()
     sw, sh, dw, dh, tap = entry_mod.DRYRUN
     mop = build_plane_operator(sw, sh, dw, dh, radius_for_tap(tap))
     msrc = np.random.default_rng(0).random((mout.shape[0], sh, sw), dtype=np.float32)
@@ -1448,9 +1642,13 @@ def main() -> int:
     print(f"[3] dryrun_multichip({N_SHARDS}) on {N_SHARDS} shards of {dev}: out "
           f"{tuple(mout.shape)} max |err| {merr:.3g} against the host golden; launches {got}")
     assert merr <= F32_TOL and sum(got.values()) > 0, (merr, got)
-    plain_calls = fused_k.fused_interior_plain.calls
-    print(f"[3] fused_interior_plain called {plain_calls} times in phase 3")
-    assert plain_calls == 0, plain_calls
+    assert all(k.endswith("_fp32") for k, v in mode_counts().items() if v), mode_counts()
+    plain_calls = (fused_k.fused_interior_plain.calls, seg_k.seg_interior_plain.calls)
+    print(f"[3] fused_interior_plain called {plain_calls[0]} times, seg_interior_plain "
+          f"{plain_calls[1]} times in phase 3")
+    assert plain_calls == (0, 0), plain_calls
+    print(f"[3] kernel modes launched over phase 3's paths: {main_modes}")
+    assert all(main_modes.get(f"{k}_{m}", 0) > 0 for k in modes for m in fused_k.PRECISIONS), main_modes
 
     # ---------------------------------------------------------------- phase 4
     print(f"[4] phase 4 starts at {time.perf_counter() - t_start:.1f} s")
@@ -1520,12 +1718,14 @@ def main() -> int:
 
     def fused_bound(fi, src):
         """(ms, by) of the fused interior on ``src``: 2 fs**2 flops per
-        output pixel (at the bf16 peak in the bf16 mode); the source, the
-        weights and the output once."""
+        output pixel, at the bf16 tensor-core peak in the tensor-core modes,
+        three times over in the wsplit3 mode (a pass a weight part); the
+        source, the weights and the output once."""
         out_px = src.shape[0] * fi.out_shape[0] * fi.out_shape[1]
-        skip = ("kernels", "w") if fi.bf16 else ("kernels",)  # bf16: the kernel reads wtc
-        return bound_ms(2 * fi.fs**2 * out_px, tensor_bytes(src, fi, skip=skip) + 4 * out_px,
-                        PEAK_BF16_FLOPS if fi.bf16 else PEAK_FP32_FLOPS)  # fmt: skip
+        skip = ("kernels", "w") if fi.parts else ("kernels",)  # the tensor-core modes read wtc
+        return bound_ms(2 * fi.fs**2 * out_px * max(fi.parts, 1),
+                        tensor_bytes(src, fi, skip=skip) + 4 * out_px,
+                        PEAK_BF16_FLOPS if fi.parts else PEAK_FP32_FLOPS)  # fmt: skip
 
     card = card_line()
 
@@ -1583,7 +1783,9 @@ def main() -> int:
     dtoh = sum(t for name, (t, _) in ops.items() if "DtoH" in name)
     print(f"[4]   memcpy HtoD {htod:.3f} ms, DtoH {dtoh:.3f} ms, the rest "
           f"{busy - htod - dtoh:.3f} ms [{card}]")
-    assert htod > 0 and dtoh > 0 and any("fused_interior" in k for k in ops), list(ops)[:10]
+    # The u8 planes' wsplit3 mode runs the tensor-core kernel.
+    fused_name = "fused_tc_kernel" if resizer._applier_luma.fi.parts else "fused_interior_kernel"
+    assert htod > 0 and dtoh > 0 and any(fused_name in k for k in ops), list(ops)[:10]
     # The same for one 4-frame 4K -> 1080p tap-16 call: the deep path's
     # device time by operation.
     deep_r(dclip)
@@ -1642,7 +1844,7 @@ def main() -> int:
         covered[err_key] += 1
         bf16_rows.append((geo, t16 / TIMING_FRAMES, t32 / TIMING_FRAMES, b / TIMING_FRAMES, by, prev))
 
-    app = resizer._applier_luma
+    app = app32  # the fp32 mode of the 4K -> 8K luma plane (phase 2)
     tsrc = torch.from_numpy(
         rng.random((TIMING_FRAMES, SRC_H, SRC_W), dtype=np.float32)
     ).to(dev)
@@ -1691,7 +1893,10 @@ def main() -> int:
 
     # The deep-tap path: both kernels, their plain forms and cuDNN's conv2d
     # on an 8-frame fp32 4K -> 1080p tap-16 luma batch, then end to end.
-    dapp = deep_r._applier_luma
+    # The fp32 mode of the deep-tap luma plane (its u8 planes run wsplit3);
+    # the strips run fp32 in every mode.
+    dapp = ConvApplier(deep_r.op_luma, device=dev)
+    assert dapp.fi.precision == "fp32" and dapp.strips_spec is not None
     tsrc_deep = torch.from_numpy(
         rng.random((TIMING_FRAMES, DEEP[1], DEEP[0]), dtype=np.float32)
     ).to(dev)
@@ -1809,7 +2014,8 @@ def main() -> int:
     # plane, the gather kernel on the drifted plane too, and the two
     # appliers on the drifted plane (is seg before gather the right order?).
     drift_r, aper_r = paths["drift"][0], paths["aperiodic"][0]
-    seg_app = drift_r._applier_luma
+    seg_app = SegConvApplier(drift_r.op_luma, device=dev)  # the fp32 mode (u8 planes: wsplit3)
+    assert seg_app.si.precision == "fp32"
     gather_app = GatherApplier(drift_r.op_luma, device=dev)
     gi_aper = aper_r._applier_luma.gi
     tsrc_d = torch.from_numpy(
@@ -1878,10 +2084,12 @@ def main() -> int:
         form's) and its output once."""
         out_px = src.shape[0] * si.out_shape[0] * si.out_shape[1]
         plain_only = ("pair_blocks_t", "cls_y", "cls_x", "roff_y", "roff_x")
-        if si.bf16:  # the tensor-core kernel reads tc_blocks and the column lists
+        parts = fused_k.TC_PARTS.get(si.precision, 0)
+        if parts:  # the tensor-core kernel reads tc_blocks and the column lists
             plain_only += ("blocks", "lcx")
-        return bound_ms(2 * si.fs**2 * out_px, tensor_bytes(src, si, skip=plain_only) + 4 * out_px,
-                        PEAK_BF16_FLOPS if si.bf16 else PEAK_FP32_FLOPS)  # fmt: skip
+        return bound_ms(2 * si.fs**2 * out_px * max(parts, 1),
+                        tensor_bytes(src, si, skip=plain_only) + 4 * out_px,
+                        PEAK_BF16_FLOPS if parts else PEAK_FP32_FLOPS)  # fmt: skip
 
     bounds["gather"] = bound_ms(*gather_like_bound(gi_aper, tsrc_a, *gi_aper.out_shape))
     bounds["seg"] = seg_bound(seg_app.si, tsrc_d)
@@ -1949,7 +2157,7 @@ def main() -> int:
     # 1440p -> 1080p tap-16 luma batch beside their bounds (the seg plain
     # form once, its output held to the kernel's: 0); then both drifted
     # planes side by side, with the previous seg kernel's time.
-    dd_si = deep_drift_r._applier_luma.si
+    dd_si = seg_k.make_seg_interior(deep_drift_r.op_luma, plan_phases_seg(deep_drift_r.op_luma), dev)
     dd_si16 = seg_k.make_seg_interior(deep_drift_r.op_luma, plan_phases_seg(deep_drift_r.op_luma),
                                       dev, "bf16")  # fmt: skip
     dd_gi = GatherApplier(deep_drift_r.op_luma, device=dev).gi
@@ -1995,6 +2203,71 @@ def main() -> int:
         print(f"[4] bf16 {geo}: {t16:.4f} ms/frame, fp32 {t32:.4f} (bf16/fp32 {t16 / t32:.3f}), "
               f"bound {b:.4f} ({by}, {b / t16:.1%} of it), previous bf16 mode "
               f"{'not timed' if prev is None else f'{prev} ms/frame'} [{card}]")
+
+    # The u8 forms: the wsplit3 mode of the fused and seg kernels (what
+    # yuv420p8 planes run) on 8-frame u8 luma batches (integers 0..255 held
+    # as float32), each timed beside the fp32 FMA kernel and the bf16 kernel
+    # on the same batch in the same turns (and, for the fused kernel,
+    # cuDNN's conv2d of the fp32 kernels, TF32 off), its fp32 plain form
+    # once, its deviation from that plain form beside wsplit3_bound, and its
+    # bound: three passes of 2 fs**2 flops a pixel at the bf16 tensor-core
+    # peak, or its bytes.
+    def u8_form(key, geo, kind, op):
+        fused_kind = kind == "fused"
+        plan = plan_phases(op) if fused_kind else plan_phases_seg(op)
+        make = fused_k.make_fused_interior if fused_kind else seg_k.make_seg_interior
+        run = fused_k.fused_interior if fused_kind else seg_k.seg_interior
+        plain = fused_k.fused_interior_plain if fused_kind else seg_k.seg_interior_plain
+        t = {m: make(op, plan, dev, m) for m in fused_k.PRECISIONS}
+        assert all(t[m].precision == m for m in t), key
+        shape = (TIMING_FRAMES, op.src_height, op.src_width)
+        src = torch.from_numpy(rng.integers(0, 256, shape).astype(np.float32)).to(dev)
+        ref, plain_ms = plain_once(lambda: plain(t["fp32"], src))
+        got = run(t["wsplit3"], src)
+        err, wb = float((got - ref).abs().max()), wsplit3_bound_of(t["fp32"], src)
+        del ref, got
+        runs = [(m, lambda m=m: run(t[m], src)) for m in ("fp32", "wsplit3", "bf16")]
+        if fused_kind:
+            runs.append(("conv2d", lambda: conv2d_interior(t["fp32"], src)))
+        times = {}
+        for order in (runs, runs[::-1]):  # fp32, wsplit3, bf16, (conv2d,) then back
+            for m, fn in order:
+                times.setdefault(m, []).append(cuda_ms(fn, 10))
+        times = {m: statistics.median(v) for m, v in times.items()}
+        b, by = (fused_bound if fused_kind else seg_bound)(t["wsplit3"], src)
+        tw, t32, t16 = (times[m] / TIMING_FRAMES for m in ("wsplit3", "fp32", "bf16"))
+        lib = times.get("conv2d")
+        print(f"[4] u8 {kind} wsplit3 {geo}: {tw:.4f} ms/frame, fp32 FMA kernel {t32:.4f} "
+              f"(wsplit3/fp32 {tw / t32:.3f}), bf16 kernel {t16:.4f} (wsplit3/bf16 {tw / t16:.3f}) "
+              f"on the same u8 batch; bound {b / TIMING_FRAMES:.4f} ({by}, three passes at "
+              f"{PEAK_BF16_FLOPS / 1e12:g} TFLOP/s), {b / times['wsplit3']:.1%} of it; plain form "
+              f"{plain_ms / TIMING_FRAMES:.3f} ms/frame"
+              + (f", cuDNN conv2d (fp32, TF32 off) {lib / TIMING_FRAMES:.4f} ms/frame (kernel "
+                 f"{times['wsplit3'] / lib:.3f}x its time)" if lib is not None else "")
+              + f"; max |err| vs the fp32 plain form {err:.3g} (wsplit3_bound {wb:.3g}, reading / "
+              f"bound {err / wb:.4f}) [{card}]")  # fmt: skip
+        assert err <= wb, (key, err, wb)
+        max_err[f"{kind}_wsplit3"] = max(max_err[f"{kind}_wsplit3"], err)
+        ms[f"{key}_wsplit3"], ms[f"{key}_wsplit3_plain"] = times["wsplit3"], plain_ms
+        ms[f"{key}_wsplit3_conv2d"] = lib
+        bounds[f"{key}_wsplit3"] = (b, by)
+        u8_rows.append((kind, geo, tw, t32, t16, b / TIMING_FRAMES, by, err / wb))
+
+    u8_rows = []
+    t0 = time.perf_counter()
+    for key, geo, kind, op in (
+        ("fused", "4K->8K tap8", "fused", resizer.op_luma),
+        ("deep_fused", f"{deep_geo} tap16", "fused", deep_r.op_luma),
+        ("thirds_fused", f"{DEEP[0]}x{DEEP[1]}->{THIRDS[0]}x{THIRDS[1]} tap16", "fused", op23),
+        ("seg", f"{drift_geo} tap8", "seg", drift_r.op_luma),
+        ("deep_seg", f"{deep_drift_geo} tap16", "seg", deep_drift_r.op_luma),
+    ):
+        u8_form(key, geo, kind, op)
+    print(f"[4] u8 forms timed in {time.perf_counter() - t0:.1f} s")
+    for kind, geo, tw, t32, t16, b, by, reading in u8_rows:
+        print(f"[4] u8 {kind} {geo}: wsplit3 {tw:.4f} ms/frame, fp32 {t32:.4f} (wsplit3/fp32 "
+              f"{tw / t32:.3f}), bf16 {t16:.4f}; bound {b:.4f} ({by}, {b / tw:.1%} of it); "
+              f"reading / wsplit3_bound {reading:.4f} [{card}]")
     for key, engine in (("drift", "fused-seg"), ("aperiodic", "gather")):
         pr, pclip = paths[key]
         sw, sh, dw, dh = DRIFT if key == "drift" else APERIODIC
@@ -2083,7 +2356,7 @@ def main() -> int:
             "route": "cuda",
             "source": "jincresize_tpu_torch/csrc/fused_interior.cu",
             "replaces": "jincresize_tpu/kernels/pallas_fused.py:157",
-            "launches": launches["fused"],
+            "launches": main_modes["fused_fp32"],
             "max_abs_err": max_err["fused"],
             "ms": ms["fused"],
             "plain_ms": ms["fused_plain"],
@@ -2096,13 +2369,26 @@ def main() -> int:
             "route": "cuda",
             "source": "jincresize_tpu_torch/csrc/fused_interior.cu",
             "replaces": "jincresize_tpu/kernels/pallas_fused.py:235",
-            "launches": launches["fused_bf16"],
+            "launches": main_modes["fused_bf16"],
             "max_abs_err": max_err["fused_bf16"],
             "ms": ms["fused_bf16"],
             "plain_ms": ms["fused_bf16_plain"],
             "bound_ms": bounds["fused_bf16"][0],
             "bound_by": bounds["fused_bf16"][1],
             "library_ms": ms["fused_bf16_conv2d"],
+        },
+        {
+            "name": "fused_interior[wsplit3]",
+            "route": "cuda",
+            "source": "jincresize_tpu_torch/csrc/fused_interior.cu",
+            "replaces": "jincresize_tpu/kernels/pallas_fused.py:239",
+            "launches": main_modes["fused_wsplit3"],
+            "max_abs_err": max_err["fused_wsplit3"],
+            "ms": ms["fused_wsplit3"],
+            "plain_ms": ms["fused_wsplit3_plain"],
+            "bound_ms": bounds["fused_wsplit3"][0],
+            "bound_by": bounds["fused_wsplit3"][1],
+            "library_ms": ms["fused_wsplit3_conv2d"],
         },
         {
             "name": "strips",
@@ -2135,7 +2421,7 @@ def main() -> int:
             "route": "cuda",
             "source": "jincresize_tpu_torch/csrc/seg_interior.cu",
             "replaces": "jincresize_tpu/kernels/pallas_fused_seg.py:318",
-            "launches": launches["seg"],
+            "launches": main_modes["seg_fp32"],
             "max_abs_err": max_err["seg"],
             "ms": ms["seg"],
             "plain_ms": ms["seg_plain"],
@@ -2148,12 +2434,25 @@ def main() -> int:
             "route": "cuda",
             "source": "jincresize_tpu_torch/csrc/seg_interior.cu",
             "replaces": "jincresize_tpu/kernels/pallas_fused_seg.py:397",
-            "launches": launches["seg_bf16"],
+            "launches": main_modes["seg_bf16"],
             "max_abs_err": max_err["seg_bf16"],
             "ms": ms["seg_bf16"],
             "plain_ms": ms["seg_bf16_plain"],
             "bound_ms": bounds["seg_bf16"][0],
             "bound_by": bounds["seg_bf16"][1],
+            "library_ms": None,
+        },
+        {
+            "name": "seg_interior[wsplit3]",
+            "route": "cuda",
+            "source": "jincresize_tpu_torch/csrc/seg_interior.cu",
+            "replaces": "jincresize_tpu/kernels/pallas_fused_seg.py:371",
+            "launches": main_modes["seg_wsplit3"],
+            "max_abs_err": max_err["seg_wsplit3"],
+            "ms": ms["seg_wsplit3"],
+            "plain_ms": ms["seg_wsplit3_plain"],
+            "bound_ms": bounds["seg_wsplit3"][0],
+            "bound_by": bounds["seg_wsplit3"][1],
             "library_ms": None,
         },
         {

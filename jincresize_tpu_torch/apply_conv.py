@@ -263,19 +263,31 @@ def _assemble(cop: ConvOperator, block, src_f, strip_blocks) -> torch.Tensor:
     return canvas
 
 
+# The fused interior's kernel mode for each applier precision: the JAX
+# package's mapping (jincresize_tpu/apply_conv.py:656-660). u8 planes
+# ('fp32_u8src', bf16-exact sources) take the three-pass weight split on the
+# tensor cores, exact products at a third of an fp32 dot's passes: on an
+# H100 80GB HBM3 at 700 W (chip_smoke.py phase 4, 8-frame u8 luma batches)
+# 0.460 ms/frame at 4K->8K tap 8 against the fp32 FMA kernel's 0.670.
+KERNEL_PRECISION = {"fp32": "fp32", "bf16": "bf16", "fp32_u8src": "wsplit3"}
+
+
 class ConvApplier:
     """Phase-conv applier with the fused interior kernel.
 
     ``interior`` must be ``'fused'``: the JAX package's XLA shift-sum
     interiors are not ported. Every plan of ``phase.plan_phases`` is inside
     ``kernels.fused.is_supported`` (deep taps included); a plan outside it
-    raises ValueError. ``precision`` is ``'fp32'`` or ``'fp32_u8src'`` (both
-    run the exact fp32 kernel) or ``'bf16'``, the documented non-parity mode:
-    the interior kernel on bfloat16-rounded operands (``kernels/fused.py``);
-    the strips kernel and the glue stay fp32, as in the JAX package.
-    ``effective_precision`` reports the interior's mode (the JAX package's
-    attribute; there it is ``'fp32'`` off the TPU, where its ``shift``
-    interior runs).
+    raises ValueError. ``precision`` is ``'fp32'`` (the exact fp32 kernel),
+    ``'fp32_u8src'`` (sources known bfloat16-exact, u8 planes: the kernel's
+    ``'wsplit3'`` mode, exact products summed on the tensor cores) or
+    ``'bf16'``, the documented non-parity mode: the interior kernel on
+    bfloat16-rounded operands (``kernels/fused.py``); the strips kernel and
+    the glue stay fp32, as in the JAX package. ``effective_precision``
+    reports the interior's mode in these names (``'fp32'`` where a plan's
+    weight parts pass the wsplit3 kernel's shared memory; the JAX package's
+    attribute, ``'fp32'`` there off the TPU, where its ``shift`` interior
+    runs).
     """
 
     def __init__(
@@ -287,7 +299,7 @@ class ConvApplier:
         device="cuda",
     ):
         self.device = resolve_device(device)
-        if precision not in fused_k.PRECISIONS:
+        if precision not in KERNEL_PRECISION:
             raise ValueError(f"ConvApplier: unknown precision {precision!r}")
         if interior != "fused":
             raise NotImplementedError(
@@ -295,14 +307,14 @@ class ConvApplier:
                 "fused kernel interior exists in this package"
             )
         self.precision = precision
-        self.effective_precision = precision
         if plan is None:
             plan = plan_phases(op)
         if plan is None:
             raise ValueError("ConvApplier: geometry is aperiodic")
         if not fused_k.is_supported(op, plan):
             raise ValueError("ConvApplier: plan outside the fused kernel envelope")
-        self.fi = fused_k.make_fused_interior(op, plan, self.device, precision)
+        self.fi = fused_k.make_fused_interior(op, plan, self.device, KERNEL_PRECISION[precision])
+        self.effective_precision = fused_k.APPLIER_PRECISION[self.fi.precision]
         self.cop = build_conv_operator(op, plan, self.device)
         self._strip_plans = plan_strips(op, plan)
         if self._strip_plans is not None:

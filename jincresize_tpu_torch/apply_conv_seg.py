@@ -21,9 +21,20 @@ from .phase import SegPhasePlan, plan_phases_seg
 from .apply_conv import _cols_subset, _rows_subset, banded_strip_values, strip_row_bands
 from .apply_gather import assemble, concat, strips_frame_interior
 from .apply_xla import finalize, resolve_device, source_f32, to_device
+from .kernels import fused as fused_k
 from .kernels import seg as seg_k
 
 f32 = torch.float32
+
+# The seg interior's kernel mode for each applier precision: the JAX
+# package's mapping (jincresize_tpu/apply_conv_seg.py:72-76), where u8
+# planes ('fp32_u8src', bf16-exact sources) take its in-kernel weight split
+# wsplit3_vmem, the seg kernel's 'wsplit3' mode here. On an H100 80GB HBM3
+# at 700 W (chip_smoke.py phase 4, 8-frame u8 luma batches): 0.184 ms/frame
+# at 1440p->4K tap 8 against the fp32 FMA kernel's 0.239; at 1440p->1080p
+# tap 16 (fs 44, one frame a block beside the float32 blocks) 0.558 against
+# 0.436, slower.
+KERNEL_PRECISION = {"fp32": "fp32", "bf16": "bf16", "fp32_u8src": "wsplit3"}
 
 
 class SegConvApplier:
@@ -31,10 +42,14 @@ class SegConvApplier:
 
     Interface-compatible with ``ConvApplier``/``GatherApplier``. Raises
     ValueError when the geometry has no segment-periodic plan or the plan is
-    outside the kernel envelope. ``precision`` is ``'fp32'`` or
-    ``'fp32_u8src'`` (both run the exact fp32 kernel) or ``'bf16'``, the
+    outside the kernel envelope. ``precision`` is ``'fp32'`` (the exact
+    fp32 kernel), ``'fp32_u8src'`` (sources known bfloat16-exact, u8 planes:
+    the kernel mode ``KERNEL_PRECISION`` maps it to) or ``'bf16'``, the
     documented non-parity mode: the interior kernel on bfloat16-rounded
     operands (``kernels/seg.py``); strips and fixups stay fp32.
+    ``effective_precision`` reports the interior's mode in these names
+    (``'fp32'`` where a plan's fp32 blocks pass the wsplit3 kernel's shared
+    memory).
     """
 
     def __init__(
@@ -45,7 +60,7 @@ class SegConvApplier:
         device="cuda",
     ):
         self.device = resolve_device(device)
-        if precision not in seg_k.PRECISIONS:
+        if precision not in KERNEL_PRECISION:
             raise ValueError(f"SegConvApplier: unknown precision {precision!r}")
         if plan is None:
             plan = plan_phases_seg(op)
@@ -57,8 +72,8 @@ class SegConvApplier:
         self.plan = plan
         self.interior = "fused-seg"
         self.precision = precision
-        self.effective_precision = precision
-        self.si = seg_k.make_seg_interior(op, plan, self.device, precision)
+        self.si = seg_k.make_seg_interior(op, plan, self.device, KERNEL_PRECISION[precision])
+        self.effective_precision = fused_k.APPLIER_PRECISION[self.si.precision]
         self._dop = to_device(op, self.device)
         self._strip_bands = strip_row_bands(op)
 

@@ -67,6 +67,27 @@ __device__ __forceinline__ uint32_t jt_pack_bf16(float lo, float hi) {
          static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(hi))) << 16;
 }
 
+// The three bfloat16 parts of a weight w, as the JAX package splits it
+// (pallas_fused.py:387-393, pallas_fused_seg.py:380-383): hi = bf16(w),
+// mid = bf16(w - hi), lo = w - hi - mid, so that w == hi + mid + lo. Two
+// weights' parts as three words of bf16 pairs, x in the lower half: the B
+// registers of the three mmas of the wsplit3 modes. Each step converts both
+// values in one instruction (cvt.rn.bf16x2.f32).
+__device__ __forceinline__ uint32_t jt_bf162_bits(__nv_bfloat162 v) {
+  return reinterpret_cast<const uint32_t&>(v);
+}
+
+__device__ __forceinline__ void jt_split3_pack(float x, float y, uint32_t (&b)[3]) {
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(x, y);
+  const float2 h = __bfloat1622float2(hi);
+  const float xr = x - h.x, yr = y - h.y;
+  const __nv_bfloat162 mid = __floats2bfloat162_rn(xr, yr);
+  const float2 m = __bfloat1622float2(mid);
+  b[0] = jt_bf162_bits(hi);
+  b[1] = jt_bf162_bits(mid);
+  b[2] = jt_bf162_bits(__floats2bfloat162_rn(xr - m.x, yr - m.y));
+}
+
 __device__ __forceinline__ unsigned jt_smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }

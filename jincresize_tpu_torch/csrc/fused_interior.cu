@@ -103,10 +103,29 @@
 // operands, fp32 FMA order) within kernels/fused.py tc_sum_bound, not bit
 // for bit.
 //
+// precision='wsplit3' replaces the Pallas kernel's weight split
+// (pallas_fused.py:383-393, three DEFAULT dots a pack at :236-251), the
+// mode u8 planes take: the same kernel with PARTS = 3. The host splits each
+// fp32 weight w into three bfloat16 parts, w == c0 + c1 + c2 exactly
+// (kernels/fused.py split_bf16x3, checked bit for bit at the build), and
+// writes them as three planes of weight rows, wn words apart. Each A
+// fragment (a Hankel slice of one staged row, bf16 and exact for u8
+// values) feeds three mmas a n-tile, against the c0, c1 and c2 B
+// fragments, all into the one accumulator set: a second set for c1 + c2
+// would take 32 more registers a lane, past what 4-5 blocks an SM leave.
+// Every product of a u8 value and a bfloat16 part is exact in fp32, so
+// only the order of the 3 * kh * kw sums differs from the fp32 plain form
+// (kernels/fused.py wsplit3_bound). Per k16 chunk a warp reads 8 A words
+// and 12 B loads for 24 mmas (the bf16 mode: 8 and 4 for 8), so shared
+// memory traffic per mma falls and the mma issue rate is the limit. The
+// weights take three times their bf16 room: a plan whose three planes and
+// stages pass 227 KB is built in the fp32 mode on the host
+// (kernels/fused.py kernel_precision).
+//
 // TPU workarounds dropped: split3 (the output is stored interleaved),
-// residue planes (threads read strided anchors from registers), wsplit3
-// (fp32 FMA is exact), the VMEM row-band budget and the Mosaic deep-tap
-// envelope (kh and kw are runtime values).
+// residue planes (threads read strided anchors from registers), the VMEM
+// row-band budget and the Mosaic deep-tap envelope (kh and kw are runtime
+// values).
 #include "common.cuh"
 
 namespace {
@@ -352,20 +371,21 @@ constexpr int kTcLand = 3;  // stages of f32 rows landing at once: two in flight
 
 struct FusedTcArgs {
   const float* src;
-  const uint32_t* w;  // (ngroups, wn) words: phase group*G + e's row a at (a*G + e)*ws
+  const uint32_t* w;  // (ngroups, PARTS, wn) words: part p of phase group*G + e's row a at (a*G + e)*ws
   float* out;
   int H, W, py, px, qy, qx, base_y, base_x, nyb, nxb, kh, kw, kwk, ngroups;
   int ws;   // words of a weight row (kwk bf16): >= kwk / 2, even
-  int wn;   // words of one phase group's weights: >= kh * G * ws, a multiple of 4
+  int wn;   // words of one part of a phase group's weights: >= kh * G * ws, a multiple of 4
   int cw;   // words of a staged copy row
   int ch;   // rows a stage
   int swf;  // floats of a landing row: >= 2 * (words of a copy row A reads) + 4, 4k
 };
 
 // Blocks an SM: 5 four-phase blocks (the 4K -> 8K plan; faster than 4 on an
-// H100), 4 one-phase ones (the tap-16 plans, slower at 5).
-template <int WARPS, int G>
-__global__ void __launch_bounds__(WARPS * 32, (G == 4 ? 20 : 16) / WARPS)
+// H100), 4 one-phase ones (the tap-16 plans, slower at 5); 4 of either
+// with three weight parts (PARTS = 3: room for the parts' B fragments).
+template <int WARPS, int G, int PARTS>
+__global__ void __launch_bounds__(WARPS * 32, (G == 4 && PARTS == 1 ? 20 : 16) / WARPS)
     fused_tc_kernel(const FusedTcArgs a) {
   constexpr int THREADS = WARPS * 32;
   constexpr int BJ = WARPS * kTcMW * 16;  // anchor columns of a block
@@ -382,13 +402,14 @@ __global__ void __launch_bounds__(WARPS * 32, (G == 4 ? 20 : 16) / WARPS)
   const int rw = 2 * a.cw;
   const bool odd = (a.qx & 1) != 0;
   const int nst = (nr + a.ch - 1) / a.ch;  // stages of ch rows
+  const int wall = PARTS * a.wn;  // words of the block's weights, all parts
   uint32_t* const wsm = tsm;
-  float* const land = reinterpret_cast<float*>(tsm + a.wn);  // kTcLand stages of ch f32 rows
-  uint32_t* const ring = tsm + a.wn + kTcLand * a.ch * a.swf;  // the current stage in bf16
+  float* const land = reinterpret_cast<float*>(tsm + wall);  // kTcLand stages of ch f32 rows
+  uint32_t* const ring = tsm + wall + kTcLand * a.ch * a.swf;  // the current stage in bf16
   const float* const plane = a.src + static_cast<int64_t>(f) * a.H * a.W;
 
-  const uint32_t* const wg = a.w + static_cast<int64_t>(grp) * a.wn;
-  for (int v = t; v < a.wn / 4; v += THREADS) jt_cp_async16(wsm + 4 * v, wg + 4 * v);
+  const uint32_t* const wg = a.w + static_cast<int64_t>(grp) * wall;
+  for (int v = t; v < wall / 4; v += THREADS) jt_cp_async16(wsm + 4 * v, wg + 4 * v);
 
   // Stage k's window rows, columns [0, 2nw], as f32 into landing buffer
   // k % kTcLand, zeros past the plane; one group a call, empty past the
@@ -495,30 +516,38 @@ __global__ void __launch_bounds__(WARPS * 32, (G == 4 ? 20 : 16) / WARPS)
           af[mw][2] = row[aoff[mw][0] + o + 1];
           af[mw][3] = row[aoff[mw][1] + o + 1];
         }
-        uint2 bf[kTcNT];
 #pragma unroll
-        for (int n = 0; n < kTcNT; ++n)
-          bf[n] = bok[n] ? *reinterpret_cast<const uint2*>(bp[n] + o) : make_uint2(0u, 0u);
+        for (int p = 0; p < PARTS; ++p) {  // the weights' parts, wn words apart
+          uint2 bf[kTcNT];
 #pragma unroll
-        for (int n = 0; n < kTcNT; ++n)
+          for (int n = 0; n < kTcNT; ++n)
+            bf[n] = bok[n] ? *reinterpret_cast<const uint2*>(bp[n] + p * a.wn + o)
+                           : make_uint2(0u, 0u);
 #pragma unroll
-          for (int mw = 0; mw < kTcMW; ++mw)
-            jt_mma_k16(acc[mw][n], af[mw][0], af[mw][1], af[mw][2], af[mw][3], bf[n].x, bf[n].y);
+          for (int n = 0; n < kTcNT; ++n)
+#pragma unroll
+            for (int mw = 0; mw < kTcMW; ++mw)
+              jt_mma_k16(acc[mw][n], af[mw][0], af[mw][1], af[mw][2], af[mw][3], bf[n].x, bf[n].y);
+        }
       }
       if (tail8 && !last1) {
         const int o = 8 * n16 + tq;  // taps 16 n16 + 2tq, + 1
-        uint32_t af[kTcMW][2], bf[kTcNT];
+        uint32_t af[kTcMW][2];
 #pragma unroll
         for (int mw = 0; mw < kTcMW; ++mw) {
           af[mw][0] = row[aoff[mw][0] + o];
           af[mw][1] = row[aoff[mw][1] + o];
         }
 #pragma unroll
-        for (int n = 0; n < kTcNT; ++n) bf[n] = bok[n] ? bp[n][o] : 0u;
+        for (int p = 0; p < PARTS; ++p) {
+          uint32_t bf[kTcNT];
 #pragma unroll
-        for (int n = 0; n < kTcNT; ++n)
+          for (int n = 0; n < kTcNT; ++n) bf[n] = bok[n] ? bp[n][p * a.wn + o] : 0u;
 #pragma unroll
-          for (int mw = 0; mw < kTcMW; ++mw) jt_mma_k8(acc[mw][n], af[mw][0], af[mw][1], bf[n]);
+          for (int n = 0; n < kTcNT; ++n)
+#pragma unroll
+            for (int mw = 0; mw < kTcMW; ++mw) jt_mma_k8(acc[mw][n], af[mw][0], af[mw][1], bf[n]);
+        }
       }
     }
     if (last1) {  // the last tap of 8 stage rows in one k8 mma: k = row r0 + k
@@ -538,19 +567,21 @@ __global__ void __launch_bounds__(WARPS * 32, (G == 4 ? 20 : 16) / WARPS)
             af[mw][h] = __byte_perm(v[0], v[1], 0x5410);
           }
 #pragma unroll
-        for (int n = 0; n < kTcNT; ++n) {
-          const int col = 8 * n + g;
-          uint32_t v[2];
+        for (int p = 0; p < PARTS; ++p)
 #pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            const int ar = r0 + 2 * tq + i - a.qy * (col / G);
-            v[i] = static_cast<unsigned>(ar) < static_cast<unsigned>(a.kh)
-                       ? wsm[(ar * G + col % G) * a.ws + o] : 0u;
+          for (int n = 0; n < kTcNT; ++n) {
+            const int col = 8 * n + g;
+            uint32_t v[2];
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              const int ar = r0 + 2 * tq + i - a.qy * (col / G);
+              v[i] = static_cast<unsigned>(ar) < static_cast<unsigned>(a.kh)
+                         ? wsm[p * a.wn + (ar * G + col % G) * a.ws + o] : 0u;
+            }
+            const uint32_t b = __byte_perm(v[0], v[1], 0x5410);
+#pragma unroll
+            for (int mw = 0; mw < kTcMW; ++mw) jt_mma_k8(acc[mw][n], af[mw][0], af[mw][1], b);
           }
-          const uint32_t b = __byte_perm(v[0], v[1], 0x5410);
-#pragma unroll
-          for (int mw = 0; mw < kTcMW; ++mw) jt_mma_k8(acc[mw][n], af[mw][0], af[mw][1], b);
-        }
       }
     }
   }
@@ -573,25 +604,42 @@ __global__ void __launch_bounds__(WARPS * 32, (G == 4 ? 20 : 16) / WARPS)
   write_tile<THREADS, BJ, C, G>(tile, a.out, t, f, grp, i0, j0, a.py, a.px, a.nyb, a.nxb);
 }
 
-template <int WARPS, int G>
+template <int WARPS, int G, int PARTS>
 cudaError_t tc_launch(const FusedTcArgs& a, int F, cudaStream_t stream) {
   constexpr int BJ = WARPS * kTcMW * 16;
   constexpr int C = kTcNT * 8 / G;
   constexpr int BJP = BJ + BJ / 32 + 1;
   const size_t rows = static_cast<size_t>(a.ch) * (kTcLand * a.swf + 2 * a.cw), tile = C * G * BJP;
-  const size_t smem = (static_cast<size_t>(a.wn) + (rows > tile ? rows : tile)) * sizeof(uint32_t);
-  cudaError_t err = jt_allow_smem(fused_tc_kernel<WARPS, G>, smem);
+  const size_t smem =
+      (static_cast<size_t>(PARTS) * a.wn + (rows > tile ? rows : tile)) * sizeof(uint32_t);
+  cudaError_t err = jt_allow_smem(fused_tc_kernel<WARPS, G, PARTS>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.nxb + BJ - 1) / BJ, (a.nyb + C - 1) / C, F * a.ngroups);
-  fused_tc_kernel<WARPS, G><<<grid, WARPS * 32, smem, stream>>>(a);
+  fused_tc_kernel<WARPS, G, PARTS><<<grid, WARPS * 32, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <int WARPS>
-cudaError_t tc_launch_g(const FusedTcArgs& a, int F, int g, cudaStream_t stream) {
-  if (g == 4) return tc_launch<WARPS, 4>(a, F, stream);
-  if (g == 1) return tc_launch<WARPS, 1>(a, F, stream);
+template <int PARTS>
+cudaError_t tc_launch_any(const FusedTcArgs& a, int F, int g, int warps, cudaStream_t stream) {
+  if (warps == 4 && g == 4) return tc_launch<4, 4, PARTS>(a, F, stream);
+  if (warps == 4 && g == 1) return tc_launch<4, 1, PARTS>(a, F, stream);
+  if (warps == 1 && g == 4) return tc_launch<1, 4, PARTS>(a, F, stream);
+  if (warps == 1 && g == 1) return tc_launch<1, 1, PARTS>(a, F, stream);
   return cudaErrorInvalidValue;
+}
+
+// The checks and arguments of both tensor-core entries below.
+template <int PARTS>
+int tc_entry(const float* src, const void* w, float* out, int F, int H, int W, int py, int px,
+             int qy, int qx, int base_y, int base_x, int nyb, int nxb, int kh, int kw, int kwk,
+             int g, int ngroups, int ws, int wn, int cw, int ch, int swf, int warps,
+             cudaStream_t stream) {
+  if (g * ngroups != py * px || ch < 1 || swf % 4 != 0 || kwk % 8 != 0 || kwk < kw ||
+      kwk - kw >= 16 || ws % 2 != 0 || 2 * ws < kwk || wn % 4 != 0 || wn < kh * g * ws)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const FusedTcArgs a{src, static_cast<const uint32_t*>(w), out, H, W, py, px, qy, qx, base_y,
+                      base_x, nyb, nxb, kh, kw, kwk, ngroups, ws, wn, cw, ch, swf};
+  return static_cast<int>(tc_launch_any<PARTS>(a, F, g, warps, stream));
 }
 
 }  // namespace
@@ -628,12 +676,19 @@ extern "C" int jt_fused_interior_bf16(const float* src, const void* w, float* ou
                                       int base_x, int nyb, int nxb, int kh, int kw, int kwk,
                                       int g, int ngroups, int ws, int wn, int cw, int ch,
                                       int swf, int warps, cudaStream_t stream) {
-  if (g * ngroups != py * px || ch < 1 || swf % 4 != 0 || kwk % 8 != 0 || kwk < kw ||
-      kwk - kw >= 16 || ws % 2 != 0 || 2 * ws < kwk || wn % 4 != 0 || wn < kh * g * ws)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const FusedTcArgs a{src, static_cast<const uint32_t*>(w), out, H, W, py, px, qy, qx, base_y,
-                      base_x, nyb, nxb, kh, kw, kwk, ngroups, ws, wn, cw, ch, swf};
-  if (warps == 4) return static_cast<int>(tc_launch_g<4>(a, F, g, stream));
-  if (warps == 1) return static_cast<int>(tc_launch_g<1>(a, F, g, stream));
-  return static_cast<int>(cudaErrorInvalidValue);
+  return tc_entry<1>(src, w, out, F, H, W, py, px, qy, qx, base_y, base_x, nyb, nxb, kh, kw, kwk,
+                     g, ngroups, ws, wn, cw, ch, swf, warps, stream);
+}
+
+// precision='wsplit3', the tensor-core kernel on three weight parts: w
+// (ngroups, 3, wn) words, part p of each group laid out as the bf16 mode's
+// weights (kernels/fused.py tc_weights of split_bf16x3's parts); the rest
+// as above.
+extern "C" int jt_fused_interior_wsplit3(const float* src, const void* w, float* out, int F,
+                                         int H, int W, int py, int px, int qy, int qx,
+                                         int base_y, int base_x, int nyb, int nxb, int kh, int kw,
+                                         int kwk, int g, int ngroups, int ws, int wn, int cw,
+                                         int ch, int swf, int warps, cudaStream_t stream) {
+  return tc_entry<3>(src, w, out, F, H, W, py, px, qy, qx, base_y, base_x, nyb, nxb, kh, kw, kwk,
+                     g, ngroups, ws, wn, cw, ch, swf, warps, stream);
 }

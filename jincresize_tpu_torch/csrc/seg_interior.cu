@@ -67,7 +67,8 @@
 // (_tile_groups) -- the per-tile class lists here only choose what to
 // stage; _dedup_bands, _chunk_layout and the expanded weight slabs of
 // _expand_w -- a thread reads its pixel's block of the compact dictionary;
-// wsplit3/wsplit3_vmem -- fp32 FMA is exact; residue planes and the split3
+// the stacked wsplit3 (three copies of the slabs; wsplit3_vmem, its
+// in-kernel twin, is ported: below); residue planes and the split3
 // interleave -- threads read strided columns and store in destination
 // layout; the WMAX weight gates, the 12 MB VMEM budget, the
 // JINCRESIZE_SEG_* overrides and the fs**2 <= 1200 envelope (the Mosaic
@@ -132,7 +133,27 @@
 // tc_sum_bound, not bit for bit. The window takes win_h rows of 2 * cw
 // words a frame: kernels/seg.py tc_smem_bytes mirrors the layout, and
 // frames_of picks the most frames whose windows fit beside the pairs.
+//
+// precision='wsplit3' replaces the Pallas kernel's wsplit3_vmem mode
+// (pallas_fused_seg.py:371-389), the mode u8 planes take: seg_tc_kernel
+// with SPLIT. As there, the weights stay resident in one copy and are
+// split at every use: the tile's pair blocks are staged in f32 (tap rows
+// padded to fsk with zeros), and each lane's B taps, one 16-byte load a
+// k16 chunk, are split in registers into three bfloat16 parts, w == hi +
+// mid + lo (common.cuh jt_split3_pack: three two-value conversions and
+// four subtractions a pair of values), which feed three mmas against the
+// same A fragment. A warp's item is two m-tiles of one class (MP = 2), so
+// each split B fragment feeds six mmas: the split and the B load, not the
+// mmas, set the pace of the mode when a B fragment feeds three. Three bf16 copies of the blocks would take 1.5 times their f32
+// room (232 KB at 1440p -> 1080p tap 16, fs 44, past 227 KB), as the
+// stacked wsplit3 lost on weight traffic in the Pallas kernel. Products of
+// u8 values and bfloat16 parts are exact in fp32, so the kernel is held to
+// the fp32 plain form within kernels/fused.py wsplit3_bound. The f32
+// blocks take twice the bf16 room, so fewer frames fit beside them (one at
+// fs 44); a plan whose blocks and one frame's window do not fit is built in
+// the fp32 mode on the host (kernels/seg.py kernel_precision).
 #include <climits>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -351,7 +372,7 @@ constexpr int kTabCol = 0, kTabXs = 32, kTabSyr = 64, kTabLcy = 96, kTabRun = 12
 
 struct SegTcArgs {
   const float* src;        // (F, H, W)
-  const uint32_t* blocks;  // (n_uy, n_ux, fs, fsk) bf16 as words, tap rows padded with zeros
+  const uint32_t* blocks;  // (n_uy, n_ux, fs, fsk) bf16 (SPLIT: f32) as words, tap rows padded with zeros
   const int* sy;           // (hout,) window starts
   const int* sx;           // (wout,)
   const int* lcy;          // (hout,) row class, as an index into its tile's list
@@ -364,14 +385,19 @@ struct SegTcArgs {
   float* out;              // (F, hout, wout)
   int F, H, W, hout, wout, n_ux, fs, fsk, ky, kx;
   int pairs;  // pair blocks room: max over tiles of ncy * ncx
-  int bs;     // words between staged pair blocks (>= fs * fsk / 2, a multiple of 4)
+  int bs;     // words between staged pair blocks (>= fs * fsk / 2, SPLIT: fs * fsk; a multiple of 4)
   int tab;    // words of the block's tables (>= kTabMt + 2 * NF + 32, a multiple of 4)
   int cw;     // words of a staged copy row (>= the widest window's words)
   int plane;  // words of a staged frame (>= its tallest window's rows * 2 * cw)
 };
 
-template <int NF>
+// SPLIT: precision='wsplit3' (header note): the blocks are staged in f32
+// and each B fragment is split into three bfloat16 parts at its load, once
+// for MP = 2 m-tiles of a class (an item), so that the split and the B
+// load are paid once a pair of m-tiles' 6 mmas.
+template <int NF, bool SPLIT>
 __global__ void __launch_bounds__(kTcThreads) seg_tc_kernel(const SegTcArgs a) {
+  constexpr int MP = SPLIT ? 2 : 1;  // m-tiles an item
   extern __shared__ __align__(16) uint32_t tsm[];
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int g = lane >> 2, tq = lane & 3;  // groupID, threadID_in_group
@@ -386,7 +412,7 @@ __global__ void __launch_bounds__(kTcThreads) seg_tc_kernel(const SegTcArgs a) {
 
   // The tile's class-pair blocks, pair p = (row class p / ncx, column
   // class p % ncx).
-  const int n4 = a.fs * a.fsk / 8;  // 16-byte pieces of a block
+  const int n4 = a.fs * a.fsk / (SPLIT ? 4 : 8);  // 16-byte pieces of a block
   for (int i = t; i < ncy * ncx * n4; i += kTcThreads) {
     const int p = i / n4, v = i - p * n4;
     const int cy = __ldg(a.tcy + ty * a.ky + p / ncx);
@@ -416,12 +442,12 @@ __global__ void __launch_bounds__(kTcThreads) seg_tc_kernel(const SegTcArgs a) {
     tab[kTabSyr + lane] = yok ? my_sy - row_lo : 1 << 20;
     tab[kTabLcy + lane] = yok ? __ldg(a.lcy + yl) : 0;
     if (lane < ncx) tab[kTabRun + lane] = __ldg(sc + lane);
-    if (lane == 0) {  // m-tiles: ceil(n * nf / 16) of a class of n columns
+    if (lane == 0) {  // m-tiles: ceil(n * nf / 16) of a class of n columns, MP an item
       tab[kTabRun + ncx] = __ldg(sc + ncx);
       int j = 0;
       for (int c = 0; c < ncx; ++c) {
         const int mtc = ((__ldg(sc + c + 1) - __ldg(sc + c)) * nf + 15) >> 4;
-        for (int jc = 0; jc < mtc; ++jc) tab[kTabMt + j++] = c << 16 | jc;
+        for (int jc = 0; jc < mtc; jc += MP) tab[kTabMt + j++] = c << 16 | jc;
       }
       tab[kTabNmt] = j;
     }
@@ -458,107 +484,197 @@ __global__ void __launch_bounds__(kTcThreads) seg_tc_kernel(const SegTcArgs a) {
   jt_cp_async_wait<0>();
   __syncthreads();  // the only barrier: the warps run apart from here
 
-  const int mt = tab[kTabNmt];  // m-tiles: 16 slots (column, frame) of one class each
+  const int mt = tab[kTabNmt];  // items' m-tiles: MP m-tiles of 16 slots (column, frame) of one class
   const int nt = (min(kSegTY, a.hout - y0) + 7) >> 3;  // n-tiles: 8 rows each
   const int n16 = a.fsk >> 4;
   const bool tail8 = (a.fsk & 15) != 0;
   const bool last1 = (a.fs & 15) == 1;  // the tail is one tap: 8 rows' in one mma (note)
-  const int hw = a.fsk >> 1;  // words of a staged tap row
+  const int hw = SPLIT ? a.fsk : a.fsk >> 1;  // words of a staged tap row
   const int64_t oplane = static_cast<int64_t>(a.hout) * a.wout;
   for (int item = warp; item < mt * nt; item += kTcWarps) {
     const int j = item / nt, k = item - j * nt;
     const int cj = tab[kTabMt + j], c = cj >> 16, jc = cj & 0xffff;
     const int base = tab[kTabRun + c], cnt = tab[kTabRun + c + 1] - base;
-    // The lane's A rows g and g + 8: slot i = column i % cnt of frame i / cnt.
-    int aoff[2], col[2], fr[2];
-    bool sok[2];
+    // The item's M m-tiles (M = 2 where its class has a second m-tile,
+    // warp-uniform), each body compiled for its M.
+    auto run = [&](auto m_tiles) {
+      constexpr int M = decltype(m_tiles)::value;
+      // The lane's A rows g and g + 8 of each m-tile: slot i = column i % cnt
+      // of frame i / cnt.
+      int aoff[M][2], col[M][2], fr[M][2];
+      bool sok[M][2];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int slot = jc * 16 + g + 8 * h;
-      sok[h] = slot < cnt * nf;
-      fr[h] = sok[h] ? slot / cnt : 0;
-      const int i = base + (sok[h] ? slot - fr[h] * cnt : 0);
-      col[h] = tab[kTabCol + i];
-      const int xs = tab[kTabXs + i];
-      aoff[h] = fr[h] * a.plane + (xs & 1) * a.cw + (xs >> 1);
-    }
-    // The lane's B column: row 8k + g of the tile.
-    const int syr = tab[kTabSyr + 8 * k + g];
-    const bool mok = y0 + 8 * k + g < a.hout;
-    const int boff = (tab[kTabLcy + 8 * k + g] * ncx + c) * a.bs;
-    const int s_lo = __reduce_min_sync(0xffffffffu, mok ? syr : INT_MAX);
-    const int s_hi = __reduce_max_sync(0xffffffffu, mok ? syr : INT_MIN) + a.fs;
-    // Two accumulators, chunks 0, 2, .. and 1, 3, ..: two mmas in flight.
-    float acc0[4] = {0.f, 0.f, 0.f, 0.f}, acc1[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int u = 0; u < M; ++u)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int slot = (jc + u) * 16 + g + 8 * h;
+          sok[u][h] = slot < cnt * nf;
+          fr[u][h] = sok[u][h] ? slot / cnt : 0;
+          const int i = base + (sok[u][h] ? slot - fr[u][h] * cnt : 0);
+          col[u][h] = tab[kTabCol + i];
+          const int xs = tab[kTabXs + i];
+          aoff[u][h] = fr[u][h] * a.plane + (xs & 1) * a.cw + (xs >> 1);
+        }
+      // The lane's B column: row 8k + g of the tile.
+      const int syr = tab[kTabSyr + 8 * k + g];
+      const bool mok = y0 + 8 * k + g < a.hout;
+      const int boff = (tab[kTabLcy + 8 * k + g] * ncx + c) * a.bs;
+      const int s_lo = __reduce_min_sync(0xffffffffu, mok ? syr : INT_MAX);
+      const int s_hi = __reduce_max_sync(0xffffffffu, mok ? syr : INT_MIN) + a.fs;
+      // Two accumulators an m-tile, chunks 0, 2, .. and 1, 3, ..: two mmas in flight.
+      float acc0[M][4], acc1[M][4];
+#pragma unroll
+      for (int u = 0; u < M; ++u)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc0[u][i] = acc1[u][i] = 0.f;
+      constexpr int PARTS = SPLIT ? 3 : 1;
 #pragma unroll 2
-    for (int s = s_lo; s < s_hi; ++s) {
-      const int ly = s - syr;
-      const bool bok = static_cast<unsigned>(ly) < static_cast<unsigned>(a.fs);
-      const uint32_t* const ar = win + s * 2 * a.cw;
-      const uint32_t* const br = wsm + boff + (bok ? ly : 0) * hw;
-      auto k16 = [&](float(&d)[4], int q) {
-        const int o = 8 * q + 2 * tq;  // lane tq's taps 16q + 4tq .. + 3
-        const uint2 b = bok ? *reinterpret_cast<const uint2*>(br + o) : make_uint2(0u, 0u);
-        jt_mma_k16(d, ar[aoff[0] + o], ar[aoff[1] + o], ar[aoff[0] + o + 1], ar[aoff[1] + o + 1],
-                   b.x, b.y);
-      };
-      int q = 0;
-      for (; q + 1 < n16; q += 2) {
-        k16(acc0, q);
-        k16(acc1, q + 1);
-      }
-      if (q < n16) k16(acc0, q);
-      if (tail8 && !last1) {
-        const int o = 8 * n16 + tq;  // taps 16 n16 + 2tq, + 1
-        const uint32_t b = bok ? br[o] : 0u;
-        if (n16 & 1) {
-          jt_mma_k8(acc1, ar[aoff[0] + o], ar[aoff[1] + o], b);
-        } else {
-          jt_mma_k8(acc0, ar[aoff[0] + o], ar[aoff[1] + o], b);
+      for (int s = s_lo; s < s_hi; ++s) {
+        const int ly = s - syr;
+        const bool bok = static_cast<unsigned>(ly) < static_cast<unsigned>(a.fs);
+        const uint32_t* const ar = win + s * 2 * a.cw;
+        const uint32_t* const br = wsm + boff + (bok ? ly : 0) * hw;
+        // One B fragment (SPLIT: split once) for the item's m-tiles.
+        auto k16 = [&](float(&d)[M][4], int q) {
+          const int o = 8 * q + 2 * tq;  // lane tq's taps 16q + 4tq .. + 3
+          uint32_t b0[PARTS], b1[PARTS];
+          if constexpr (SPLIT) {  // the f32 taps at word 2o, three parts each
+            const float4 w = bok ? *reinterpret_cast<const float4*>(br + 2 * o)
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
+            jt_split3_pack(w.x, w.y, b0);
+            jt_split3_pack(w.z, w.w, b1);
+          } else {
+            const uint2 b = bok ? *reinterpret_cast<const uint2*>(br + o) : make_uint2(0u, 0u);
+            b0[0] = b.x;
+            b1[0] = b.y;
+          }
+#pragma unroll
+          for (int u = 0; u < M; ++u) {
+            const uint32_t a0 = ar[aoff[u][0] + o], a1 = ar[aoff[u][1] + o];
+            const uint32_t a2 = ar[aoff[u][0] + o + 1], a3 = ar[aoff[u][1] + o + 1];
+#pragma unroll
+            for (int p = 0; p < PARTS; ++p) jt_mma_k16(d[u], a0, a1, a2, a3, b0[p], b1[p]);
+          }
+        };
+        int q = 0;
+        for (; q + 1 < n16; q += 2) {
+          k16(acc0, q);
+          k16(acc1, q + 1);
+        }
+        if (q < n16) k16(acc0, q);
+        if (tail8 && !last1) {
+          const int o = 8 * n16 + tq;  // taps 16 n16 + 2tq, + 1
+          uint32_t b[PARTS];
+          if constexpr (SPLIT) {
+            const float2 w = bok ? *reinterpret_cast<const float2*>(br + 2 * o) : make_float2(0.f, 0.f);
+            jt_split3_pack(w.x, w.y, b);
+          } else {
+            b[0] = bok ? br[o] : 0u;
+          }
+#pragma unroll
+          for (int u = 0; u < M; ++u) {
+            const uint32_t a0 = ar[aoff[u][0] + o], a1 = ar[aoff[u][1] + o];
+#pragma unroll
+            for (int p = 0; p < PARTS; ++p) {
+              if (n16 & 1) {
+                jt_mma_k8(acc1[u], a0, a1, b[p]);
+              } else {
+                jt_mma_k8(acc0[u], a0, a1, b[p]);
+              }
+            }
+          }
         }
       }
-    }
-    if (last1) {  // the last tap of 8 staged rows in one k8 mma: k = row r0 + k
-      const int o = 8 * n16;  // its word in a row: the low half, in the copy of the slot's parity
-      for (int r0 = s_lo; r0 < s_hi; r0 += 8) {
-        uint32_t av[2][2], bv[2];
+      if (last1) {  // the last tap of 8 staged rows in one k8 mma: k = row r0 + k
+        const int o = 8 * n16;  // its word in a row: the low half, in the copy of the slot's parity
+        for (int r0 = s_lo; r0 < s_hi; r0 += 8) {
+          uint32_t bv[2];
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int r = r0 + 2 * tq + i, ly = r - syr;
-          const uint32_t* const ar = win + min(r, s_hi - 1) * 2 * a.cw;
-          av[0][i] = r < s_hi ? ar[aoff[0] + o] : 0u;  // no row past the window
-          av[1][i] = r < s_hi ? ar[aoff[1] + o] : 0u;
-          bv[i] = static_cast<unsigned>(ly) < static_cast<unsigned>(a.fs)
-                      ? wsm[boff + ly * hw + o] : 0u;
+          for (int i = 0; i < 2; ++i) {
+            const int ly = r0 + 2 * tq + i - syr;
+            // SPLIT: the tap's f32 bits, at word 2o of its row
+            bv[i] = static_cast<unsigned>(ly) < static_cast<unsigned>(a.fs)
+                        ? wsm[boff + ly * hw + (SPLIT ? 2 * o : o)] : 0u;
+          }
+          uint32_t b[PARTS];
+          if constexpr (SPLIT) {
+            jt_split3_pack(__uint_as_float(bv[0]), __uint_as_float(bv[1]), b);
+          } else {
+            b[0] = __byte_perm(bv[0], bv[1], 0x5410);
+          }
+#pragma unroll
+          for (int u = 0; u < M; ++u) {
+            uint32_t av[2][2];
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              const int r = r0 + 2 * tq + i;
+              const uint32_t* const ar = win + min(r, s_hi - 1) * 2 * a.cw;
+              av[0][i] = r < s_hi ? ar[aoff[u][0] + o] : 0u;  // no row past the window
+              av[1][i] = r < s_hi ? ar[aoff[u][1] + o] : 0u;
+            }
+            const uint32_t a0 = __byte_perm(av[0][0], av[0][1], 0x5410);
+            const uint32_t a1 = __byte_perm(av[1][0], av[1][1], 0x5410);
+#pragma unroll
+            for (int p = 0; p < PARTS; ++p) jt_mma_k8(acc1[u], a0, a1, b[p]);
+          }
         }
-        jt_mma_k8(acc1, __byte_perm(av[0][0], av[0][1], 0x5410),
-                  __byte_perm(av[1][0], av[1][1], 0x5410), __byte_perm(bv[0], bv[1], 0x5410));
       }
-    }
-    // d0, d1: slot g, rows 2tq and 2tq + 1 of the n-tile; d2, d3: slot g + 8.
+      // d0, d1: slot g, rows 2tq and 2tq + 1 of the n-tile; d2, d3: slot g + 8.
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      if (!sok[h]) continue;
-      float* const o = a.out + (f0 + fr[h]) * oplane + x0 + col[h];
+      for (int u = 0; u < M; ++u)
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int mm = y0 + 8 * k + 2 * tq + i;
-        if (mm < a.hout) o[static_cast<int64_t>(mm) * a.wout] = acc0[2 * h + i] + acc1[2 * h + i];
-      }
+        for (int h = 0; h < 2; ++h) {
+          if (!sok[u][h]) continue;
+          float* const o = a.out + (f0 + fr[u][h]) * oplane + x0 + col[u][h];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int mm = y0 + 8 * k + 2 * tq + i;
+            if (mm < a.hout)
+              o[static_cast<int64_t>(mm) * a.wout] = acc0[u][2 * h + i] + acc1[u][2 * h + i];
+          }
+        }
+    };
+    if (MP == 2 && (cnt * nf + 15) / 16 - jc >= 2) {
+      run(std::integral_constant<int, MP>{});
+    } else {
+      run(std::integral_constant<int, 1>{});
     }
   }
 }
 
-template <int NF>
+template <int NF, bool SPLIT>
 cudaError_t seg_tc_launch(const SegTcArgs& a, cudaStream_t stream) {
   if (a.tab < kTabMt + 2 * NF + 32) return cudaErrorInvalidValue;
   const size_t smem = (static_cast<size_t>(a.pairs) * a.bs + a.tab +
                        static_cast<size_t>(NF) * a.plane) * sizeof(uint32_t);
-  cudaError_t err = jt_allow_smem(seg_tc_kernel<NF>, smem);
+  cudaError_t err = jt_allow_smem(seg_tc_kernel<NF, SPLIT>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.wout + kTX - 1) / kTX, (a.hout + kSegTY - 1) / kSegTY, (a.F + NF - 1) / NF);
-  seg_tc_kernel<NF><<<grid, kTcThreads, smem, stream>>>(a);
+  seg_tc_kernel<NF, SPLIT><<<grid, kTcThreads, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+// The checks and arguments of both tensor-core entries below.
+template <bool SPLIT>
+int seg_tc_entry(const float* src, const void* blocks, const int* sy, const int* sx,
+                 const int* lcy, const int* tcy, const int* tcx, const int* ncy, const int* ncx,
+                 const int* pcx, const int* scx, float* out, int F, int H, int W, int hout,
+                 int wout, int n_ux, int fs, int fsk, int ky, int kx, int pairs, int bs, int tab,
+                 int cw, int plane, int nf, cudaStream_t stream) {
+  if (hout <= 0 || wout <= 0 || F <= 0) return 0;
+  if (fsk % 8 != 0 || fsk < fs || fsk - fs >= 16 || bs % 4 != 0 ||
+      (SPLIT ? 1 : 2) * bs < fs * fsk || pairs < 1 || tab % 4 != 0 || kx > 32 || plane < 2 * cw)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const SegTcArgs a{src, static_cast<const uint32_t*>(blocks), sy, sx, lcy, tcy, tcx, ncy, ncx,
+                    pcx, scx, out, F, H, W, hout, wout, n_ux, fs, fsk, ky, kx, pairs, bs, tab,
+                    cw, plane};
+  switch (nf) {
+    case 1: return static_cast<int>(seg_tc_launch<1, SPLIT>(a, stream));
+    case 2: return static_cast<int>(seg_tc_launch<2, SPLIT>(a, stream));
+    case 4: return static_cast<int>(seg_tc_launch<4, SPLIT>(a, stream));
+    case 8: return static_cast<int>(seg_tc_launch<8, SPLIT>(a, stream));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -601,18 +717,22 @@ extern "C" int jt_seg_interior_bf16(const float* src, const void* blocks, const 
                                     int W, int hout, int wout, int n_ux, int fs, int fsk, int ky,
                                     int kx, int pairs, int bs, int tab, int cw, int plane,
                                     int nf, cudaStream_t stream) {
-  if (hout <= 0 || wout <= 0 || F <= 0) return 0;
-  if (fsk % 8 != 0 || fsk < fs || fsk - fs >= 16 || bs % 4 != 0 || 2 * bs < fs * fsk ||
-      pairs < 1 || tab % 4 != 0 || kx > 32 || plane < 2 * cw)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const SegTcArgs a{src, static_cast<const uint32_t*>(blocks), sy, sx, lcy, tcy, tcx, ncy, ncx,
-                    pcx, scx, out, F, H, W, hout, wout, n_ux, fs, fsk, ky, kx, pairs, bs, tab,
-                    cw, plane};
-  switch (nf) {
-    case 1: return static_cast<int>(seg_tc_launch<1>(a, stream));
-    case 2: return static_cast<int>(seg_tc_launch<2>(a, stream));
-    case 4: return static_cast<int>(seg_tc_launch<4>(a, stream));
-    case 8: return static_cast<int>(seg_tc_launch<8>(a, stream));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return seg_tc_entry<false>(src, blocks, sy, sx, lcy, tcy, tcx, ncy, ncx, pcx, scx, out, F, H, W,
+                             hout, wout, n_ux, fs, fsk, ky, kx, pairs, bs, tab, cw, plane, nf,
+                             stream);
+}
+
+// precision='wsplit3', the tensor-core kernel on three parts of f32 blocks:
+// blocks (n_uy, n_ux, fs, fsk) f32, tap rows padded with zeros; bs >= fs *
+// fsk words (kernels/seg.py tc_words with f32_blocks); the rest as above.
+extern "C" int jt_seg_interior_wsplit3(const float* src, const void* blocks, const int* sy,
+                                       const int* sx, const int* lcy, const int* tcy,
+                                       const int* tcx, const int* ncy, const int* ncx,
+                                       const int* pcx, const int* scx, float* out, int F, int H,
+                                       int W, int hout, int wout, int n_ux, int fs, int fsk,
+                                       int ky, int kx, int pairs, int bs, int tab, int cw,
+                                       int plane, int nf, cudaStream_t stream) {
+  return seg_tc_entry<true>(src, blocks, sy, sx, lcy, tcy, tcx, ncy, ncx, pcx, scx, out, F, H, W,
+                            hout, wout, n_ux, fs, fsk, ky, kx, pairs, bs, tab, cw, plane, nf,
+                            stream);
 }

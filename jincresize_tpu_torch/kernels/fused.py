@@ -51,6 +51,23 @@ staged in bfloat16, rounded once as it lands. The products are exact, but
 the tensor core sums in its own order, so the kernel is held to
 ``fused_interior_plain`` (which rounds the source first and sums in fp32
 FMA order) within ``tc_sum_bound``, not bit for bit.
+
+``precision='wsplit3'`` is the Pallas kernel's weight split
+(``pallas_fused.py:383-393``, 3 DEFAULT dots a pack at :236-251), the
+mode u8 planes take (``apply_conv.KERNEL_PRECISION['fp32_u8src']``). The
+host splits each unrounded fp32 kernel value into three bfloat16 parts,
+``K == c0 + c1 + c2`` exactly (``split_bf16x3``, checked bit for bit at
+the build), and the tensor-core kernel runs three mmas a fragment, one
+against each part's weight rows (``tc_weights`` writes three planes). A
+u8 source value has 8 significant bits, as a bfloat16 part does, so its
+staged bfloat16 copy is exact and every product is exact in fp32: the
+three passes compute the fp32 products at a third of an fp32 dot's cost
+on a matrix unit, and only the order of the sums differs from
+``fused_interior_plain`` in the fp32 mode (``wsplit3_bound``). For a
+source that is not bfloat16-exact the staged copy rounds; the mode is
+for u8 planes only. The weights take three times their bf16 room; a plan
+whose three planes and stages pass ``MAX_SMEM_BYTES`` runs the fp32
+kernel (``kernel_precision``).
 ``layout`` keeps in Python the arithmetic that places a block's staged
 window and a thread's register window; the tests check it on the CPU.
 
@@ -60,8 +77,6 @@ TPU workarounds of the Pallas kernel that this one drops:
   writes interleaved output rows directly;
 * ``residue_planes`` -- Mosaic cannot lower lane-strided slices; a thread
   reads its strided anchors from its register window;
-* the ``wsplit3`` bf16 weight split -- fp32 FMA is already exact, so
-  ``precision='fp32_u8src'`` runs the same fp32 kernel;
 * ``_choose_tmb``, ``_vmem_bytes`` and ``VMEM_BUDGET`` -- the row band is
   ``C`` anchor rows, and shared memory holds one phase group's weights and
   a ring of source rows, not the band;
@@ -101,9 +116,16 @@ DEFAULT_SHAPE = (128, 4, 8)
 NARROW_SHAPE = (32, 4, 8)
 SHAPES = (DEFAULT_SHAPE, NARROW_SHAPE)
 CHUNK = 8  # taps of a register window (csrc/fused_interior.cu kChunk)
-# precision modes: 'fp32' and 'fp32_u8src' run the exact fp32 kernel, 'bf16'
-# the tensor-core kernel on bfloat16-rounded operands.
-PRECISIONS = ("fp32", "fp32_u8src", "bf16")
+# The kernel's precision modes: 'fp32' the exact FMA kernel, 'bf16' the
+# tensor-core kernel on bfloat16-rounded operands, 'wsplit3' the tensor-core
+# kernel on three bfloat16 parts of the weights (exact products for u8
+# sources). The appliers map their precisions onto these.
+PRECISIONS = ("fp32", "bf16", "wsplit3")
+# bfloat16 parts of the weights a tensor-core mode multiplies.
+TC_PARTS = {"bf16": 1, "wsplit3": 3}
+# The appliers' precision each kernel mode reports as ``effective_precision``
+# (the appliers' KERNEL_PRECISION maps them the other way).
+APPLIER_PRECISION = {"fp32": "fp32", "bf16": "bf16", "wsplit3": "fp32_u8src"}
 # Shared memory a block aims to stay under: a window that does not fit
 # whole streams through the ring in stages of a few rows, so that one
 # stage's copies overlap the last one's FMAs (faster on the card than one
@@ -117,6 +139,31 @@ def round_bf16(x: torch.Tensor) -> torch.Tensor:
     the operand rounding of ``precision='bf16'`` (the kernels' own, on the
     card, is ``__float2bfloat16_rn``)."""
     return x.to(torch.bfloat16).to(torch.float32)
+
+
+def split_bf16x3(K: np.ndarray) -> np.ndarray:
+    """The three bfloat16 parts of float32 ``K``, stacked (3, ...) as
+    float32: ``c0 = round_bf16(K)``, ``c1 = round_bf16(K - c0)``, ``c2 = K -
+    c0 - c1``, the JAX package's split (``pallas_fused.py:387-393``).
+    ``c0 + c1 + c2 == K`` exactly; ``c2`` is bfloat16-exact for every K
+    whose lowest significand bit is at least 2**-133, the least bfloat16
+    step (each part holds 8 of K's 24 bits): ``check_split`` says so of a
+    given K."""
+    K = np.ascontiguousarray(K, np.float32)
+    c0 = round_bf16(torch.from_numpy(K)).numpy()
+    r1 = K - c0
+    c1 = round_bf16(torch.from_numpy(r1)).numpy()
+    return np.stack([c0, c1, r1 - c1])
+
+
+def check_split(K: np.ndarray, parts: np.ndarray) -> None:
+    """Raise ValueError unless every one of ``parts`` (3, ...) is
+    bfloat16-exact and ``parts[0] + parts[1] + parts[2] == K`` bit for bit."""
+    K = np.asarray(K, np.float32)
+    exact = all(np.array_equal(round_bf16(torch.from_numpy(p)).numpy(), p) for p in parts)
+    total = (parts[0] + parts[1]) + parts[2]
+    if not exact or not np.array_equal(total.view(np.uint32), K.view(np.uint32)):
+        raise ValueError("split_bf16x3: the weights do not split into three bfloat16 parts")
 
 
 F32_U = 2.0**-24  # unit roundoff of float32
@@ -186,6 +233,25 @@ def tc_sum_bound(n: int, wsum: float, max_src: float) -> float:
     v = 2 * F32_U
     gamma = n * v / (1 - n * v)
     return (gamma + v) * wsum * max_src
+
+
+def wsplit3_bound(n: int, wsum: float, max_src: float) -> float:
+    """The bound of the wsplit3 kernels against their plain forms (the fp32
+    modes' ``fused_interior_plain`` and ``seg_interior_plain``) on sources
+    that are bfloat16-exact, such as u8 planes: ``tc_sum_bound(3n, ...)``
+    plus ``f32_sum_bound(n, ...)``, over the ``n`` taps a pixel sums.
+
+    A source value and a bfloat16 part have 8 significant bits each, so
+    every product c_k * s is exact in fp32, and c0 + c1 + c2 == w makes
+    their exact sum the exact sum of the w * s. The kernel adds the 3n
+    products (three parts a tap) on the tensor cores in their own order,
+    each addition allowed one ulp of its result (``tc_sum_bound``), over
+    sum|products| <= (1 + 2**-6) sum|w| * max|src|: |w - c0| <= 2**-8 |w|,
+    so |c0| + |c1| + |c2| <= (1 + 2**-7 + 2**-15) |w|. So it is within
+    ``tc_sum_bound(3n, (1 + 2**-6) sum|w|)`` of the exact sum. The plain
+    form's fp32 FMA chain is within ``f32_sum_bound(n)`` of the same exact
+    sum. The two add."""
+    return tc_sum_bound(3 * n, (1 + 2.0**-6) * wsum, max_src) + f32_sum_bound(n, wsum, max_src)
 
 
 def f32_sum_bound(n: int, wsum: float, max_src: float) -> float:
@@ -322,8 +388,9 @@ TC_SMEM_TARGET = 56 * 1024
 
 @dataclass(frozen=True)
 class TcLayout:
-    """How the bf16 kernel tiles one plan (mirrors ``fused_tc_kernel``)."""
+    """How the tensor-core kernel tiles one plan (mirrors ``fused_tc_kernel``)."""
 
+    parts: int  # bfloat16 parts of the weights: 1 (bf16) or 3 (wsplit3)
     warps: int  # warps a block: SHAPES' threads / 32
     c: int  # anchor rows a block: TC_NT * 8 / g
     g: int  # phases a block
@@ -332,7 +399,7 @@ class TcLayout:
     kw: int
     kwk: int  # k-slots of a weight row: k_slots(kw)
     ws: int  # words of a weight row (a, e): >= kwk / 2, even
-    wn: int  # words of one phase group's weights: >= kh * g * ws, a multiple of 4
+    wn: int  # words of one part of a phase group's weights: >= kh * g * ws, a multiple of 4
     nr: int  # source rows of a block's window: qy*(c - 1) + kh
     nw: int  # words of a copy row that A reads: ceil((qx*(bj - 1) + kwk) / 2)
     cw: int  # words of a staged copy row: >= nw, 16 mod 32
@@ -363,13 +430,23 @@ def weight_stride(kwk: int, qy: int, g: int) -> int:
 
 
 def tc_layout(
-    py: int, px: int, qy: int, qx: int, kh: int, kw: int, shape=DEFAULT_SHAPE, g: int | None = None
+    py: int,
+    px: int,
+    qy: int,
+    qx: int,
+    kh: int,
+    kw: int,
+    shape=DEFAULT_SHAPE,
+    g: int | None = None,
+    parts: int = 1,
 ) -> TcLayout:
-    """The bf16 kernel's tiling of a plan with ``(Kh, Kw)`` kernels:
+    """The tensor-core kernel's tiling of a plan with ``(Kh, Kw)`` kernels:
     ``shape``'s threads in warps, ``g`` phases a block (default 4 where the
-    phases split so). Shared memory: one phase group's weights, then
-    TC_LAND stages of ``ch`` f32 rows and the current stage's ``ch`` bf16
-    rows (two copies of ``cw`` words), or the output tile where larger."""
+    phases split so), ``parts`` bfloat16 parts of the weights (1: bf16, 3:
+    wsplit3). Shared memory: one phase group's weights (``parts`` planes of
+    ``wn`` words), then TC_LAND stages of ``ch`` f32 rows and the current
+    stage's ``ch`` bf16 rows (two copies of ``cw`` words), or the output
+    tile where larger."""
     warps = shape[0] // 32
     nph = py * px
     if g is None:
@@ -391,25 +468,28 @@ def tc_layout(
     # Stages as the default shape's, whatever the shape: the packed one-tap
     # tail sums 8 rows of a stage at its end, so every shape adds alike.
     row_default = rows(DEFAULT_SHAPE[0] // 32 * TC_MW * 16)[3]
-    ch = max(1, min(-(-nr // 3), (TC_SMEM_TARGET // 4 - wn) // row_default))
+    ch = max(1, min(-(-nr // 3), (TC_SMEM_TARGET // 4 - parts * wn) // row_default))
     tile = c * g * (bj + bj // 32 + 1)
-    smem = 4 * (wn + max(ch * row, tile))
+    smem = 4 * (parts * wn + max(ch * row, tile))
     return TcLayout(
-        warps=warps, c=c, g=g, ngroups=nph // g, kh=kh, kw=kw, kwk=kwk, ws=ws, wn=wn, nr=nr,
-        nw=nw, cw=cw, ch=ch, swf=swf, smem_bytes=smem,
+        parts=parts, warps=warps, c=c, g=g, ngroups=nph // g, kh=kh, kw=kw, kwk=kwk, ws=ws,
+        wn=wn, nr=nr, nw=nw, cw=cw, ch=ch, swf=swf, smem_bytes=smem,
     )  # fmt: skip
 
 
 def tc_weights(K: np.ndarray, lay: TcLayout) -> np.ndarray:
-    """The bf16 kernel's weights from rounded (nph, Kh, Kw) kernels: (ngroups,
-    2 * wn) bfloat16 values as float32, phase group*g + e's row a at
-    bf16 offset 2 * (a*g + e) * ws, zeros beyond kw and in the padding."""
-    nph, kh, kw = K.shape
-    w = np.zeros((lay.ngroups, kh, lay.g, 2 * lay.ws), np.float32)
-    w[..., :kw] = K.reshape(lay.ngroups, lay.g, kh, kw).transpose(0, 2, 1, 3)
-    out = np.zeros((lay.ngroups, 2 * lay.wn), np.float32)
-    out[:, : kh * lay.g * 2 * lay.ws] = w.reshape(lay.ngroups, -1)
-    return out
+    """The tensor-core kernel's weights from bfloat16-exact kernels, (nph,
+    Kh, Kw) rounded ones or the (3, nph, Kh, Kw) parts of ``split_bf16x3``:
+    (ngroups, parts * 2 * wn) bfloat16 values as float32, part p of phase
+    group*g + e's row a at bf16 offset 2 * (p*wn + (a*g + e) * ws), zeros
+    beyond kw and in the padding."""
+    K = K.reshape((lay.parts,) + K.shape[-3:])
+    _, nph, kh, kw = K.shape
+    w = np.zeros((lay.parts, lay.ngroups, kh, lay.g, 2 * lay.ws), np.float32)
+    w[..., :kw] = K.reshape(lay.parts, lay.ngroups, lay.g, kh, kw).transpose(0, 1, 3, 2, 4)
+    out = np.zeros((lay.ngroups, lay.parts, 2 * lay.wn), np.float32)
+    out[..., : kh * lay.g * 2 * lay.ws] = w.reshape(lay.parts, lay.ngroups, -1).transpose(1, 0, 2)
+    return out.reshape(lay.ngroups, -1)
 
 
 def fit_shape(py: int, px: int, qy: int, qx: int, kh: int, kw: int):
@@ -459,19 +539,49 @@ class FusedInterior:
     fs: int
     shape: tuple  # the kernel shape engines launch (fit_shape)
     g: int  # phases a block (fit_shape; the layout of w)
-    bf16: bool  # precision='bf16': w and kernels rounded, the tensor-core kernel
-    # precision='bf16' only: (ngroups, 2 * wn) bf16, tc_weights (the same for every shape)
+    # the mode that runs (PRECISIONS): 'bf16' rounds w and kernels; 'bf16' and
+    # 'wsplit3' launch the tensor-core kernel; 'wsplit3' keeps w and kernels
+    # unrounded (its plain form is the fp32 mode's)
+    precision: str
+    # the tensor-core modes only: (ngroups, parts * 2 * wn) bf16, tc_weights
+    # (the same for every shape)
     wtc: torch.Tensor | None = None
+
+    @property
+    def bf16(self) -> bool:
+        return self.precision == "bf16"
+
+    @property
+    def parts(self) -> int:
+        """bfloat16 parts of the weights the launch multiplies (0: the FMA kernel)."""
+        return TC_PARTS.get(self.precision, 0)
 
     @property
     def out_shape(self) -> tuple[int, int]:
         return self.py * self.nyb, self.px * self.nxb
 
     def layout(self, shape=None) -> Layout | TcLayout:
-        """The launch's layout: ``layout``, or ``tc_layout`` under bf16."""
+        """The launch's layout: ``layout``, or ``tc_layout`` in the
+        tensor-core modes."""
         _, kh, kw = self.kernels.shape
-        lay = tc_layout if self.bf16 else layout
-        return lay(self.py, self.px, self.qy, self.qx, kh, kw, shape or self.shape, self.g)
+        args = (self.py, self.px, self.qy, self.qx, kh, kw, shape or self.shape, self.g)
+        return tc_layout(*args, parts=self.parts) if self.parts else layout(*args)
+
+
+def kernel_precision(op: PlaneOperator, plan: PhasePlan, precision: str) -> str:
+    """The mode ``make_fused_interior`` builds for ``precision`` on ``plan``:
+    ``'wsplit3'`` only where its three weight planes and stages fit
+    ``MAX_SMEM_BYTES`` at the plan's shape, else the exact ``'fp32'``
+    kernel (an envelope decision taken at the build, as the JAX package's
+    envelopes are; nothing falls back at run time)."""
+    if precision != "wsplit3":
+        return precision
+    lay = plan_layout(op, plan)
+    geo = (plan.y.p, plan.x.p, plan.y.q, plan.x.q, lay.kh, lay.kw)
+    fit = fit_shape(*geo)
+    if fit is not None and tc_layout(*geo, *fit, parts=3).smem_bytes > MAX_SMEM_BYTES:
+        return "fp32"
+    return precision
 
 
 def make_fused_interior(
@@ -481,27 +591,36 @@ def make_fused_interior(
     precision: str = "fp32",
 ) -> FusedInterior:
     """Host build of the fused interior's weights for ``plan`` on ``device``
-    (``precision='bf16'``: rounded to bfloat16 here, once per geometry)."""
+    in the kernel mode ``precision`` (``PRECISIONS``), once per geometry:
+    ``'bf16'`` rounds them to bfloat16, ``'wsplit3'`` splits them into three
+    bfloat16 parts (``split_bf16x3``, checked bit for bit) or, where those
+    do not fit (``kernel_precision``), builds the fp32 mode; the result's
+    ``precision`` says which."""
     if precision not in PRECISIONS:
         raise ValueError(f"make_fused_interior: unknown precision {precision!r}")
-    bf16 = precision == "bf16"
     K = build_conv_kernels(op, plan)[:, 0]
-    if bf16:
-        K = round_bf16(torch.from_numpy(K)).numpy()
     nph, kh, kw = K.shape
-    fit = fit_shape(plan.y.p, plan.x.p, plan.y.q, plan.x.q, kh, kw)
+    geo = (plan.y.p, plan.x.p, plan.y.q, plan.x.q, kh, kw)
+    fit = fit_shape(*geo)
     if fit is None:
         raise ValueError("make_fused_interior: plan outside the kernel envelope")
     shape, g = fit
-    lay = layout(plan.y.p, plan.x.p, plan.y.q, plan.x.q, kh, kw, shape, g)
+    precision = kernel_precision(op, plan, precision)
+    if precision == "bf16":
+        K = round_bf16(torch.from_numpy(K)).numpy()
+    lay = layout(*geo, shape, g)
     w = np.zeros((lay.ngroups, g, kh, lay.kwp), dtype=np.float32)
     w[..., :kw] = K.reshape(lay.ngroups, g, kh, kw)
     wtc = None
-    if bf16:
-        tl = tc_layout(plan.y.p, plan.x.p, plan.y.q, plan.x.q, kh, kw, shape, g)
+    if precision in TC_PARTS:
+        tl = tc_layout(*geo, shape, g, parts=TC_PARTS[precision])
         if tl.smem_bytes > MAX_SMEM_BYTES:
-            raise ValueError("make_fused_interior: plan outside the bf16 kernel's envelope")
-        wtc = torch.from_numpy(tc_weights(K, tl)).to(torch.bfloat16).to(device)
+            raise ValueError("make_fused_interior: plan outside the tensor-core kernel's envelope")
+        parts = K
+        if precision == "wsplit3":
+            parts = split_bf16x3(K)
+            check_split(K, parts)
+        wtc = torch.from_numpy(tc_weights(parts, tl)).to(torch.bfloat16).to(device)
     return FusedInterior(
         w=torch.from_numpy(np.ascontiguousarray(w.transpose(0, 2, 3, 1))).to(device),
         kernels=torch.from_numpy(K).to(device),
@@ -516,7 +635,7 @@ def make_fused_interior(
         fs=op.filter_size,
         shape=shape,
         g=g,
-        bf16=bf16,
+        precision=precision,
         wtc=wtc,
     )
 
@@ -526,7 +645,9 @@ def fused_interior_plain(fi: FusedInterior, src_f: torch.Tensor) -> torch.Tensor
 
     ``src_f`` (F, H, W) float32 -> (F, py*nyb, px*nxb) float32. Reads past the
     plane are zeros (padding), as in the kernel. Under ``fi.bf16`` the
-    source is rounded to bfloat16 first (the kernels come rounded). Calls
+    source is rounded to bfloat16 first (the kernels come rounded); under
+    ``'wsplit3'`` this is the fp32 mode's form, unrounded kernels and
+    source, whose products are exact for u8 sources. Calls
     are counted in ``fused_interior_plain.calls``, so that a run on the card
     can show that no engine took the plain form.
     """
@@ -562,11 +683,12 @@ def fused_interior(fi: FusedInterior, src_f: torch.Tensor, shape=None) -> torch.
     """Fused interior of ``src_f`` (F, H, W) float32 in destination layout.
 
     On a CPU tensor this is ``fused_interior_plain``. On a CUDA tensor it
-    launches ``csrc/fused_interior.cu`` (counted in ``fused_interior.launches``;
-    under ``fi.bf16`` its tensor-core kernel) or raises; it never falls
-    back. ``shape`` is the kernel's (threads, R, C*G), one of ``SHAPES``
-    (default ``fi.shape``); every shape gives the same result (the bf16
-    kernel takes its threads).
+    launches ``csrc/fused_interior.cu`` (counted in ``fused_interior.launches``
+    and, by ``fi.precision``, in ``fused_interior.mode_launches``; the bf16
+    and wsplit3 modes launch its tensor-core kernel) or raises; it never
+    falls back. ``shape`` is the kernel's (threads, R, C*G), one of
+    ``SHAPES`` (default ``fi.shape``); every shape gives the same result
+    (the tensor-core kernel takes its threads).
     """
     shape = tuple(shape or fi.shape)
     if shape not in SHAPES:
@@ -591,8 +713,9 @@ def fused_interior(fi: FusedInterior, src_f: torch.Tensor, shape=None) -> torch.
         raise ValueError("fused_interior: grid too large (frames x phase groups or anchor rows)")
     geo = (F, H, W, fi.py, fi.px, fi.qy, fi.qx, fi.base_y, fi.base_x, fi.nyb, fi.nxb)
     with torch.cuda.device(src_f.device):
-        if fi.bf16:
-            rc = _build.library().jt_fused_interior_bf16(
+        if fi.parts:
+            entry = "jt_fused_interior_bf16" if fi.bf16 else "jt_fused_interior_wsplit3"
+            rc = getattr(_build.library(), entry)(
                 src_f.data_ptr(), fi.wtc.data_ptr(), out.data_ptr(), *geo,
                 lay.kh, lay.kw, lay.kwk, lay.g, lay.ngroups, lay.ws, lay.wn, lay.cw, lay.ch,
                 lay.swf, lay.warps, _build.stream_of(src_f),
@@ -605,7 +728,9 @@ def fused_interior(fi: FusedInterior, src_f: torch.Tensor, shape=None) -> torch.
             )  # fmt: skip
     _build.check(rc, "jt_fused_interior")
     fused_interior.launches += 1
+    fused_interior.mode_launches[fi.precision] += 1
     return out
 
 
 fused_interior.launches = 0
+fused_interior.mode_launches = dict.fromkeys(PRECISIONS, 0)

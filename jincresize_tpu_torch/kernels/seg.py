@@ -54,8 +54,8 @@ TPU workarounds of the Pallas kernel that this one drops:
 * ``_dedup_bands`` and ``_chunk_layout`` -- there are no expanded weight
   slabs to deduplicate and no dot-M to bucket;
 * ``_expand_w`` (the HIGHEST-precision device einsum that builds the slabs)
-  and the ``wsplit3``/``wsplit3_vmem`` weight splits -- fp32 FMA is exact, so
-  ``precision='fp32_u8src'`` runs the same fp32 kernel;
+  and the stacked ``wsplit3`` weight split (three copies of the slabs; its
+  in-kernel twin ``wsplit3_vmem`` is ported, below);
 * ``residue_planes`` -- Mosaic cannot slice lanes with a stride; a thread
   reads its column's window from the staged rows directly;
 * the ``split3``/``xla`` phase interleave -- the output is stored in
@@ -82,6 +82,22 @@ was. The products are exact; the sums run in the tensor core's order, so
 the kernel is held to ``seg_interior_plain`` (which rounds the source
 first) within ``fused.tc_sum_bound``, not bit for bit.
 
+``precision='wsplit3'`` is the Pallas kernel's ``wsplit3_vmem`` mode
+(``pallas_fused_seg.py:371-389``), the mode u8 planes take
+(``apply_conv_seg.KERNEL_PRECISION['fp32_u8src']``): the same tensor-core
+kernel, its pair blocks staged in fp32 (``tc_blocks`` float32, tap rows
+padded to ``k_slots(fs)``), each B fragment split at its load into three
+bfloat16 parts, ``w == hi + mid + lo`` (``fused.split_bf16x3``'s split, in
+registers), and three mmas an A fragment. Three bfloat16 copies of the
+blocks would take 1.5 times their fp32 room (232 KB at fs 44, past the
+227 KB a block may use), as the Pallas kernel's stacked ``wsplit3`` lost
+on weight traffic. Products of u8 values and bfloat16 parts are exact, so
+the kernel is held to ``seg_interior_plain`` in the fp32 mode within
+``fused.wsplit3_bound``. The fp32 blocks take twice the bf16 mode's room,
+so fewer frames fit beside them (``tc_frames``); a plan whose blocks and
+one frame's window do not fit runs the fp32 kernel
+(``kernel_precision``).
+
 Weights and state: the operator and the plan are the port's copies of the
 JAX package's NumPy ``PlaneOperator`` and ``SegPhasePlan`` (the same arrays,
 ``tests/test_torch_host.py``), so the device tables come from the same
@@ -99,7 +115,7 @@ from ..operator import PlaneOperator
 from ..phase import SegAxisPlan, SegPhasePlan
 
 from . import _build
-from .fused import MAX_SMEM_BYTES, PRECISIONS, k_slots, round_bf16
+from .fused import MAX_SMEM_BYTES, PRECISIONS, TC_PARTS, k_slots, round_bf16
 from .gather import (
     FRAMES,
     check_window_starts,
@@ -156,15 +172,16 @@ def tile_columns(tc: TileClasses, tile: int) -> tuple[np.ndarray, np.ndarray]:
     return pcx, scx
 
 
-def tc_words(fs: int, win_h: int, win_w: int) -> tuple[int, int, int]:
-    """(bs, cw, plane) of the bf16 kernel, in 4-byte words: a staged pair
-    block (``fs`` tap rows of ``k_slots(fs)`` bf16, a multiple of 4 words),
+def tc_words(fs: int, win_h: int, win_w: int, f32_blocks: bool = False) -> tuple[int, int, int]:
+    """(bs, cw, plane) of the tensor-core kernel, in 4-byte words: a staged
+    pair block (``fs`` tap rows of ``k_slots(fs)`` bf16, or float32 with
+    ``f32_blocks``, the wsplit3 mode's, a multiple of 4 words),
     a copy row of the staged source (the widest window's columns and its
     last k-slot, two bf16 a word) and a staged frame (the tallest window's
     rows of two copy rows, 16 mod 32, so that adjacent frames' words fall
     on the other half of the banks)."""
     fsk = k_slots(fs)
-    bs = -(-(fs * fsk // 2) // 4) * 4
+    bs = -(-(fs * fsk // (1 if f32_blocks else 2)) // 4) * 4
     cw = -(-(win_w - fs + fsk + 1) // 2)
     cw += cw & 1
     plane = win_h * 2 * cw
@@ -179,10 +196,13 @@ def tc_table_words(frames: int) -> int:
     return -(-(162 + 2 * frames + 32) // 4) * 4
 
 
-def tc_smem_bytes(pairs: int, fs: int, win_h: int, win_w: int, frames: int) -> int:
-    """Shared memory of a bf16 launch: ``pairs`` staged blocks, the block's
-    tables, then the whole source window of each of ``frames`` frames."""
-    bs, _, plane = tc_words(fs, win_h, win_w)
+def tc_smem_bytes(
+    pairs: int, fs: int, win_h: int, win_w: int, frames: int, f32_blocks: bool = False
+) -> int:
+    """Shared memory of a tensor-core launch: ``pairs`` staged blocks
+    (float32 with ``f32_blocks``), the block's tables, then the whole
+    source window of each of ``frames`` frames."""
+    bs, _, plane = tc_words(fs, win_h, win_w, f32_blocks)
     return 4 * (pairs * bs + tc_table_words(frames) + frames * plane)
 
 
@@ -237,12 +257,20 @@ class SegInterior:
     win_w: int  # source columns of the widest tile window: a staged row's span
     pairs: int  # pair blocks of the largest tile (ky * kx)
     frames_per_block: int  # the most frames a thread that fit beside the pairs
-    bf16: bool  # precision='bf16': blocks rounded, the tensor-core kernel
-    # precision='bf16' only (None otherwise): the tensor-core kernel's tables
-    tc_blocks: torch.Tensor | None = None  # (n_uy, n_ux, fs, k_slots(fs)) bf16
+    # the mode that runs (fused.PRECISIONS): 'bf16' rounds the blocks; 'bf16'
+    # and 'wsplit3' launch the tensor-core kernel; 'wsplit3' keeps the blocks
+    # unrounded (its plain form is the fp32 mode's)
+    precision: str
+    # the tensor-core modes only (None otherwise): the tensor-core kernel's tables
+    # (n_uy, n_ux, fs, k_slots(fs)): bf16 in the bf16 mode, float32 in wsplit3
+    tc_blocks: torch.Tensor | None = None
     pcx: torch.Tensor | None = None  # (column tiles, TILE_X) int32, tile_columns
     scx: torch.Tensor | None = None  # (column tiles, kx + 1) int32
     tc_frames: int = 0  # the most frames whose windows fit beside the pairs
+
+    @property
+    def bf16(self) -> bool:
+        return self.precision == "bf16"
 
     @property
     def out_shape(self) -> tuple[int, int]:
@@ -275,19 +303,48 @@ def is_supported(op: PlaneOperator, plan: SegPhasePlan) -> bool:
     return _layout(op, plan) is not None
 
 
+def _tc_frames(op: PlaneOperator, L, f32_blocks: bool) -> list[int]:
+    """The frames a block of ``FRAMES`` whose windows fit beside the
+    largest tile's pair blocks in the tensor-core kernel, for ``_layout``'s
+    ``L``."""
+    win_h, win_w, ty, tx, _ = L
+    pairs = ty.ids.shape[1] * tx.ids.shape[1]
+    fs = op.filter_size
+    return [
+        f
+        for f in FRAMES
+        if tc_smem_bytes(pairs, fs, win_h, win_w, f, f32_blocks) <= MAX_SMEM_BYTES
+    ]
+
+
+def kernel_precision(op: PlaneOperator, plan: SegPhasePlan, precision: str) -> str:
+    """The mode ``make_seg_interior`` builds for ``precision`` on a plan
+    inside ``is_supported``: ``'wsplit3'`` only where the largest tile's
+    float32 pair blocks and one frame's window fit ``MAX_SMEM_BYTES``, else
+    the exact ``'fp32'`` kernel (an envelope decision taken at the build;
+    nothing falls back at run time)."""
+    if precision == "wsplit3" and not _tc_frames(op, _layout(op, plan), True):
+        return "fp32"
+    return precision
+
+
 def make_seg_interior(
     op: PlaneOperator,
     plan: SegPhasePlan,
     device: torch.device | str = "cpu",
     precision: str = "fp32",
 ) -> SegInterior:
-    """Host tables of ``plan`` plus the device dictionary
-    (``precision='bf16'``: rounded to bfloat16 here, once per geometry)."""
+    """Host tables of ``plan`` plus the device dictionary in the kernel mode
+    ``precision`` (``fused.PRECISIONS``), once per geometry: ``'bf16'``
+    rounds the blocks to bfloat16; ``'wsplit3'`` stages them in float32 for
+    the in-kernel split, or, where they do not fit (``kernel_precision``),
+    builds the fp32 mode; the result's ``precision`` says which."""
     if precision not in PRECISIONS:
         raise ValueError(f"make_seg_interior: unknown precision {precision!r}")
     L = _layout(op, plan)
     if L is None:
         raise ValueError("make_seg_interior: plan outside the kernel envelope")
+    precision = kernel_precision(op, plan, precision)
     win_h, win_w, ty, tx, nfb = L
     fs = op.filter_size
     sy, sx = _starts(plan.y), _starts(plan.x)
@@ -297,21 +354,21 @@ def make_seg_interior(
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device)
 
-    bf16 = precision == "bf16"
     pair_blocks = op.pair_blocks
     tc = {}
-    if bf16:
+    if precision == "bf16":
         pair_blocks = round_bf16(torch.from_numpy(pair_blocks)).numpy()
-        pairs = ty.ids.shape[1] * tx.ids.shape[1]
-        fits = [f for f in FRAMES if tc_smem_bytes(pairs, fs, win_h, win_w, f) <= MAX_SMEM_BYTES]
+    if precision in TC_PARTS:
+        fits = _tc_frames(op, L, precision == "wsplit3")
         if not fits:
-            raise ValueError("make_seg_interior: plan outside the bf16 kernel's envelope")
+            raise ValueError("make_seg_interior: plan outside the tensor-core kernel's envelope")
         n_uy, n_ux = pair_blocks.shape[:2]
         padded = np.zeros((n_uy, n_ux, fs, k_slots(fs)), np.float32)
         padded[..., :fs] = pair_blocks
         pcx, scx = tile_columns(tx, TILE_X)
+        blocks_t = torch.from_numpy(padded)
         tc = dict(
-            tc_blocks=torch.from_numpy(padded).to(torch.bfloat16).to(device),
+            tc_blocks=(blocks_t.to(torch.bfloat16) if precision == "bf16" else blocks_t).to(device),
             pcx=t(pcx),
             scx=t(scx),
             tc_frames=max(fits),
@@ -345,7 +402,7 @@ def make_seg_interior(
         win_w=win_w,
         pairs=ty.ids.shape[1] * tx.ids.shape[1],
         frames_per_block=nfb,
-        bf16=bf16,
+        precision=precision,
         **tc,
     )
 
@@ -355,25 +412,34 @@ def frames_of(si: SegInterior, n_frames: int) -> int:
     at most ``frames_per_block`` (the most whose rings fit beside the pair
     blocks), or in the bf16 mode ``tc_frames`` (the most whose windows
     do)."""
-    return min(frames_per_thread(n_frames), si.tc_frames if si.bf16 else si.frames_per_block)
+    tc = si.precision in TC_PARTS
+    return min(frames_per_thread(n_frames), si.tc_frames if tc else si.frames_per_block)
 
 
 def seg_interior_plain(si: SegInterior, src_f: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch form: (F, H, W) -> (F, py*nyb, px*nxb); under
     ``si.bf16`` the source is rounded to bfloat16 first (the blocks come
-    rounded)."""
+    rounded); under ``'wsplit3'`` this is the fp32 mode's form, whose
+    products are exact for u8 sources. Calls are counted in
+    ``seg_interior_plain.calls``, so that a run on the card can show that
+    no engine took the plain form."""
+    seg_interior_plain.calls += 1
     if si.bf16:
         src_f = round_bf16(src_f)
     return window_sum_plain(src_f, si.start_y, si.cls_y, si.start_x, si.cls_x, si.pair_blocks_t)
+
+
+seg_interior_plain.calls = 0
 
 
 def seg_interior(si: SegInterior, src_f: torch.Tensor) -> torch.Tensor:
     """Segment-periodic interior of ``src_f`` (F, H, W) float32.
 
     On a CPU tensor this is ``seg_interior_plain``. On a CUDA tensor it
-    launches ``csrc/seg_interior.cu`` (counted in ``seg_interior.launches``;
-    under ``si.bf16`` its tensor-core kernel) or raises; it never falls
-    back.
+    launches ``csrc/seg_interior.cu`` (counted in ``seg_interior.launches``
+    and, by ``si.precision``, in ``seg_interior.mode_launches``; the bf16
+    and wsplit3 modes launch its tensor-core kernel) or raises; it never
+    falls back.
     """
     if src_f.device.type == "cpu":
         return seg_interior_plain(si, src_f)
@@ -391,10 +457,11 @@ def seg_interior(si: SegInterior, src_f: torch.Tensor) -> torch.Tensor:
     if F == 0:
         return out
     with torch.cuda.device(src_f.device):
-        if si.bf16:
-            bs, cw, plane = tc_words(si.fs, si.win_h, si.win_w)
+        if si.precision in TC_PARTS:
+            bs, cw, plane = tc_words(si.fs, si.win_h, si.win_w, not si.bf16)
             nf = frames_of(si, F)
-            rc = _build.library().jt_seg_interior_bf16(
+            entry = "jt_seg_interior_bf16" if si.bf16 else "jt_seg_interior_wsplit3"
+            rc = getattr(_build.library(), entry)(
                 src_f.data_ptr(), si.tc_blocks.data_ptr(), si.start_y.data_ptr(),
                 si.start_x.data_ptr(), si.lcy.data_ptr(), si.tcy.data_ptr(), si.tcx.data_ptr(),
                 si.ncy.data_ptr(), si.ncx.data_ptr(), si.pcx.data_ptr(), si.scx.data_ptr(),
@@ -413,7 +480,9 @@ def seg_interior(si: SegInterior, src_f: torch.Tensor) -> torch.Tensor:
             )  # fmt: skip
     _build.check(rc, "jt_seg_interior")
     seg_interior.launches += 1
+    seg_interior.mode_launches[si.precision] += 1
     return out
 
 
 seg_interior.launches = 0
+seg_interior.mode_launches = dict.fromkeys(PRECISIONS, 0)

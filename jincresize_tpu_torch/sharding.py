@@ -74,6 +74,8 @@ from .phase import (
     plan_phases_seg,
 )
 
+from .apply_conv import KERNEL_PRECISION as CONV_KERNEL_PRECISION
+from .apply_conv_seg import KERNEL_PRECISION as SEG_KERNEL_PRECISION
 from .apply_xla import finalize, source_f32
 from .kernels import fused as fused_k
 from .kernels import gather as gather_k
@@ -855,8 +857,11 @@ def make_sharded_apply_conv(
     plan_local = PhasePlan(x=pplan.x, y=y_local)
     if not fused_k.is_supported(op, plan_local):
         return None
+    # The applier's mapping (the JAX package's, sharding.py:1103-1107): u8
+    # planes take the weight-split mode where its parts fit.
+    kprec = fused_k.kernel_precision(op, plan_local, CONV_KERNEL_PRECISION[precision])
     tables_on = functools.cache(
-        lambda dev: fused_k.make_fused_interior(op, plan_local, dev, precision)
+        lambda dev: fused_k.make_fused_interior(op, plan_local, dev, kprec)
     )
     bid, blocks_on = _uniform_on(op)
     exc_y = {int(v) for v in pplan.y.exceptions}
@@ -882,7 +887,7 @@ def make_sharded_apply_conv(
 
     info = {
         "interior": "conv-fused",
-        "precision": precision,
+        "precision": fused_k.APPLIER_PRECISION[kprec],
         "replicate_src": False,
         "hops": (1 if hu > 0 else 0, 1 if hd > 0 else 0),
     }
@@ -957,6 +962,12 @@ def make_sharded_apply_seg(
 
     if not all(seg_k.is_supported(op_band, local_plan(d)) for d in shard_blocks):
         return None
+    # The applier's mapping (the JAX package's, sharding.py:747-751), one
+    # mode for every shard: the weight split only where every shard's blocks
+    # fit it.
+    kprec = SEG_KERNEL_PRECISION[precision]
+    if any(seg_k.kernel_precision(op_band, local_plan(d), kprec) != kprec for d in shard_blocks):
+        kprec = "fp32"
     bid, blocks_on = _uniform_on(op)
     exc_y = {int(v) for v in y.exceptions}
     cols = _border_cols(op, xlo, xhi, plan.x.exceptions)
@@ -964,7 +975,7 @@ def make_sharded_apply_seg(
     def make_shard(d, dev, r0, r1):
         si = None
         if d in shard_blocks:
-            si = seg_k.make_seg_interior(op_band, local_plan(d), dev, precision)
+            si = seg_k.make_seg_interior(op_band, local_plan(d), dev, kprec)
         row0 = ylo + py * shard_blocks.get(d, (0, 0))[0] - r0
 
         def interior(band, canvas):
@@ -979,7 +990,7 @@ def make_sharded_apply_seg(
 
     info = {
         "interior": "seg",
-        "precision": precision,
+        "precision": fused_k.APPLIER_PRECISION[kprec],
         "tiles": {"block": (seg_k.TILE_X, seg_k.TILE_Y)},
         "replicate_src": False,
         "hops": (1 if hu > 0 else 0, 1 if hd > 0 else 0),
@@ -1001,13 +1012,17 @@ def make_sharded_apply(
     scan-gather; ``'conv'`` and ``'seg'`` run theirs or raise; ``'gather'``
     runs the band kernel, or the scan-gather where its envelope declines, as
     in the JAX package. ``precision`` is the fused and seg interiors'
-    (``'fp32'`` or ``'fp32_u8src'``, the same exact kernels, or ``'bf16'``,
-    the kernels on bfloat16-rounded operands, reported in
-    ``info['precision']``); the gather interiors and every patch are fp32.
+    (``'fp32'``, ``'fp32_u8src'`` or ``'bf16'``), mapped onto their kernel
+    modes as the single-card appliers map it (``apply_conv.KERNEL_PRECISION``,
+    ``apply_conv_seg.KERNEL_PRECISION``: u8 planes take the weight split on
+    the tensor cores); ``info['precision']`` reports the mode that runs in
+    the appliers' names. The gather interiors and every patch are fp32.
     ``apply_fn.info['interior']`` records which interior was built.
     """
     if impl not in ("auto", "conv", "seg", "gather"):
         raise ValueError(f"make_sharded_apply: unknown impl {impl!r}")
+    if precision not in CONV_KERNEL_PRECISION:
+        raise ValueError(f"make_sharded_apply: unknown precision {precision!r}")
     if impl in ("auto", "conv"):
         r = make_sharded_apply_conv(op, mesh, data_axis, precision)
         if r is not None:

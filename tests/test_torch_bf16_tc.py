@@ -11,7 +11,11 @@ index maps -- the PTX fragment maps (``fused.mma_maps``), the K packing
 column grouping and window words (``seg.tile_columns``, ``seg.tc_words``):
 shared memory word by word (unstaged words are NaN, so a read of one
 poisons the output), every fragment lane by lane, every mma as one fp32
-product of its 16 x k and k x 8 matrices added to its accumulator.
+product of its 16 x k and k x 8 matrices added to its accumulator. The
+emulations take the three-part weight split of ``precision='wsplit3'``
+too (``tests/test_torch_u8src.py`` holds them to the JAX package's
+``wsplit3`` kernels): the fused kernel's three planes of weight rows, the
+seg kernel's float32 blocks split at each B load.
 
 The oracle is ``tests/test_torch_bf16.py``'s: the JAX package's Pallas
 kernels in interpret mode at HIGHEST on the same bfloat16-rounded operands.
@@ -140,8 +144,9 @@ def _lo(words):
 
 def _fused_block(fi, lay, plane, wsm, by, bx):
     """One block of ``fused_tc_kernel`` on one frame's ``plane`` (H, W) with
-    its phase group's weight words ``wsm``: its accumulators (warps, 2
-    m-tiles, 4 n-tiles, 32 lanes, 4)."""
+    its phase group's weight words ``wsm`` (``lay.parts`` planes of
+    ``lay.wn`` words): its accumulators (warps, 2 m-tiles, 4 n-tiles, 32
+    lanes, 4)."""
     H, W = plane.shape
     qy, qx, G = fi.qy, fi.qx, lay.g
     g, tq = G_ID, T_ID
@@ -193,27 +198,29 @@ def _fused_block(fi, lay, plane, wsm, by, bx):
                 o = 8 * q + 2 * tq
                 # a0 a1 a2 a3: words o of rows g, g + 8, then words o + 1.
                 af = ring[rb + aoff[:, :, [0, 1, 0, 1]] + o + np.array([0, 0, 1, 1])[:, None]]
-                bw = wsm[bp[..., None] + o[:, None] + np.arange(2)]  # b0 b1: words o, o + 1
-                bf = np.where(bok[..., None, None], bw, 0)
-                for w, n, mw in np.ndindex(lay.warps, 4, 2):
-                    _mma(acc[w, mw, n], af[w, mw].swapaxes(0, 1), bf[n], 16)
+                for p in range(lay.parts):  # each part's B: words o, o + 1 of its plane
+                    bw = wsm[p * lay.wn + bp[..., None] + o[:, None] + np.arange(2)]
+                    bf = np.where(bok[..., None, None], bw, 0)
+                    for w, n, mw in np.ndindex(lay.warps, 4, 2):
+                        _mma(acc[w, mw, n], af[w, mw].swapaxes(0, 1), bf[n], 16)
             if tail8 and not last1:
                 o = 8 * n16 + tq
                 af = ring[rb + aoff + o]
-                bf = np.where(bok[..., None], wsm[bp + o], 0)
-                for w, n, mw in np.ndindex(lay.warps, 4, 2):
-                    _mma(acc[w, mw, n], af[w, mw].swapaxes(0, 1), bf[n][:, None], 8)
+                for p in range(lay.parts):
+                    bf = np.where(bok[..., None], wsm[p * lay.wn + bp + o], 0)
+                    for w, n, mw in np.ndindex(lay.warps, 4, 2):
+                        _mma(acc[w, mw, n], af[w, mw].swapaxes(0, 1), bf[n][:, None], 8)
         for r0 in range(k * lay.ch, s1 if last1 else 0, 8):
             # The last tap of 8 stage rows in one k8 mma, k = row r0 + k.
             o = 8 * n16
             r = r0 + 2 * tq[:, None] + np.arange(2)  # (lane, half)
             rb = (np.minimum(r, s1 - 1) - k * lay.ch) * rw
             af = np.where(r < s1, _lo(ring[rb + aoff[..., None] + o]), 0)  # (w, mw, h, lane, half)
-            for n in range(4):
+            for p, n in np.ndindex(lay.parts, 4):
                 col = 8 * n + g
                 ar = r - qy * (col // G)[:, None]
                 ok = (ar >= 0) & (ar < lay.kh)
-                idx = (np.where(ok, ar, 0) * G + (col % G)[:, None]) * lay.ws + o
+                idx = p * lay.wn + (np.where(ok, ar, 0) * G + (col % G)[:, None]) * lay.ws + o
                 b = np.where(ok, _lo(wsm[idx]), 0)
                 for w, mw in np.ndindex(lay.warps, 2):
                     _mma(acc[w, mw, n], af[w, mw].swapaxes(0, 1), b[:, None], 8)
@@ -221,11 +228,12 @@ def _fused_block(fi, lay, plane, wsm, by, bx):
 
 
 def emulate_fused(fi, src16, shape):
-    """``fused_tc_kernel`` on ``src16`` (F, H, W), rounded, in NumPy."""
+    """``fused_tc_kernel`` on ``src16`` (F, H, W), rounded (bf16-exact), in
+    NumPy, in ``fi``'s mode (bf16, or wsplit3's three weight planes)."""
     lay = fi.layout(shape)
     F = src16.shape[0]
     py, px, G = fi.py, fi.px, lay.g
-    wwords = fi.wtc.float().numpy().reshape(lay.ngroups, lay.wn, 2)
+    wwords = fi.wtc.float().numpy().reshape(lay.ngroups, lay.parts * lay.wn, 2)
     out = np.full((F, py * fi.nyb, px * fi.nxb), np.nan, np.float32)
     # Fragment d_i of lane (g, t): anchor g + 8*(i >> 1), column 2t + (i & 1).
     i = np.arange(4)
@@ -249,13 +257,28 @@ def emulate_fused(fi, src16, shape):
 # ---- the seg kernel, emulated
 
 
+def _split3(v):
+    """The three bfloat16 parts of float32 ``v`` (3, ...), as the wsplit3
+    seg kernel splits a B value at its load (csrc/common.cuh
+    jt_split3_pack): hi, mid, then the rest, each stored as bfloat16."""
+    v = np.asarray(v, np.float32)
+    hi = _r16(v)
+    r = v - hi
+    mid = _r16(r)
+    return np.stack([hi, mid, _r16(r - mid)])
+
+
 def _seg_tile(si, src16, nf, tyi, txi, f0, tc):
     """One block of ``seg_tc_kernel``: ``(tile x0, y0, [(frames, rows,
-    columns, sums)])``, one entry an item and half-tile of slots."""
+    columns, sums)])``, one entry an item and half-tile of slots. With
+    ``tc['split']`` (wsplit3) the pair blocks are staged in float32 (``wf``)
+    and each B value is split into three parts at its load, three mmas an
+    A fragment."""
     F, H, W = src16.shape
     hout, wout = si.out_shape
-    fs, fsk = si.fs, tc["fsk"]
-    bs, cw, plane = seg.tc_words(fs, si.win_h, si.win_w)
+    fs, fsk, split = si.fs, tc["fsk"], tc["split"]
+    bs, cw, plane = seg.tc_words(fs, si.win_h, si.win_w, split)
+    hw = fsk if split else fsk // 2  # words of a staged tap row
     g, tq = G_ID, T_ID
     n16, tail8, last1 = fsk // 16, fsk % 16 != 0, fs % 16 == 1
     sy, sx, lcy = tc["sy"], tc["sx"], tc["lcy"]
@@ -264,9 +287,13 @@ def _seg_tile(si, src16, nf, tyi, txi, f0, tc):
     nfv = min(nf, F - f0)
     tab = seg.tc_table_words(nf)
     smem = np.full((si.pairs * bs + tab + nf * plane, 2), np.nan, np.float32)
+    wf = np.full(si.pairs * bs, np.nan, np.float32)  # the float32 blocks (split)
     for p in range(ncy * ncx):
         cy, cx = tc["tcy"][tyi, p // ncx], tc["tcx"][txi, p % ncx]
-        smem[p * bs : p * bs + fs * fsk // 2] = tc["bwords"][cy, cx]
+        if split:
+            wf[p * bs : p * bs + fs * fsk] = tc["blocks"][cy, cx].ravel()
+        else:
+            smem[p * bs : p * bs + fs * fsk // 2] = tc["bwords"][cy, cx]
     cols, rows = sx[x0 : x0 + seg.TILE_X], sy[y0 : y0 + seg.TILE_Y]
     col_lo, row_lo = cols.min(), rows.min()
     nr, nw = rows.max() - row_lo + fs, (cols.max() - col_lo + fsk + 1) // 2
@@ -301,16 +328,26 @@ def _seg_tile(si, src16, nf, tyi, txi, f0, tc):
             ly = s - syr
             bok = (ly >= 0) & (ly < fs)
             ar = aoff + s * 2 * cw
-            br = boff + np.where(bok, ly, 0) * (fsk // 2)
+            br = boff + np.where(bok, ly, 0) * hw
             for q in range(n16):
                 o = (8 * q + 2 * tq)[:, None]
                 a = smem[np.concatenate([ar + o, ar + o + 1], 1)]  # a0 a1 a2 a3
-                b = np.where(bok[:, None, None], smem[br[:, None] + o + np.arange(2)], 0)
-                _mma(acc[q & 1], a, b, 16)
+                if split:  # the lane's 4 taps at word 2o, split: (3, lane, 2 regs, 2)
+                    v = np.where(bok[:, None], wf[br[:, None] + 2 * o + np.arange(4)], 0)
+                    bparts = _split3(v).reshape(3, 32, 2, 2)
+                else:
+                    bparts = [np.where(bok[:, None, None], smem[br[:, None] + o + np.arange(2)], 0)]
+                for b in bparts:
+                    _mma(acc[q & 1], a, b, 16)
             if tail8 and not last1:
                 o = (8 * n16 + tq)[:, None]
-                b = np.where(bok[:, None], smem[br + o[:, 0]], 0)[:, None]
-                _mma(acc[n16 & 1], smem[ar + o], b, 8)
+                if split:
+                    v = np.where(bok[:, None], wf[br[:, None] + 2 * o + np.arange(2)], 0)
+                    bparts = _split3(v)[:, :, None]
+                else:
+                    bparts = [np.where(bok[:, None], smem[br + o[:, 0]], 0)[:, None]]
+                for b in bparts:
+                    _mma(acc[n16 & 1], smem[ar + o], b, 8)
         for r0 in range(s_lo, s_hi if last1 else 0, 8):
             # The last tap of 8 rows in one k8 mma, k = row r0 + k.
             o = 8 * n16
@@ -319,8 +356,13 @@ def _seg_tile(si, src16, nf, tyi, txi, f0, tc):
             a = np.where(r[:, None] < s_hi, _lo(smem[aoff[..., None] + rc[:, None] + o]), 0)
             ly = r - syr[:, None]
             ok = (ly >= 0) & (ly < fs)
-            b = np.where(ok, _lo(smem[boff[:, None] + np.where(ok, ly, 0) * (fsk // 2) + o]), 0)
-            _mma(acc[1], a, b[:, None], 8)
+            if split:  # the tap's float32 at word 2o of its row, split
+                v = np.where(ok, wf[boff[:, None] + np.where(ok, ly, 0) * hw + 2 * o], 0)
+                bparts = _split3(v)
+            else:
+                bparts = [np.where(ok, _lo(smem[boff[:, None] + np.where(ok, ly, 0) * hw + o]), 0)]
+            for b in bparts:
+                _mma(acc[1], a, b[:, None], 8)
         d = acc[0] + acc[1]  # d0, d1: slot g, rows 2t, 2t + 1; d2, d3: slot g + 8
         for h, i in np.ndindex(2, 2):
             mm = y0 + 8 * k + 2 * tq + i
@@ -330,11 +372,15 @@ def _seg_tile(si, src16, nf, tyi, txi, f0, tc):
 
 
 def emulate_seg(si, src16, nf):
-    """``seg_tc_kernel`` at ``nf`` frames a block on ``src16`` (F, H, W)."""
+    """``seg_tc_kernel`` at ``nf`` frames a block on ``src16`` (F, H, W),
+    rounded (bf16-exact), in ``si``'s mode (bf16, or wsplit3's split of
+    float32 blocks)."""
     blocks = si.tc_blocks.float().numpy()
     n_uy, n_ux, fs, fsk = blocks.shape
     tc = {
         "fsk": fsk,
+        "split": not si.bf16,
+        "blocks": blocks,
         "bwords": blocks.reshape(n_uy, n_ux, fs * fsk // 2, 2),
         **{k: getattr(si, n).numpy() for k, n in (
             ("sy", "start_y"), ("sx", "start_x"), ("lcy", "lcy"), ("tcy", "tcy"), ("tcx", "tcx"),
