@@ -54,7 +54,7 @@ Phases (each raises on failure; nothing catches it):
    printed) and against the fp32 mode (``kernels.fused.bf16_bound``); the
    wsplit3 modes (what u8 planes run: three bfloat16 parts of the weights
    on the tensor cores) on u8 sources, the fused kernel on every conv
-   case's luma plane (a plan whose three weight planes pass the shared
+   case's luma plane (a plan whose three weight parts pass the shared
    memory is built in the fp32 mode and printed), the full 4K -> 8K and
    4K -> 1080p tap-16 planes and the narrow shape (0 against the default),
    the seg kernel on its two cases at every F, the 1440p -> 4K plane and
@@ -141,7 +141,8 @@ Phases (each raises on failure; nothing catches it):
    1440p -> 1080p tap 16, each beside the fp32 FMA and bf16 kernels on the
    same batch in the same turns (and cuDNN's fp32 conv2d for the fused
    kernel), its fp32 plain form once (held within ``wsplit3_bound``) and
-   its bound (three passes at the bf16 tensor-core peak, or bytes),
+   its bound (three passes at the bf16 tensor-core peak, or bytes) and
+   the earlier wsplit3 kernels' times,
    ``python -m jincresize_tpu_torch.bench`` in
    its three modes and the default one under ``--precision bf16``, run in
    this process, and the probe beside its bound and
@@ -261,6 +262,11 @@ PREV_SEG_MS_PER_FRAME = 0.458
 # kernel table, H100 80GB HBM3, 700 W), printed beside this run's tensor-core
 # kernels. The 2/3 plan and the fs-44 seg plane were not timed in bf16 then.
 PREV_BF16_MS_PER_FRAME = {"fused": 0.745, "deep_fused": 0.687, "seg": 0.297}
+# The previous wsplit3 modes (the bf16 tensor-core kernels' bodies with three
+# weight parts), ms/frame on the 8-frame u8 luma batches (PERF.md kernel
+# table, H100 80GB HBM3, 700 W), printed beside this run's.
+PREV_WSPLIT3_MS_PER_FRAME = {"fused": 0.4599, "deep_fused": 0.3104, "thirds_fused": 0.4576,
+                             "seg": 0.1841, "deep_seg": 0.5584}
 # The chain: 1080p -> 4K -> 8K tap 3 (2x then 2x), two frames.
 CHAIN = ((1920, 1080), (3840, 2160), (7680, 4320))
 CHAIN_TAP = 3
@@ -1783,8 +1789,9 @@ def main() -> int:
     dtoh = sum(t for name, (t, _) in ops.items() if "DtoH" in name)
     print(f"[4]   memcpy HtoD {htod:.3f} ms, DtoH {dtoh:.3f} ms, the rest "
           f"{busy - htod - dtoh:.3f} ms [{card}]")
-    # The u8 planes' wsplit3 mode runs the tensor-core kernel.
-    fused_name = "fused_tc_kernel" if resizer._applier_luma.fi.parts else "fused_interior_kernel"
+    # The u8 planes' wsplit3 mode runs the weight-split kernel.
+    fused_name = {"fp32": "fused_interior_kernel", "bf16": "fused_tc_kernel",
+                  "wsplit3": "fused_ws3_kernel"}[resizer._applier_luma.fi.precision]
     assert htod > 0 and dtoh > 0 and any(fused_name in k for k in ops), list(ops)[:10]
     # The same for one 4-frame 4K -> 1080p tap-16 call: the deep path's
     # device time by operation.
@@ -2085,8 +2092,8 @@ def main() -> int:
         out_px = src.shape[0] * si.out_shape[0] * si.out_shape[1]
         plain_only = ("pair_blocks_t", "cls_y", "cls_x", "roff_y", "roff_x")
         parts = fused_k.TC_PARTS.get(si.precision, 0)
-        if parts:  # the tensor-core kernel reads tc_blocks and the column lists
-            plain_only += ("blocks", "lcx")
+        if parts:  # the tensor-core kernel reads the column lists (bf16: tc_blocks, not blocks)
+            plain_only += ("blocks", "lcx") if si.bf16 else ("lcx",)
         return bound_ms(2 * si.fs**2 * out_px * max(parts, 1),
                         tensor_bytes(src, si, skip=plain_only) + 4 * out_px,
                         PEAK_BF16_FLOPS if parts else PEAK_FP32_FLOPS)  # fmt: skip
@@ -2237,7 +2244,9 @@ def main() -> int:
         b, by = (fused_bound if fused_kind else seg_bound)(t["wsplit3"], src)
         tw, t32, t16 = (times[m] / TIMING_FRAMES for m in ("wsplit3", "fp32", "bf16"))
         lib = times.get("conv2d")
-        print(f"[4] u8 {kind} wsplit3 {geo}: {tw:.4f} ms/frame, fp32 FMA kernel {t32:.4f} "
+        prev = PREV_WSPLIT3_MS_PER_FRAME[key]
+        print(f"[4] u8 {kind} wsplit3 {geo}: {tw:.4f} ms/frame (previous wsplit3 kernel {prev}, "
+              f"{tw / prev:.3f}x its time), fp32 FMA kernel {t32:.4f} "
               f"(wsplit3/fp32 {tw / t32:.3f}), bf16 kernel {t16:.4f} (wsplit3/bf16 {tw / t16:.3f}) "
               f"on the same u8 batch; bound {b / TIMING_FRAMES:.4f} ({by}, three passes at "
               f"{PEAK_BF16_FLOPS / 1e12:g} TFLOP/s), {b / times['wsplit3']:.1%} of it; plain form "
@@ -2251,7 +2260,7 @@ def main() -> int:
         ms[f"{key}_wsplit3"], ms[f"{key}_wsplit3_plain"] = times["wsplit3"], plain_ms
         ms[f"{key}_wsplit3_conv2d"] = lib
         bounds[f"{key}_wsplit3"] = (b, by)
-        u8_rows.append((kind, geo, tw, t32, t16, b / TIMING_FRAMES, by, err / wb))
+        u8_rows.append((kind, geo, tw, t32, t16, b / TIMING_FRAMES, by, err / wb, prev))
 
     u8_rows = []
     t0 = time.perf_counter()
@@ -2264,10 +2273,10 @@ def main() -> int:
     ):
         u8_form(key, geo, kind, op)
     print(f"[4] u8 forms timed in {time.perf_counter() - t0:.1f} s")
-    for kind, geo, tw, t32, t16, b, by, reading in u8_rows:
-        print(f"[4] u8 {kind} {geo}: wsplit3 {tw:.4f} ms/frame, fp32 {t32:.4f} (wsplit3/fp32 "
-              f"{tw / t32:.3f}), bf16 {t16:.4f}; bound {b:.4f} ({by}, {b / tw:.1%} of it); "
-              f"reading / wsplit3_bound {reading:.4f} [{card}]")
+    for kind, geo, tw, t32, t16, b, by, reading, prev in u8_rows:
+        print(f"[4] u8 {kind} {geo}: wsplit3 {tw:.4f} ms/frame (previous {prev}), fp32 {t32:.4f} "
+              f"(wsplit3/fp32 {tw / t32:.3f}), bf16 {t16:.4f}; bound {b:.4f} ({by}, {b / tw:.1%} "
+              f"of it); reading / wsplit3_bound {reading:.4f} [{card}]")
     for key, engine in (("drift", "fused-seg"), ("aperiodic", "gather")):
         pr, pclip = paths[key]
         sw, sh, dw, dh = DRIFT if key == "drift" else APERIODIC

@@ -92,6 +92,76 @@ __device__ __forceinline__ unsigned jt_smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
+// ldmatrix.sync.aligned.m8n8.x4 / .x2 .shared.b16: lane L gives the address
+// of row L % 8 of matrix L / 8 (16 contiguous bytes, 16-byte aligned; .x2
+// reads lanes 0-15), and receives in register i the bf16 pair (row L / 4,
+// columns 2 (L % 4), + 1) of matrix i. A matrix of 8 rows of a B operand
+// (n) by 8 k-values is an m16n8k16 B register: b0 = B[2t, 2t+1][g].
+__device__ __forceinline__ void jt_ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(jt_smem_addr(p)));
+}
+
+__device__ __forceinline__ void jt_ldsm_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(jt_smem_addr(p)));
+}
+
+// ---- wgmma (sm_90a): D += A * B on a warpgroup (4 warps), m64nNk16,
+// bf16 in, f32 sums. A (64 x 16) from registers: warp w holds rows 16w ..
+// 16w + 15 as the m16n8k16 A fragment above. B (16 x N, K-major) from
+// shared memory through a descriptor, no swizzle: core matrices of 8 rows
+// (n) by 16 bytes (8 k-values), each contiguous, the second k half `lbo`
+// bytes after the first, the next 8 rows `sbo` bytes on. D: warp w's rows
+// as N / 8 m16n8 fragments d[n][0..3] of the mma.sync map above (N = 32
+// here, the one shape the kernels use). The mma
+// runs asynchronously: between jt_wgmma_fence() and jt_wgmma_wait<0>()
+// nothing else touches its registers; after the wait, jt_fence_operand
+// orders the reads of D after it.
+__device__ __forceinline__ uint64_t jt_gmma_desc(unsigned saddr, unsigned lbo, unsigned sbo) {
+  return static_cast<uint64_t>((saddr & 0x3ffff) >> 4) |
+         static_cast<uint64_t>((lbo & 0x3ffff) >> 4) << 16 |
+         static_cast<uint64_t>((sbo & 0x3ffff) >> 4) << 32;
+}
+
+__device__ __forceinline__ void jt_wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void jt_wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void jt_wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void jt_fence_operand(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+
+// Shared memory written through the generic proxy (stores, cp.async) made
+// visible to the async proxy (wgmma's B reads) after the next barrier.
+__device__ __forceinline__ void jt_fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// d += A * B, m64n32k16: d[n] the fragment of n-tile n.
+__device__ __forceinline__ void jt_wgmma_m64n32k16(float (&d)[4][4], const uint32_t (&a)[4],
+                                                   uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
 // 4-byte asynchronous copy into shared memory; writes a zero when !ok.
 __device__ __forceinline__ void jt_cp_async4(float* dst, const float* src, bool ok) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(jt_smem_addr(dst)), "l"(src),

@@ -137,21 +137,32 @@
 // precision='wsplit3' replaces the Pallas kernel's wsplit3_vmem mode
 // (pallas_fused_seg.py:371-389), the mode u8 planes take: seg_tc_kernel
 // with SPLIT. As there, the weights stay resident in one copy and are
-// split at every use: the tile's pair blocks are staged in f32 (tap rows
-// padded to fsk with zeros), and each lane's B taps, one 16-byte load a
-// k16 chunk, are split in registers into three bfloat16 parts, w == hi +
-// mid + lo (common.cuh jt_split3_pack: three two-value conversions and
-// four subtractions a pair of values), which feed three mmas against the
-// same A fragment. A warp's item is two m-tiles of one class (MP = 2), so
-// each split B fragment feeds six mmas: the split and the B load, not the
-// mmas, set the pace of the mode when a B fragment feeds three. Three bf16 copies of the blocks would take 1.5 times their f32
-// room (232 KB at 1440p -> 1080p tap 16, fs 44, past 227 KB), as the
-// stacked wsplit3 lost on weight traffic in the Pallas kernel. Products of
-// u8 values and bfloat16 parts are exact in fp32, so the kernel is held to
-// the fp32 plain form within kernels/fused.py wsplit3_bound. The f32
-// blocks take twice the bf16 room, so fewer frames fit beside them (one at
-// fs 44); a plan whose blocks and one frame's window do not fit is built in
-// the fp32 mode on the host (kernels/seg.py kernel_precision).
+// split at every use: the tile's pair blocks are staged in f32 as the fp32
+// mode keeps them (kernels/gather.py padded_blocks: tap rows of fsp =
+// fs rounded up to 4 floats; a lane's taps past fsp read as zeros, tested
+// only in the k16 chunk or the k8 tail that reaches past fsp), and
+// each lane's B taps, one 16-byte load a k16 chunk, are split in registers
+// into three bfloat16 parts, w == hi + mid + lo (common.cuh
+// jt_split3_pack: three two-value conversions and four subtractions a
+// pair of values), which feed three mmas against the same A fragment. A
+// warp's item is two m-tiles of one class (MP = 2), so each split B
+// fragment feeds six mmas where the class has two. Products of u8 values
+// and bfloat16 parts are exact in fp32, so the kernel is held to the fp32
+// plain form within kernels/fused.py wsplit3_bound.
+//
+// What bounds it: at 1440p -> 1080p tap 16 (fs 44) the tile's 20 class-pair
+// blocks take most of the 227 KB, and the frames a block fills M: a class
+// of ~8 columns fills half an m-tile at one frame, all of it at two. Rows
+// of fsp floats (not the k-slots' fsk: 48 at fs 44) leave room for a
+// second frame's window (kernels/seg.py tc_words, frames_of), which halves
+// the mmas, the splits and the block starts a frame there. The split and
+// the B load set the pace where a B fragment feeds three mmas (most fs-44
+// classes: one m-tile at two frames). Tried on an H100 and dropped as
+// slower at 1440p -> 4K: the blocks split once as they are staged (three
+// bf16 parts resident, 1.5 times the f32 room: no split at the loads, but
+// three 8-byte B loads a chunk), and up to four m-tiles an item. A plan
+// whose blocks and one frame's window do not fit is built in the fp32 mode
+// on the host (kernels/seg.py kernel_precision).
 #include <climits>
 #include <type_traits>
 
@@ -372,7 +383,7 @@ constexpr int kTabCol = 0, kTabXs = 32, kTabSyr = 64, kTabLcy = 96, kTabRun = 12
 
 struct SegTcArgs {
   const float* src;        // (F, H, W)
-  const uint32_t* blocks;  // (n_uy, n_ux, fs, fsk) bf16 (SPLIT: f32) as words, tap rows padded with zeros
+  const uint32_t* blocks;  // bf16: (n_uy, n_ux, fs, fsk) bf16; wsplit3: (n_uy, n_ux, fs, fsp) f32; words
   const int* sy;           // (hout,) window starts
   const int* sx;           // (wout,)
   const int* lcy;          // (hout,) row class, as an index into its tile's list
@@ -383,19 +394,25 @@ struct SegTcArgs {
   const int* pcx;          // (column tiles, kTX) each tile's columns, grouped by class
   const int* scx;          // (column tiles, kx + 1) where each class's run starts in pcx
   float* out;              // (F, hout, wout)
-  int F, H, W, hout, wout, n_ux, fs, fsk, ky, kx;
+  int F, H, W, hout, wout, n_ux, fs, fsk, fsp, ky, kx;
   int pairs;  // pair blocks room: max over tiles of ncy * ncx
-  int bs;     // words between staged pair blocks (>= fs * fsk / 2, SPLIT: fs * fsk; a multiple of 4)
+  int bs;     // words between staged pair blocks, a multiple of 4 (kernels/seg.py tc_words)
   int tab;    // words of the block's tables (>= kTabMt + 2 * NF + 32, a multiple of 4)
   int cw;     // words of a staged copy row (>= the widest window's words)
   int plane;  // words of a staged frame (>= its tallest window's rows * 2 * cw)
 };
 
-// SPLIT: precision='wsplit3' (header note): the blocks are staged in f32
-// and each B fragment is split into three bfloat16 parts at its load, once
-// for MP = 2 m-tiles of a class (an item), so that the split and the B
-// load are paid once a pair of m-tiles' 6 mmas.
-template <int NF, bool SPLIT>
+// SPLIT: precision='wsplit3' (header note): the fp32 mode's blocks are
+// staged at their fsp-float rows and each B fragment is split into three
+// bfloat16 parts at its load, once for MP = 2 m-tiles of a class (an item),
+// so that the split and the B load are paid once a pair of m-tiles' 6 mmas.
+// CLIP: the k-slots pass the fsp floats of a row (fsk > fsp without the
+// one-tap tail, e.g. fs 44), so a lane's taps past them read as zeros,
+// tested per lane in the one k16 chunk (or the k8 tail) that reaches past
+// fsp alone. Compiled apart: the test in every chunk, or the clipped
+// chunk's code in every plan's instance, slowed 1440p -> 4K on an H100
+// (PERF.md, findings).
+template <int NF, bool SPLIT, bool CLIP>
 __global__ void __launch_bounds__(kTcThreads) seg_tc_kernel(const SegTcArgs a) {
   constexpr int MP = SPLIT ? 2 : 1;  // m-tiles an item
   extern __shared__ __align__(16) uint32_t tsm[];
@@ -412,7 +429,7 @@ __global__ void __launch_bounds__(kTcThreads) seg_tc_kernel(const SegTcArgs a) {
 
   // The tile's class-pair blocks, pair p = (row class p / ncx, column
   // class p % ncx).
-  const int n4 = a.fs * a.fsk / (SPLIT ? 4 : 8);  // 16-byte pieces of a block
+  const int n4 = a.fs * (SPLIT ? a.fsp : a.fsk / 2) / 4;  // 16-byte pieces of a block
   for (int i = t; i < ncy * ncx * n4; i += kTcThreads) {
     const int p = i / n4, v = i - p * n4;
     const int cy = __ldg(a.tcy + ty * a.ky + p / ncx);
@@ -454,14 +471,18 @@ __global__ void __launch_bounds__(kTcThreads) seg_tc_kernel(const SegTcArgs a) {
   }
   // The window of each frame, rounded to bfloat16 once: row r's word m of
   // copy 0 holds columns (2m, 2m + 1), of copy 1 (2m + 1, 2m + 2). A thread
-  // loads kTcLoads words' values before it stores any.
+  // loads LOADS words' values before it stores any: 16 in the wsplit3
+  // instances of up to 2 frames, where one block fills the SM (fs 44) and
+  // nothing overlaps its staging (faster on an H100 than 4 there, slower
+  // at 8 frames, whose registers it raises).
+  constexpr int LOADS = SPLIT && NF <= 2 ? 4 * kTcLoads : kTcLoads;
   const int64_t fplane = static_cast<int64_t>(a.H) * a.W;
   const int nrw = nr * nw, total = nf * nrw;
-  for (int i0 = t; i0 < total; i0 += kTcLoads * kTcThreads) {
-    float v[kTcLoads][3];
-    int d[kTcLoads];
+  for (int i0 = t; i0 < total; i0 += LOADS * kTcThreads) {
+    float v[LOADS][3];
+    int d[LOADS];
 #pragma unroll
-    for (int i = 0; i < kTcLoads; ++i) {
+    for (int i = 0; i < LOADS; ++i) {
       const int idx = i0 + i * kTcThreads;
       d[i] = -1;
       if (idx < total) {
@@ -475,7 +496,7 @@ __global__ void __launch_bounds__(kTcThreads) seg_tc_kernel(const SegTcArgs a) {
       }
     }
 #pragma unroll
-    for (int i = 0; i < kTcLoads; ++i)
+    for (int i = 0; i < LOADS; ++i)
       if (d[i] >= 0) {
         win[d[i]] = jt_pack_bf16(v[i][0], v[i][1]);
         win[d[i] + a.cw] = jt_pack_bf16(v[i][1], v[i][2]);
@@ -487,9 +508,10 @@ __global__ void __launch_bounds__(kTcThreads) seg_tc_kernel(const SegTcArgs a) {
   const int mt = tab[kTabNmt];  // items' m-tiles: MP m-tiles of 16 slots (column, frame) of one class
   const int nt = (min(kSegTY, a.hout - y0) + 7) >> 3;  // n-tiles: 8 rows each
   const int n16 = a.fsk >> 4;
+  const int nin = CLIP ? min(n16, a.fsp >> 4) : n16;  // k16 chunks within fsp floats
   const bool tail8 = (a.fsk & 15) != 0;
   const bool last1 = (a.fs & 15) == 1;  // the tail is one tap: 8 rows' in one mma (note)
-  const int hw = SPLIT ? a.fsk : a.fsk >> 1;  // words of a staged tap row
+  const int hw = SPLIT ? a.fsp : a.fsk >> 1;  // words of a staged tap row
   const int64_t oplane = static_cast<int64_t>(a.hout) * a.wout;
   for (int item = warp; item < mt * nt; item += kTcWarps) {
     const int j = item / nt, k = item - j * nt;
@@ -534,12 +556,14 @@ __global__ void __launch_bounds__(kTcThreads) seg_tc_kernel(const SegTcArgs a) {
         const bool bok = static_cast<unsigned>(ly) < static_cast<unsigned>(a.fs);
         const uint32_t* const ar = win + s * 2 * a.cw;
         const uint32_t* const br = wsm + boff + (bok ? ly : 0) * hw;
-        // One B fragment (SPLIT: split once) for the item's m-tiles.
-        auto k16 = [&](float(&d)[M][4], int q) {
+        // One B fragment (SPLIT: split once) for the item's m-tiles; clip:
+        // the chunk reaches past fsp (a constant at each call).
+        auto k16 = [&](float(&d)[M][4], int q, bool clip) {
           const int o = 8 * q + 2 * tq;  // lane tq's taps 16q + 4tq .. + 3
           uint32_t b0[PARTS], b1[PARTS];
-          if constexpr (SPLIT) {  // the f32 taps at word 2o, three parts each
-            const float4 w = bok ? *reinterpret_cast<const float4*>(br + 2 * o)
+          if constexpr (SPLIT) {  // the f32 taps at word 2o (none past the row), split
+            const float4 w = bok && (!clip || 2 * o < a.fsp)
+                                 ? *reinterpret_cast<const float4*>(br + 2 * o)
                                  : make_float4(0.f, 0.f, 0.f, 0.f);
             jt_split3_pack(w.x, w.y, b0);
             jt_split3_pack(w.z, w.w, b1);
@@ -557,16 +581,27 @@ __global__ void __launch_bounds__(kTcThreads) seg_tc_kernel(const SegTcArgs a) {
           }
         };
         int q = 0;
-        for (; q + 1 < n16; q += 2) {
-          k16(acc0, q);
-          k16(acc1, q + 1);
+        for (; q + 1 < nin; q += 2) {
+          k16(acc0, q, false);
+          k16(acc1, q + 1, false);
         }
-        if (q < n16) k16(acc0, q);
+        if (q < nin) k16(acc0, q++, false);
+        if constexpr (CLIP) {
+          if (q < n16) {  // at most one chunk past them
+            if (q & 1) {
+              k16(acc1, q, true);
+            } else {
+              k16(acc0, q, true);
+            }
+          }
+        }
         if (tail8 && !last1) {
           const int o = 8 * n16 + tq;  // taps 16 n16 + 2tq, + 1
           uint32_t b[PARTS];
           if constexpr (SPLIT) {
-            const float2 w = bok ? *reinterpret_cast<const float2*>(br + 2 * o) : make_float2(0.f, 0.f);
+            const float2 w = bok && (!CLIP || 2 * o < a.fsp)
+                                 ? *reinterpret_cast<const float2*>(br + 2 * o)
+                                 : make_float2(0.f, 0.f);
             jt_split3_pack(w.x, w.y, b);
           } else {
             b[0] = bok ? br[o] : 0u;
@@ -642,37 +677,38 @@ __global__ void __launch_bounds__(kTcThreads) seg_tc_kernel(const SegTcArgs a) {
   }
 }
 
-template <int NF, bool SPLIT>
+template <int NF, bool SPLIT, bool CLIP>
 cudaError_t seg_tc_launch(const SegTcArgs& a, cudaStream_t stream) {
   if (a.tab < kTabMt + 2 * NF + 32) return cudaErrorInvalidValue;
   const size_t smem = (static_cast<size_t>(a.pairs) * a.bs + a.tab +
                        static_cast<size_t>(NF) * a.plane) * sizeof(uint32_t);
-  cudaError_t err = jt_allow_smem(seg_tc_kernel<NF, SPLIT>, smem);
+  cudaError_t err = jt_allow_smem(seg_tc_kernel<NF, SPLIT, CLIP>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.wout + kTX - 1) / kTX, (a.hout + kSegTY - 1) / kSegTY, (a.F + NF - 1) / NF);
-  seg_tc_kernel<NF, SPLIT><<<grid, kTcThreads, smem, stream>>>(a);
+  seg_tc_kernel<NF, SPLIT, CLIP><<<grid, kTcThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 // The checks and arguments of both tensor-core entries below.
-template <bool SPLIT>
+template <bool SPLIT, bool CLIP>
 int seg_tc_entry(const float* src, const void* blocks, const int* sy, const int* sx,
                  const int* lcy, const int* tcy, const int* tcx, const int* ncy, const int* ncx,
                  const int* pcx, const int* scx, float* out, int F, int H, int W, int hout,
-                 int wout, int n_ux, int fs, int fsk, int ky, int kx, int pairs, int bs, int tab,
-                 int cw, int plane, int nf, cudaStream_t stream) {
+                 int wout, int n_ux, int fs, int fsk, int fsp, int ky, int kx, int pairs, int bs,
+                 int tab, int cw, int plane, int nf, cudaStream_t stream) {
   if (hout <= 0 || wout <= 0 || F <= 0) return 0;
-  if (fsk % 8 != 0 || fsk < fs || fsk - fs >= 16 || bs % 4 != 0 ||
-      (SPLIT ? 1 : 2) * bs < fs * fsk || pairs < 1 || tab % 4 != 0 || kx > 32 || plane < 2 * cw)
+  if (fsk % 8 != 0 || fsk < fs || fsk - fs >= 16 || fsp % 4 != 0 || fsp < fs || bs % 4 != 0 ||
+      bs < (SPLIT ? fs * fsp : fs * fsk / 2) || pairs < 1 || tab % 4 != 0 || kx > 32 ||
+      plane < 2 * cw)
     return static_cast<int>(cudaErrorInvalidValue);
   const SegTcArgs a{src, static_cast<const uint32_t*>(blocks), sy, sx, lcy, tcy, tcx, ncy, ncx,
-                    pcx, scx, out, F, H, W, hout, wout, n_ux, fs, fsk, ky, kx, pairs, bs, tab,
-                    cw, plane};
+                    pcx, scx, out, F, H, W, hout, wout, n_ux, fs, fsk, fsp, ky, kx, pairs, bs,
+                    tab, cw, plane};
   switch (nf) {
-    case 1: return static_cast<int>(seg_tc_launch<1, SPLIT>(a, stream));
-    case 2: return static_cast<int>(seg_tc_launch<2, SPLIT>(a, stream));
-    case 4: return static_cast<int>(seg_tc_launch<4, SPLIT>(a, stream));
-    case 8: return static_cast<int>(seg_tc_launch<8, SPLIT>(a, stream));
+    case 1: return static_cast<int>(seg_tc_launch<1, SPLIT, CLIP>(a, stream));
+    case 2: return static_cast<int>(seg_tc_launch<2, SPLIT, CLIP>(a, stream));
+    case 4: return static_cast<int>(seg_tc_launch<4, SPLIT, CLIP>(a, stream));
+    case 8: return static_cast<int>(seg_tc_launch<8, SPLIT, CLIP>(a, stream));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -717,22 +753,28 @@ extern "C" int jt_seg_interior_bf16(const float* src, const void* blocks, const 
                                     int W, int hout, int wout, int n_ux, int fs, int fsk, int ky,
                                     int kx, int pairs, int bs, int tab, int cw, int plane,
                                     int nf, cudaStream_t stream) {
-  return seg_tc_entry<false>(src, blocks, sy, sx, lcy, tcy, tcx, ncy, ncx, pcx, scx, out, F, H, W,
-                             hout, wout, n_ux, fs, fsk, ky, kx, pairs, bs, tab, cw, plane, nf,
-                             stream);
+  return seg_tc_entry<false, false>(src, blocks, sy, sx, lcy, tcy, tcx, ncy, ncx, pcx, scx, out, F,
+                                    H, W, hout, wout, n_ux, fs, fsk, (fs + 3) / 4 * 4, ky, kx,
+                                    pairs, bs, tab, cw, plane, nf, stream);
 }
 
-// precision='wsplit3', the tensor-core kernel on three parts of f32 blocks:
-// blocks (n_uy, n_ux, fs, fsk) f32, tap rows padded with zeros; bs >= fs *
-// fsk words (kernels/seg.py tc_words with f32_blocks); the rest as above.
+// precision='wsplit3', the tensor-core kernel on three parts of the fp32
+// mode's blocks: blocks (n_uy, n_ux, fs, fsp) f32, tap rows padded with
+// zeros to fsp floats (kernels/gather.py padded_blocks), staged at bs >= fs
+// * fsp words and split at each B load (kernels/seg.py tc_words); the rest
+// as above.
 extern "C" int jt_seg_interior_wsplit3(const float* src, const void* blocks, const int* sy,
                                        const int* sx, const int* lcy, const int* tcy,
                                        const int* tcx, const int* ncy, const int* ncx,
                                        const int* pcx, const int* scx, float* out, int F, int H,
                                        int W, int hout, int wout, int n_ux, int fs, int fsk,
-                                       int ky, int kx, int pairs, int bs, int tab, int cw,
+                                       int fsp, int ky, int kx, int pairs, int bs, int tab, int cw,
                                        int plane, int nf, cudaStream_t stream) {
-  return seg_tc_entry<true>(src, blocks, sy, sx, lcy, tcy, tcx, ncy, ncx, pcx, scx, out, F, H, W,
-                            hout, wout, n_ux, fs, fsk, ky, kx, pairs, bs, tab, cw, plane, nf,
-                            stream);
+  if (fsk > fsp && fs % 16 != 1)
+    return seg_tc_entry<true, true>(src, blocks, sy, sx, lcy, tcy, tcx, ncy, ncx, pcx, scx, out, F,
+                                    H, W, hout, wout, n_ux, fs, fsk, fsp, ky, kx, pairs, bs, tab,
+                                    cw, plane, nf, stream);
+  return seg_tc_entry<true, false>(src, blocks, sy, sx, lcy, tcy, tcx, ncy, ncx, pcx, scx, out, F,
+                                   H, W, hout, wout, n_ux, fs, fsk, fsp, ky, kx, pairs, bs, tab,
+                                   cw, plane, nf, stream);
 }

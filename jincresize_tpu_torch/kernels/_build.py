@@ -33,14 +33,14 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "jt_fused_interior": [_P, _P, _P] + [_I] * 22 + [_P],
     "jt_fused_interior_bf16": [_P, _P, _P] + [_I] * 22 + [_P],
-    "jt_fused_interior_wsplit3": [_P, _P, _P] + [_I] * 22 + [_P],
+    "jt_fused_interior_wsplit3": [_P, _P, _P] + [_I] * 27 + [_P],
     "jt_out_only": [_P] + [_I] * 5 + [_P],
     "jt_strips": [_P] * 5 + [_I] * 15 + [_P],
     "jt_gather_interior": [_P] * 7 + [_I] * 11 + [_P],
     "jt_gather_band": [_P] * 7 + [_I] * 13 + [_P],
     "jt_seg_interior": [_P] * 11 + [_I] * 14 + [_P],
     "jt_seg_interior_bf16": [_P] * 12 + [_I] * 16 + [_P],
-    "jt_seg_interior_wsplit3": [_P] * 12 + [_I] * 16 + [_P],
+    "jt_seg_interior_wsplit3": [_P] * 12 + [_I] * 17 + [_P],
 }
 
 _lib = None

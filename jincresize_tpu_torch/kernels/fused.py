@@ -57,17 +57,22 @@ FMA order) within ``tc_sum_bound``, not bit for bit.
 mode u8 planes take (``apply_conv.KERNEL_PRECISION['fp32_u8src']``). The
 host splits each unrounded fp32 kernel value into three bfloat16 parts,
 ``K == c0 + c1 + c2`` exactly (``split_bf16x3``, checked bit for bit at
-the build), and the tensor-core kernel runs three mmas a fragment, one
-against each part's weight rows (``tc_weights`` writes three planes). A
-u8 source value has 8 significant bits, as a bfloat16 part does, so its
-staged bfloat16 copy is exact and every product is exact in fp32: the
-three passes compute the fp32 products at a third of an fp32 dot's cost
-on a matrix unit, and only the order of the sums differs from
+the build). A u8 source value has 8 significant bits, as a bfloat16 part
+does, so its staged bfloat16 copy is exact and every product is exact in
+fp32: the three passes compute the fp32 products at a third of an fp32
+dot's cost on a matrix unit, and only the order of the sums differs from
 ``fused_interior_plain`` in the fp32 mode (``wsplit3_bound``). For a
 source that is not bfloat16-exact the staged copy rounds; the mode is
-for u8 planes only. The weights take three times their bf16 room; a plan
-whose three planes and stages pass ``MAX_SMEM_BYTES`` runs the fp32
-kernel (``kernel_precision``).
+for u8 planes only. It runs a kernel of its own (``fused_ws3_kernel``): the
+window is staged and rounded a stage ahead of the products, each staged
+row runs against the n-tiles whose anchor rows read it
+(``live_tiles``), their B fragments read from 16-byte weight rows
+(``ws3_layout``, ``ws3_weights``, ``weight_row``, ``b_row``) by one
+``wgmma`` a warpgroup where zero rows pad each residue (``Ws3Layout.lp``)
+and by ``ldmatrix`` otherwise, and a block walks several frames
+(``ws3_frames``). A plan
+whose three parts and stages pass ``MAX_SMEM_BYTES`` at every shape runs
+the fp32 kernel (``kernel_precision``).
 ``layout`` keeps in Python the arithmetic that places a block's staged
 window and a thread's register window; the tests check it on the CPU.
 
@@ -388,9 +393,8 @@ TC_SMEM_TARGET = 56 * 1024
 
 @dataclass(frozen=True)
 class TcLayout:
-    """How the tensor-core kernel tiles one plan (mirrors ``fused_tc_kernel``)."""
+    """How the bf16 tensor-core kernel tiles one plan (mirrors ``fused_tc_kernel``)."""
 
-    parts: int  # bfloat16 parts of the weights: 1 (bf16) or 3 (wsplit3)
     warps: int  # warps a block: SHAPES' threads / 32
     c: int  # anchor rows a block: TC_NT * 8 / g
     g: int  # phases a block
@@ -399,7 +403,7 @@ class TcLayout:
     kw: int
     kwk: int  # k-slots of a weight row: k_slots(kw)
     ws: int  # words of a weight row (a, e): >= kwk / 2, even
-    wn: int  # words of one part of a phase group's weights: >= kh * g * ws, a multiple of 4
+    wn: int  # words of a phase group's weights: >= kh * g * ws, a multiple of 4
     nr: int  # source rows of a block's window: qy*(c - 1) + kh
     nw: int  # words of a copy row that A reads: ceil((qx*(bj - 1) + kwk) / 2)
     cw: int  # words of a staged copy row: >= nw, 16 mod 32
@@ -429,22 +433,23 @@ def weight_stride(kwk: int, qy: int, g: int) -> int:
     return lo
 
 
+def copy_rows(qx: int, bj: int, kslots: int) -> tuple[int, int, int]:
+    """(nw, cw, swf) of a staged source row of a block ``bj`` anchors wide
+    whose A fragments read ``kslots`` taps from each anchor: the words of a
+    bf16 copy row that A reads, the words a copy row takes (16 mod 32, so
+    that copy 1 falls on the other half of the banks) and the floats of an
+    f32 landing row (2*nw + 1 floats from up to 3 past an aligned start)."""
+    nw = -(-(qx * (bj - 1) + kslots) // 2)
+    return nw, nw + (16 - nw) % 32, -(-(2 * nw + 4) // 4) * 4
+
+
 def tc_layout(
-    py: int,
-    px: int,
-    qy: int,
-    qx: int,
-    kh: int,
-    kw: int,
-    shape=DEFAULT_SHAPE,
-    g: int | None = None,
-    parts: int = 1,
+    py: int, px: int, qy: int, qx: int, kh: int, kw: int, shape=DEFAULT_SHAPE, g: int | None = None
 ) -> TcLayout:
-    """The tensor-core kernel's tiling of a plan with ``(Kh, Kw)`` kernels:
-    ``shape``'s threads in warps, ``g`` phases a block (default 4 where the
-    phases split so), ``parts`` bfloat16 parts of the weights (1: bf16, 3:
-    wsplit3). Shared memory: one phase group's weights (``parts`` planes of
-    ``wn`` words), then TC_LAND stages of ``ch`` f32 rows and the current
+    """The bf16 tensor-core kernel's tiling of a plan with ``(Kh, Kw)``
+    kernels: ``shape``'s threads in warps, ``g`` phases a block (default 4
+    where the phases split so). Shared memory: one phase group's weights
+    (``wn`` words), then TC_LAND stages of ``ch`` f32 rows and the current
     stage's ``ch`` bf16 rows (two copies of ``cw`` words), or the output
     tile where larger."""
     warps = shape[0] // 32
@@ -456,40 +461,243 @@ def tc_layout(
     ws = weight_stride(kwk, qy, g)
     wn = -(-(kh * g * ws) // 4) * 4
     nr = qy * (c - 1) + kh
-    def rows(bj: int) -> tuple[int, int, int, int]:
-        """(nw, cw, swf, words a row of a stage takes) of a block bj anchors wide."""
-        nw = -(-(qx * (bj - 1) + kwk) // 2)
-        cw = nw + (16 - nw) % 32
-        swf = -(-(2 * nw + 4) // 4) * 4  # 2*nw + 1 floats from up to 3 past an aligned start
-        return nw, cw, swf, TC_LAND * swf + 2 * cw
-
     bj = warps * TC_MW * 16
-    nw, cw, swf, row = rows(bj)
+    nw, cw, swf = copy_rows(qx, bj, kwk)
     # Stages as the default shape's, whatever the shape: the packed one-tap
     # tail sums 8 rows of a stage at its end, so every shape adds alike.
-    row_default = rows(DEFAULT_SHAPE[0] // 32 * TC_MW * 16)[3]
-    ch = max(1, min(-(-nr // 3), (TC_SMEM_TARGET // 4 - parts * wn) // row_default))
+    _, dcw, dswf = copy_rows(qx, DEFAULT_SHAPE[0] // 32 * TC_MW * 16, kwk)
+    ch = max(1, min(-(-nr // 3), (TC_SMEM_TARGET // 4 - wn) // (TC_LAND * dswf + 2 * dcw)))
     tile = c * g * (bj + bj // 32 + 1)
-    smem = 4 * (parts * wn + max(ch * row, tile))
+    smem = 4 * (wn + max(ch * (TC_LAND * swf + 2 * cw), tile))
     return TcLayout(
-        parts=parts, warps=warps, c=c, g=g, ngroups=nph // g, kh=kh, kw=kw, kwk=kwk, ws=ws,
-        wn=wn, nr=nr, nw=nw, cw=cw, ch=ch, swf=swf, smem_bytes=smem,
+        warps=warps, c=c, g=g, ngroups=nph // g, kh=kh, kw=kw, kwk=kwk, ws=ws, wn=wn, nr=nr,
+        nw=nw, cw=cw, ch=ch, swf=swf, smem_bytes=smem,
     )  # fmt: skip
 
 
 def tc_weights(K: np.ndarray, lay: TcLayout) -> np.ndarray:
-    """The tensor-core kernel's weights from bfloat16-exact kernels, (nph,
-    Kh, Kw) rounded ones or the (3, nph, Kh, Kw) parts of ``split_bf16x3``:
-    (ngroups, parts * 2 * wn) bfloat16 values as float32, part p of phase
-    group*g + e's row a at bf16 offset 2 * (p*wn + (a*g + e) * ws), zeros
-    beyond kw and in the padding."""
-    K = K.reshape((lay.parts,) + K.shape[-3:])
-    _, nph, kh, kw = K.shape
-    w = np.zeros((lay.parts, lay.ngroups, kh, lay.g, 2 * lay.ws), np.float32)
-    w[..., :kw] = K.reshape(lay.parts, lay.ngroups, lay.g, kh, kw).transpose(0, 1, 3, 2, 4)
-    out = np.zeros((lay.ngroups, lay.parts, 2 * lay.wn), np.float32)
-    out[..., : kh * lay.g * 2 * lay.ws] = w.reshape(lay.parts, lay.ngroups, -1).transpose(1, 0, 2)
-    return out.reshape(lay.ngroups, -1)
+    """The bf16 kernel's weights from bfloat16-exact kernels ``K`` (nph,
+    Kh, Kw): (ngroups, 2 * wn) bfloat16 values as float32, phase
+    group*g + e's row a at bf16 offset 2 * (a*g + e) * ws, zeros beyond kw
+    and in the padding."""
+    nph, kh, kw = K.shape
+    w = np.zeros((lay.ngroups, kh, lay.g, 2 * lay.ws), np.float32)
+    w[..., :kw] = K.reshape(lay.ngroups, lay.g, kh, kw).transpose(0, 2, 1, 3)
+    out = np.zeros((lay.ngroups, 2 * lay.wn), np.float32)
+    out[:, : kh * lay.g * 2 * lay.ws] = w.reshape(lay.ngroups, -1)
+    return out
+
+
+# The wsplit3 kernel (fused_ws3_kernel): SHAPES' warps of WS3_MW m-tiles
+# each; the window lands in WS3_LAND f32 stages and is rounded into a ring
+# of WS3_NS bf16 stages (two copies of each row) of ``ch`` rows: the first
+# of WS3_CH whose layout fits WS3_SMEM_TARGET (two blocks an SM), else the
+# first that fits at all (8 where the packed one-tap tail sums a stage's 8
+# rows; with fewer a plan runs its last tap as a k8 chunk). The 4-warp
+# shape of 4 phases a block pads the weight rows (``Ws3Layout.lp``) for
+# ``wgmma`` where that fits, preferred at each number of rows a stage. A
+# block walks ``ws3_frames`` frames, so that a launch has at least
+# WS3_MIN_BLOCKS blocks. csrc/fused_interior.cu kWs*.
+WS3_MW, WS3_NS, WS3_LAND = 2, 2, 2
+WS3_CH = (8, 4, 2, 1)
+WS3_PARTS = 3
+WS3_SMEM_TARGET = MAX_SMEM_BYTES // 2 - 1024
+WS3_MIN_BLOCKS = 2048
+
+
+@dataclass(frozen=True)
+class Ws3Layout:
+    """How the wsplit3 kernel tiles one plan (mirrors ``fused_ws3_kernel``).
+
+    The weights of a phase group are three parts (bfloat16, ``wn`` words
+    each) of ``rows`` weight rows of 16 bytes (8 taps) a chunk: weight row
+    ``R`` of chunk ``k`` at word ``4 * (k * rows + R)``, then, where one tap
+    is left past the k16 chunks (``last1``), a column of that tap, weight
+    row ``R`` at bfloat16 ``2 * nk8 * rows * 4 + R``. Row ``R(a, e)`` of
+    kernel row ``a`` and phase ``e`` (``weight_row``) puts the (anchor row,
+    phase) columns of an n-tile that read one staged row on consecutive
+    rows, so that a B fragment is one ``ldmatrix`` read of contiguous
+    bytes; the last row is zeros, the row of every column whose kernel row
+    falls outside ``[0, kh)``. With ``lp`` > 0, ``lp`` zero slots of kernel
+    rows pad each residue's rows on both sides, so that such a column of a
+    live n-tile (``live_tiles``: one of its ``cpt`` anchor rows reads the
+    row, so the others are at most ``cpt - 1`` slots from a kernel row)
+    reads a zero row at ``R0(s) + col`` too: every column of an n-tile reads
+    one stride from one address, the ``wgmma`` descriptor's core matrix
+    (8 rows of 16 bytes), and the kernel's 4-warp shape takes the B of a
+    warpgroup's products from there."""
+
+    warps: int  # warps a block: SHAPES' threads / 32
+    c: int  # anchor rows a block: 32 / g
+    g: int  # phases a block
+    ngroups: int  # phase groups: gridDim.z = frames * ngroups
+    kh: int
+    kw: int
+    nq16: int  # k16 chunks of a row: kw // 16, one more where 9 or more taps are left
+    k8: bool  # one k8 chunk past them (1 to 8 taps left; 1 where the tail is not packed)
+    last1: bool  # one tap past them: the packed tail (the last tap of 8 rows in one k8 mma)
+    nk8: int  # 8-tap chunks of a weight row: 2 * nq16 + k8
+    lq: int  # kernel rows of one residue mod qy: ceil(kh / qy)
+    lp: int  # zero kernel-row slots padding each residue: cpt - 1 (wgmma) or 0
+    rows: int  # weight rows of a chunk: (qy * (lq + lp) + lp) * g, then the zero row
+    wn: int  # words of one part: 4 * nk8 * rows, the last-tap column, a multiple of 4
+    nr: int  # source rows of a block's window: qy*(c - 1) + kh
+    ch: int  # rows a stage (WS3_CH)
+    nst: int  # stages of ch rows a frame
+    nw: int  # words of a copy row that A reads
+    cw: int  # words of a staged copy row: >= nw, 16 mod 32
+    swf: int  # floats of a landing row
+    smem_bytes: int
+
+    @property
+    def bj(self) -> int:
+        """Anchor columns of a block."""
+        return self.warps * WS3_MW * 16
+
+    @property
+    def cpt(self) -> int:
+        """Anchor rows of an n-tile."""
+        return 8 // self.g
+
+    @property
+    def wgmma(self) -> bool:
+        """The staged rows that reach all 4 n-tiles run their products as
+        ``wgmma`` m64n32k16, one warpgroup (4 warps) a block, B from the
+        padded weight rows; the others, and every row where this is False,
+        as ``mma.sync``, B from ``ldmatrix``."""
+        return self.warps == 4 and self.lp > 0
+
+
+def ws3_layout(
+    py: int,
+    px: int,
+    qy: int,
+    qx: int,
+    kh: int,
+    kw: int,
+    shape=DEFAULT_SHAPE,
+    g: int | None = None,
+    ch: int | None = None,
+    last1: bool | None = None,
+    pad: bool | None = None,
+) -> Ws3Layout:
+    """The wsplit3 kernel's tiling of a plan with ``(Kh, Kw)`` kernels:
+    ``shape``'s threads in warps, ``g`` phases a block (default 4
+    where the phases split so), stages of ``ch`` rows (default: see
+    WS3_CH). ``last1`` and ``pad`` fix the weights' layout where they are
+    given, as a launch at another shape than the build's must
+    (``FusedInterior.ws3``): the tail (the packed one-tap tail, which takes
+    stages of 8 rows, or a k8 chunk) and the zero rows for ``wgmma``
+    (``Ws3Layout.lp``). By default the 4-warp shape with 4 phases a block
+    pads where that fits (the first fitting layout, stages of the most rows
+    first, padded before unpadded), and a one-tap tail is packed where the
+    stages are 8 rows. Shared memory: one phase group's three weight
+    parts, two tables of the window rows (``nr + 1`` words each, to a
+    multiple of 4: each row's ``weight_row(s, 0)`` and its
+    ``live_tiles``), WS3_LAND stages of f32 landing rows, then WS3_NS
+    stages of bf16 rows (two copies of ``cw`` words)."""
+    n16, rem = divmod(kw, 16)
+    if last1 and rem != 1:
+        raise ValueError(f"ws3_layout: no one-tap tail at kw {kw}")
+    nph = py * px
+    if g is None:
+        g = 4 if nph % 4 == 0 else 1
+    if ch is None:
+        chs = (8,) if last1 else WS3_CH
+        wg = shape[0] == 128 and g == 4  # wgmma measured faster with 4 phases a block only
+        pads = (pad,) if pad is not None else (True, False) if wg else (False,)
+        lays = [ws3_layout(py, px, qy, qx, kh, kw, shape, g, c, last1, p)
+                for c in chs for p in pads]  # fmt: skip
+        for limit in (WS3_SMEM_TARGET, MAX_SMEM_BYTES):
+            for lay in lays:
+                if lay.smem_bytes <= limit:
+                    return lay
+        return lays[-1]
+    if last1 is None:
+        last1 = rem == 1 and ch == 8
+    elif last1 and ch != 8:
+        raise ValueError("ws3_layout: the packed one-tap tail takes stages of 8 rows")
+    warps = shape[0] // 32
+    c = TC_NT * 8 // g
+    nq16 = n16 + (rem > 8)
+    k8 = 1 <= rem <= 8 and not last1
+    nk8 = 2 * nq16 + k8
+    lq = -(-kh // qy)
+    lp = 8 // g - 1 if pad else 0  # an n-tile's other anchor rows: cpt - 1
+    rows = (qy * (lq + lp) + lp) * g + 1
+    wn = -(-(4 * nk8 * rows + (rows + 1) // 2 * last1) // 4) * 4
+    nr = qy * (c - 1) + kh
+    bj = warps * WS3_MW * 16
+    nw, cw, swf = copy_rows(qx, bj, 16 * nq16 + 8 * (k8 or last1))
+    smem = 4 * (WS3_PARTS * wn + 2 * ((nr + 4) // 4 * 4) + ch * (WS3_LAND * swf + WS3_NS * 2 * cw))
+    return Ws3Layout(
+        warps=warps, c=c, g=g, ngroups=nph // g, kh=kh, kw=kw, nq16=nq16, k8=k8, last1=last1,
+        nk8=nk8, lq=lq, lp=lp, rows=rows, wn=wn, nr=nr, ch=ch, nst=-(-nr // ch), nw=nw, cw=cw,
+        swf=swf, smem_bytes=smem,
+    )  # fmt: skip
+
+
+def ws3_frames(lay: Ws3Layout, nyb: int, nxb: int, frames: int) -> int:
+    """Frames a block of the wsplit3 kernel walks, one after another: as
+    many as leave a launch over ``frames`` frames WS3_MIN_BLOCKS blocks or
+    more (weights, tables and the ring's start paid once for them all)."""
+    per_frame = -(-nxb // lay.bj) * -(-nyb // lay.c) * lay.ngroups
+    return max(1, min(frames, frames * per_frame // WS3_MIN_BLOCKS))
+
+
+def weight_row(lay: Ws3Layout, qy: int, a, e):
+    """Weight row ``R`` of kernel row ``a`` (in ``[0, kh)``) and phase
+    ``e``: ``a`` by residue mod ``qy`` (``lq + lp`` slots a residue, after
+    ``lp`` zero slots), then descending ``a // qy``, phases innermost; so
+    ``R(s - qy*c, e) = R0(s) + c*g + e`` for staged row ``s`` and every
+    anchor row ``c`` whose kernel row ``s - qy*c`` lies in ``[0, kh)``,
+    where ``R0(s) = weight_row(s, 0)``; with ``lp = cpt - 1`` that row is
+    a zero row for the other anchor rows of a live n-tile."""
+    a = np.asarray(a)
+    lq, lp = lay.lq, lay.lp
+    return ((a % qy) * (lq + lp) + lp + lq - 1 - a // qy) * lay.g + np.asarray(e)
+
+
+def b_row(lay: Ws3Layout, qy: int, s, col):
+    """The weight row that column ``col`` (anchor row ``col // g``, phase
+    ``col % g``) of an n-tile reads for staged row ``s``: ``R0(s) + col``,
+    or the zero row where its kernel row is outside ``[0, kh)``."""
+    a = np.asarray(s) - qy * (np.asarray(col) // lay.g)
+    ok = (a >= 0) & (a < lay.kh)
+    return np.where(ok, weight_row(lay, qy, s, 0) + col, lay.rows - 1)
+
+
+def live_tiles(lay: Ws3Layout, qy: int, s: int) -> tuple[int, int] | None:
+    """(first, last) n-tile with an anchor row that reads staged row ``s``
+    (kernel row ``s - qy*c`` in ``[0, kh)``), or None: the kernel runs
+    those n-tiles alone on the row."""
+    cmin = 0 if s - lay.kh + 1 <= 0 else (s - lay.kh + qy) // qy
+    cmax = min(lay.c - 1, s // qy)
+    if cmin > cmax:
+        return None
+    return cmin // lay.cpt, cmax // lay.cpt
+
+
+def ws3_weights(parts: np.ndarray, lay: Ws3Layout, qy: int) -> np.ndarray:
+    """The wsplit3 kernel's weights from the (3, nph, Kh, Kw) parts of
+    ``split_bf16x3``: (ngroups, 3 * 2 * wn) bfloat16 values as float32, in
+    the layout of ``Ws3Layout`` (zeros beyond kw, past the kernel rows and
+    in the padding)."""
+    _, nph, kh, kw = parts.shape
+    w = np.zeros((lay.ngroups, WS3_PARTS, 2 * lay.wn), np.float32)
+    a, e = np.meshgrid(np.arange(kh), np.arange(lay.g), indexing="ij")
+    R = weight_row(lay, qy, a, e)  # (kh, g)
+    K = parts.reshape(WS3_PARTS, lay.ngroups, lay.g, kh, kw).transpose(1, 0, 3, 2, 4)
+    taps = 8 * lay.nk8
+    Kc = np.zeros(K.shape[:-1] + (taps,), np.float32)
+    n = min(kw, 16 * lay.nq16 + 8 * lay.k8)  # the taps the chunks hold (the last tap apart)
+    Kc[..., :n] = K[..., :n]
+    for k in range(lay.nk8):
+        idx = 8 * (k * lay.rows + R)[..., None] + np.arange(8)  # (kh, g, 8) bf16 offsets
+        w[:, :, idx] = Kc[..., 8 * k : 8 * k + 8]
+    if lay.last1:
+        w[:, :, 8 * lay.nk8 * lay.rows + R] = K[..., kw - 1]
+    return w.reshape(lay.ngroups, -1)
 
 
 def fit_shape(py: int, px: int, qy: int, qx: int, kh: int, kw: int):
@@ -537,15 +745,18 @@ class FusedInterior:
     nyb: int
     nxb: int
     fs: int
-    shape: tuple  # the kernel shape engines launch (fit_shape)
+    shape: tuple  # the kernel shape engines launch (fit_shape; wsplit3: ws3_shape)
     g: int  # phases a block (fit_shape; the layout of w)
     # the mode that runs (PRECISIONS): 'bf16' rounds w and kernels; 'bf16' and
     # 'wsplit3' launch the tensor-core kernel; 'wsplit3' keeps w and kernels
     # unrounded (its plain form is the fp32 mode's)
     precision: str
-    # the tensor-core modes only: (ngroups, parts * 2 * wn) bf16, tc_weights
-    # (the same for every shape)
+    # the tensor-core modes only (the same for every shape): bf16 (ngroups,
+    # 2 * wn) of tc_weights; wsplit3 (ngroups, 3 * 2 * wn) of ws3_weights
     wtc: torch.Tensor | None = None
+    # wsplit3: the build's layout (ws3_layout at ws3_shape); a launch at
+    # another shape keeps its weight layout (its tail and zero rows)
+    ws3: Ws3Layout | None = None
 
     @property
     def bf16(self) -> bool:
@@ -560,26 +771,38 @@ class FusedInterior:
     def out_shape(self) -> tuple[int, int]:
         return self.py * self.nyb, self.px * self.nxb
 
-    def layout(self, shape=None) -> Layout | TcLayout:
-        """The launch's layout: ``layout``, or ``tc_layout`` in the
-        tensor-core modes."""
+    def layout(self, shape=None) -> Layout | TcLayout | Ws3Layout:
+        """The launch's layout: ``layout``, ``tc_layout`` in the bf16 mode,
+        ``ws3_layout`` in the wsplit3 mode."""
         _, kh, kw = self.kernels.shape
         args = (self.py, self.px, self.qy, self.qx, kh, kw, shape or self.shape, self.g)
-        return tc_layout(*args, parts=self.parts) if self.parts else layout(*args)
+        if self.precision == "wsplit3":
+            return ws3_layout(*args, last1=self.ws3.last1, pad=self.ws3.lp > 0)
+        return {"fp32": layout, "bf16": tc_layout}[self.precision](*args)
+
+
+def ws3_shape(py: int, px: int, qy: int, qx: int, kh: int, kw: int, g: int):
+    """The first of ``SHAPES`` whose wsplit3 layout with ``g`` phases a
+    block fits the shared memory (the narrow one stages rows a quarter as
+    long), or None."""
+    for shape in SHAPES:
+        if ws3_layout(py, px, qy, qx, kh, kw, shape, g).smem_bytes <= MAX_SMEM_BYTES:
+            return shape
+    return None
 
 
 def kernel_precision(op: PlaneOperator, plan: PhasePlan, precision: str) -> str:
     """The mode ``make_fused_interior`` builds for ``precision`` on ``plan``:
-    ``'wsplit3'`` only where its three weight planes and stages fit
-    ``MAX_SMEM_BYTES`` at the plan's shape, else the exact ``'fp32'``
-    kernel (an envelope decision taken at the build, as the JAX package's
-    envelopes are; nothing falls back at run time)."""
+    ``'wsplit3'`` only where its three weight parts and stages fit
+    ``MAX_SMEM_BYTES`` at some shape (``ws3_shape``), else the exact
+    ``'fp32'`` kernel (an envelope decision taken at the build, as the JAX
+    package's envelopes are; nothing falls back at run time)."""
     if precision != "wsplit3":
         return precision
     lay = plan_layout(op, plan)
     geo = (plan.y.p, plan.x.p, plan.y.q, plan.x.q, lay.kh, lay.kw)
     fit = fit_shape(*geo)
-    if fit is not None and tc_layout(*geo, *fit, parts=3).smem_bytes > MAX_SMEM_BYTES:
+    if fit is not None and ws3_shape(*geo, fit[1]) is None:
         return "fp32"
     return precision
 
@@ -611,16 +834,21 @@ def make_fused_interior(
     lay = layout(*geo, shape, g)
     w = np.zeros((lay.ngroups, g, kh, lay.kwp), dtype=np.float32)
     w[..., :kw] = K.reshape(lay.ngroups, g, kh, kw)
-    wtc = None
+    wtc = ws3 = None
+    if precision == "wsplit3":
+        shape = ws3_shape(*geo, g)
     if precision in TC_PARTS:
-        tl = tc_layout(*geo, shape, g, parts=TC_PARTS[precision])
+        tl = (tc_layout if precision == "bf16" else ws3_layout)(*geo, shape, g)
         if tl.smem_bytes > MAX_SMEM_BYTES:
             raise ValueError("make_fused_interior: plan outside the tensor-core kernel's envelope")
-        parts = K
-        if precision == "wsplit3":
+        if precision == "bf16":
+            wtc = tc_weights(K, tl)
+        else:
             parts = split_bf16x3(K)
             check_split(K, parts)
-        wtc = torch.from_numpy(tc_weights(parts, tl)).to(torch.bfloat16).to(device)
+            wtc = ws3_weights(parts, tl, plan.y.q)
+            ws3 = tl
+        wtc = torch.from_numpy(wtc).to(torch.bfloat16).to(device)
     return FusedInterior(
         w=torch.from_numpy(np.ascontiguousarray(w.transpose(0, 2, 3, 1))).to(device),
         kernels=torch.from_numpy(K).to(device),
@@ -637,6 +865,7 @@ def make_fused_interior(
         g=g,
         precision=precision,
         wtc=wtc,
+        ws3=ws3,
     )
 
 
@@ -688,7 +917,9 @@ def fused_interior(fi: FusedInterior, src_f: torch.Tensor, shape=None) -> torch.
     and wsplit3 modes launch its tensor-core kernel) or raises; it never
     falls back. ``shape`` is the kernel's (threads, R, C*G), one of
     ``SHAPES`` (default ``fi.shape``); every shape gives the same result
-    (the tensor-core kernel takes its threads).
+    (the tensor-core kernels take its threads as warps; wsplit3 stages its
+    rows to the weights' layout, ``FusedInterior.ws3``) or raises where
+    its layout does not fit.
     """
     shape = tuple(shape or fi.shape)
     if shape not in SHAPES:
@@ -704,6 +935,8 @@ def fused_interior(fi: FusedInterior, src_f: torch.Tensor, shape=None) -> torch.
     lay = fi.layout(shape)
     if lay.smem_bytes > MAX_SMEM_BYTES:
         raise ValueError(f"fused_interior: shape {shape} needs {lay.smem_bytes} B of shared memory")
+    if fi.parts == WS3_PARTS and fi.wtc.shape[-1] != WS3_PARTS * 2 * lay.wn:
+        raise ValueError(f"fused_interior: shape {shape}'s weight layout is not the build's")
     F, H, W = src_f.shape
     hout, wout = fi.out_shape
     out = torch.empty((F, hout, wout), dtype=torch.float32, device=src_f.device)
@@ -713,12 +946,19 @@ def fused_interior(fi: FusedInterior, src_f: torch.Tensor, shape=None) -> torch.
         raise ValueError("fused_interior: grid too large (frames x phase groups or anchor rows)")
     geo = (F, H, W, fi.py, fi.px, fi.qy, fi.qx, fi.base_y, fi.base_x, fi.nyb, fi.nxb)
     with torch.cuda.device(src_f.device):
-        if fi.parts:
-            entry = "jt_fused_interior_bf16" if fi.bf16 else "jt_fused_interior_wsplit3"
-            rc = getattr(_build.library(), entry)(
+        if fi.bf16:
+            rc = _build.library().jt_fused_interior_bf16(
                 src_f.data_ptr(), fi.wtc.data_ptr(), out.data_ptr(), *geo,
                 lay.kh, lay.kw, lay.kwk, lay.g, lay.ngroups, lay.ws, lay.wn, lay.cw, lay.ch,
                 lay.swf, lay.warps, _build.stream_of(src_f),
+            )  # fmt: skip
+        elif fi.parts:
+            rc = _build.library().jt_fused_interior_wsplit3(
+                src_f.data_ptr(), fi.wtc.data_ptr(), out.data_ptr(), *geo,
+                lay.kh, lay.kw, lay.g, lay.ngroups, lay.nq16, int(lay.k8), int(lay.last1),
+                lay.lq, lay.lp, lay.rows, lay.wn, lay.cw, lay.swf, lay.ch,
+                ws3_frames(lay, fi.nyb, fi.nxb, F), lay.warps,
+                _build.stream_of(src_f),
             )  # fmt: skip
         else:
             rc = _build.library().jt_fused_interior(

@@ -85,17 +85,16 @@ first) within ``fused.tc_sum_bound``, not bit for bit.
 ``precision='wsplit3'`` is the Pallas kernel's ``wsplit3_vmem`` mode
 (``pallas_fused_seg.py:371-389``), the mode u8 planes take
 (``apply_conv_seg.KERNEL_PRECISION['fp32_u8src']``): the same tensor-core
-kernel, its pair blocks staged in fp32 (``tc_blocks`` float32, tap rows
-padded to ``k_slots(fs)``), each B fragment split at its load into three
-bfloat16 parts, ``w == hi + mid + lo`` (``fused.split_bf16x3``'s split, in
-registers), and three mmas an A fragment. Three bfloat16 copies of the
-blocks would take 1.5 times their fp32 room (232 KB at fs 44, past the
-227 KB a block may use), as the Pallas kernel's stacked ``wsplit3`` lost
-on weight traffic. Products of u8 values and bfloat16 parts are exact, so
-the kernel is held to ``seg_interior_plain`` in the fp32 mode within
-``fused.wsplit3_bound``. The fp32 blocks take twice the bf16 mode's room,
-so fewer frames fit beside them (``tc_frames``); a plan whose blocks and
-one frame's window do not fit runs the fp32 kernel
+kernel on the fp32 mode's own blocks (``blocks``, tap rows of
+``fsp_of(fs)`` floats; ``tc_blocks`` is None), each B fragment split at
+its load into three bfloat16 parts, ``w == hi + mid + lo``
+(``fused.split_bf16x3``'s split, in registers), and three mmas an A
+fragment. Rows of ``fsp`` floats rather than the k-slots' leave room for
+two frames a block at 1440p -> 1080p tap 16 (fs 44; ``tc_words``,
+``frames_of``), so that a class's ~8 columns fill an m-tile. Products of
+u8 values and bfloat16 parts are exact, so the kernel is held to
+``seg_interior_plain`` in the fp32 mode within ``fused.wsplit3_bound``. A
+plan whose blocks and one frame's window do not fit runs the fp32 kernel
 (``kernel_precision``).
 
 Weights and state: the operator and the plan are the port's copies of the
@@ -174,14 +173,14 @@ def tile_columns(tc: TileClasses, tile: int) -> tuple[np.ndarray, np.ndarray]:
 
 def tc_words(fs: int, win_h: int, win_w: int, f32_blocks: bool = False) -> tuple[int, int, int]:
     """(bs, cw, plane) of the tensor-core kernel, in 4-byte words: a staged
-    pair block (``fs`` tap rows of ``k_slots(fs)`` bf16, or float32 with
-    ``f32_blocks``, the wsplit3 mode's, a multiple of 4 words),
-    a copy row of the staged source (the widest window's columns and its
-    last k-slot, two bf16 a word) and a staged frame (the tallest window's
-    rows of two copy rows, 16 mod 32, so that adjacent frames' words fall
-    on the other half of the banks)."""
+    pair block (``fs`` tap rows of ``k_slots(fs)`` bf16, a multiple of 4
+    words; with ``f32_blocks``, the wsplit3 mode's, the fp32 mode's rows of
+    ``fsp_of(fs)`` floats), a copy row of the staged source (the widest
+    window's columns and its last k-slot, two bf16 a word) and a staged
+    frame (the tallest window's rows of two copy rows, 16 mod 32, so that
+    adjacent frames' words fall on the other half of the banks)."""
     fsk = k_slots(fs)
-    bs = -(-(fs * fsk // (1 if f32_blocks else 2)) // 4) * 4
+    bs = fs * fsp_of(fs) if f32_blocks else -(-(fs * fsk // 2) // 4) * 4
     cw = -(-(win_w - fs + fsk + 1) // 2)
     cw += cw & 1
     plane = win_h * 2 * cw
@@ -262,7 +261,7 @@ class SegInterior:
     # unrounded (its plain form is the fp32 mode's)
     precision: str
     # the tensor-core modes only (None otherwise): the tensor-core kernel's tables
-    # (n_uy, n_ux, fs, k_slots(fs)): bf16 in the bf16 mode, float32 in wsplit3
+    # (n_uy, n_ux, fs, k_slots(fs)) bf16 in the bf16 mode (wsplit3 reads blocks)
     tc_blocks: torch.Tensor | None = None
     pcx: torch.Tensor | None = None  # (column tiles, TILE_X) int32, tile_columns
     scx: torch.Tensor | None = None  # (column tiles, kx + 1) int32
@@ -362,17 +361,14 @@ def make_seg_interior(
         fits = _tc_frames(op, L, precision == "wsplit3")
         if not fits:
             raise ValueError("make_seg_interior: plan outside the tensor-core kernel's envelope")
-        n_uy, n_ux = pair_blocks.shape[:2]
-        padded = np.zeros((n_uy, n_ux, fs, k_slots(fs)), np.float32)
-        padded[..., :fs] = pair_blocks
+        tc_blocks = None
+        if precision == "bf16":
+            n_uy, n_ux = pair_blocks.shape[:2]
+            padded = np.zeros((n_uy, n_ux, fs, k_slots(fs)), np.float32)
+            padded[..., :fs] = pair_blocks
+            tc_blocks = torch.from_numpy(padded).to(torch.bfloat16).to(device)
         pcx, scx = tile_columns(tx, TILE_X)
-        blocks_t = torch.from_numpy(padded)
-        tc = dict(
-            tc_blocks=(blocks_t.to(torch.bfloat16) if precision == "bf16" else blocks_t).to(device),
-            pcx=t(pcx),
-            scx=t(scx),
-            tc_frames=max(fits),
-        )
+        tc = dict(tc_blocks=tc_blocks, pcx=t(pcx), scx=t(scx), tc_frames=max(fits))
     blocks = padded_blocks(pair_blocks, device)
     return SegInterior(
         blocks=blocks,
@@ -460,15 +456,22 @@ def seg_interior(si: SegInterior, src_f: torch.Tensor) -> torch.Tensor:
         if si.precision in TC_PARTS:
             bs, cw, plane = tc_words(si.fs, si.win_h, si.win_w, not si.bf16)
             nf = frames_of(si, F)
-            entry = "jt_seg_interior_bf16" if si.bf16 else "jt_seg_interior_wsplit3"
-            rc = getattr(_build.library(), entry)(
-                src_f.data_ptr(), si.tc_blocks.data_ptr(), si.start_y.data_ptr(),
-                si.start_x.data_ptr(), si.lcy.data_ptr(), si.tcy.data_ptr(), si.tcx.data_ptr(),
-                si.ncy.data_ptr(), si.ncx.data_ptr(), si.pcx.data_ptr(), si.scx.data_ptr(),
-                out.data_ptr(), F, H, W, hout, wout, si.blocks.shape[1], si.fs,
-                si.tc_blocks.shape[3], si.tcy.shape[1], si.tcx.shape[1], si.pairs, bs,
-                tc_table_words(nf), cw, plane, nf, _build.stream_of(src_f),
+            tables = (
+                si.start_y.data_ptr(), si.start_x.data_ptr(), si.lcy.data_ptr(),
+                si.tcy.data_ptr(), si.tcx.data_ptr(), si.ncy.data_ptr(), si.ncx.data_ptr(),
+                si.pcx.data_ptr(), si.scx.data_ptr(), out.data_ptr(), F, H, W, hout, wout,
+                si.blocks.shape[1], si.fs, k_slots(si.fs),
             )  # fmt: skip
+            tail = (si.tcy.shape[1], si.tcx.shape[1], si.pairs, bs, tc_table_words(nf), cw, plane,
+                    nf, _build.stream_of(src_f))  # fmt: skip
+            if si.bf16:
+                rc = _build.library().jt_seg_interior_bf16(
+                    src_f.data_ptr(), si.tc_blocks.data_ptr(), *tables, *tail
+                )
+            else:
+                rc = _build.library().jt_seg_interior_wsplit3(
+                    src_f.data_ptr(), si.blocks.data_ptr(), *tables, si.blocks.shape[3], *tail
+                )
         else:
             rc = _build.library().jt_seg_interior(
                 src_f.data_ptr(), si.blocks.data_ptr(), si.start_y.data_ptr(),

@@ -12,10 +12,11 @@ column grouping and window words (``seg.tile_columns``, ``seg.tc_words``):
 shared memory word by word (unstaged words are NaN, so a read of one
 poisons the output), every fragment lane by lane, every mma as one fp32
 product of its 16 x k and k x 8 matrices added to its accumulator. The
-emulations take the three-part weight split of ``precision='wsplit3'``
-too (``tests/test_torch_u8src.py`` holds them to the JAX package's
-``wsplit3`` kernels): the fused kernel's three planes of weight rows, the
-seg kernel's float32 blocks split at each B load.
+seg emulation takes the three-part weight split of ``precision='wsplit3'``
+too (the fp32 mode's float32 blocks split at each B load);
+``tests/test_torch_u8src.py`` holds it, and the wsplit3 fused kernel's own
+emulation (``tests/test_torch_wsplit3_tc.py``), to the JAX package's
+``wsplit3`` kernels.
 
 The oracle is ``tests/test_torch_bf16.py``'s: the JAX package's Pallas
 kernels in interpret mode at HIGHEST on the same bfloat16-rounded operands.
@@ -144,9 +145,8 @@ def _lo(words):
 
 def _fused_block(fi, lay, plane, wsm, by, bx):
     """One block of ``fused_tc_kernel`` on one frame's ``plane`` (H, W) with
-    its phase group's weight words ``wsm`` (``lay.parts`` planes of
-    ``lay.wn`` words): its accumulators (warps, 2 m-tiles, 4 n-tiles, 32
-    lanes, 4)."""
+    its phase group's ``lay.wn`` weight words ``wsm``: its accumulators
+    (warps, 2 m-tiles, 4 n-tiles, 32 lanes, 4)."""
     H, W = plane.shape
     qy, qx, G = fi.qy, fi.qx, lay.g
     g, tq = G_ID, T_ID
@@ -198,29 +198,27 @@ def _fused_block(fi, lay, plane, wsm, by, bx):
                 o = 8 * q + 2 * tq
                 # a0 a1 a2 a3: words o of rows g, g + 8, then words o + 1.
                 af = ring[rb + aoff[:, :, [0, 1, 0, 1]] + o + np.array([0, 0, 1, 1])[:, None]]
-                for p in range(lay.parts):  # each part's B: words o, o + 1 of its plane
-                    bw = wsm[p * lay.wn + bp[..., None] + o[:, None] + np.arange(2)]
-                    bf = np.where(bok[..., None, None], bw, 0)
-                    for w, n, mw in np.ndindex(lay.warps, 4, 2):
-                        _mma(acc[w, mw, n], af[w, mw].swapaxes(0, 1), bf[n], 16)
+                bw = wsm[bp[..., None] + o[:, None] + np.arange(2)]  # B: words o, o + 1
+                bf = np.where(bok[..., None, None], bw, 0)
+                for w, n, mw in np.ndindex(lay.warps, 4, 2):
+                    _mma(acc[w, mw, n], af[w, mw].swapaxes(0, 1), bf[n], 16)
             if tail8 and not last1:
                 o = 8 * n16 + tq
                 af = ring[rb + aoff + o]
-                for p in range(lay.parts):
-                    bf = np.where(bok[..., None], wsm[p * lay.wn + bp + o], 0)
-                    for w, n, mw in np.ndindex(lay.warps, 4, 2):
-                        _mma(acc[w, mw, n], af[w, mw].swapaxes(0, 1), bf[n][:, None], 8)
+                bf = np.where(bok[..., None], wsm[bp + o], 0)
+                for w, n, mw in np.ndindex(lay.warps, 4, 2):
+                    _mma(acc[w, mw, n], af[w, mw].swapaxes(0, 1), bf[n][:, None], 8)
         for r0 in range(k * lay.ch, s1 if last1 else 0, 8):
             # The last tap of 8 stage rows in one k8 mma, k = row r0 + k.
             o = 8 * n16
             r = r0 + 2 * tq[:, None] + np.arange(2)  # (lane, half)
             rb = (np.minimum(r, s1 - 1) - k * lay.ch) * rw
             af = np.where(r < s1, _lo(ring[rb + aoff[..., None] + o]), 0)  # (w, mw, h, lane, half)
-            for p, n in np.ndindex(lay.parts, 4):
+            for n in range(4):
                 col = 8 * n + g
                 ar = r - qy * (col // G)[:, None]
                 ok = (ar >= 0) & (ar < lay.kh)
-                idx = p * lay.wn + (np.where(ok, ar, 0) * G + (col % G)[:, None]) * lay.ws + o
+                idx = (np.where(ok, ar, 0) * G + (col % G)[:, None]) * lay.ws + o
                 b = np.where(ok, _lo(wsm[idx]), 0)
                 for w, mw in np.ndindex(lay.warps, 2):
                     _mma(acc[w, mw, n], af[w, mw].swapaxes(0, 1), b[:, None], 8)
@@ -229,11 +227,11 @@ def _fused_block(fi, lay, plane, wsm, by, bx):
 
 def emulate_fused(fi, src16, shape):
     """``fused_tc_kernel`` on ``src16`` (F, H, W), rounded (bf16-exact), in
-    NumPy, in ``fi``'s mode (bf16, or wsplit3's three weight planes)."""
+    NumPy (the bf16 mode)."""
     lay = fi.layout(shape)
     F = src16.shape[0]
     py, px, G = fi.py, fi.px, lay.g
-    wwords = fi.wtc.float().numpy().reshape(lay.ngroups, lay.parts * lay.wn, 2)
+    wwords = fi.wtc.float().numpy().reshape(lay.ngroups, lay.wn, 2)
     out = np.full((F, py * fi.nyb, px * fi.nxb), np.nan, np.float32)
     # Fragment d_i of lane (g, t): anchor g + 8*(i >> 1), column 2t + (i & 1).
     i = np.arange(4)
@@ -259,7 +257,7 @@ def emulate_fused(fi, src16, shape):
 
 def _split3(v):
     """The three bfloat16 parts of float32 ``v`` (3, ...), as the wsplit3
-    seg kernel splits a B value at its load (csrc/common.cuh
+    seg kernel splits its float32 B values (csrc/common.cuh
     jt_split3_pack): hi, mid, then the rest, each stored as bfloat16."""
     v = np.asarray(v, np.float32)
     hi = _r16(v)
@@ -269,16 +267,16 @@ def _split3(v):
 
 
 def _seg_tile(si, src16, nf, tyi, txi, f0, tc):
-    """One block of ``seg_tc_kernel``: ``(tile x0, y0, [(frames, rows,
-    columns, sums)])``, one entry an item and half-tile of slots. With
-    ``tc['split']`` (wsplit3) the pair blocks are staged in float32 (``wf``)
-    and each B value is split into three parts at its load, three mmas an
-    A fragment."""
+    """One block of ``seg_tc_kernel``: ``[(frames, rows, columns, sums)]``,
+    one entry an item and half-tile of slots. With ``tc['split']``
+    (wsplit3) the fp32 mode's blocks are staged in float32 (``wf``, rows of
+    ``fsp`` floats) and each B value is split into three parts at its
+    load, three mmas an A fragment."""
     F, H, W = src16.shape
     hout, wout = si.out_shape
-    fs, fsk, split = si.fs, tc["fsk"], tc["split"]
+    fs, fsk, fsp, split = si.fs, tc["fsk"], tc["fsp"], tc["split"]
     bs, cw, plane = seg.tc_words(fs, si.win_h, si.win_w, split)
-    hw = fsk if split else fsk // 2  # words of a staged tap row
+    hw = fsp if split else fsk // 2  # words of a staged tap row
     g, tq = G_ID, T_ID
     n16, tail8, last1 = fsk // 16, fsk % 16 != 0, fs % 16 == 1
     sy, sx, lcy = tc["sy"], tc["sx"], tc["lcy"]
@@ -291,7 +289,7 @@ def _seg_tile(si, src16, nf, tyi, txi, f0, tc):
     for p in range(ncy * ncx):
         cy, cx = tc["tcy"][tyi, p // ncx], tc["tcx"][txi, p % ncx]
         if split:
-            wf[p * bs : p * bs + fs * fsk] = tc["blocks"][cy, cx].ravel()
+            wf[p * bs : p * bs + fs * fsp] = tc["f32"][cy, cx].ravel()
         else:
             smem[p * bs : p * bs + fs * fsk // 2] = tc["bwords"][cy, cx]
     cols, rows = sx[x0 : x0 + seg.TILE_X], sy[y0 : y0 + seg.TILE_Y]
@@ -304,6 +302,17 @@ def _seg_tile(si, src16, nf, tyi, txi, f0, tc):
         d = win + e * plane + r * 2 * cw
         smem[d : d + nw] = v[:, :2]
         smem[d + cw : d + cw + nw] = v[:, 1:]
+
+    def b_regs(br, bok, o, n):
+        """The B registers of ``n`` taps (4: a k16 chunk's b0 | b1, 2: a k8
+        chunk's b0) at word ``o`` of each lane's tap row ``br``, one (32,
+        n // 2, 2) array a part."""
+        if split:  # the f32 taps at word 2o (none past the row), split
+            ok = bok[:, None] & (2 * o < fsp)
+            v = np.where(ok, wf[np.where(ok, br[:, None] + 2 * o + np.arange(n), 0)], 0)
+            return list(_split3(v).reshape(3, 32, n // 2, 2))
+        return [np.where(bok[:, None, None], smem[br[:, None] + o + np.arange(n // 2)], 0)]
+
     starts = tc["scx"][txi]
     counts = np.diff(starts)[:ncx]
     mtc = (counts * nfv + 15) // 16
@@ -332,21 +341,11 @@ def _seg_tile(si, src16, nf, tyi, txi, f0, tc):
             for q in range(n16):
                 o = (8 * q + 2 * tq)[:, None]
                 a = smem[np.concatenate([ar + o, ar + o + 1], 1)]  # a0 a1 a2 a3
-                if split:  # the lane's 4 taps at word 2o, split: (3, lane, 2 regs, 2)
-                    v = np.where(bok[:, None], wf[br[:, None] + 2 * o + np.arange(4)], 0)
-                    bparts = _split3(v).reshape(3, 32, 2, 2)
-                else:
-                    bparts = [np.where(bok[:, None, None], smem[br[:, None] + o + np.arange(2)], 0)]
-                for b in bparts:
+                for b in b_regs(br, bok, o, 4):
                     _mma(acc[q & 1], a, b, 16)
             if tail8 and not last1:
                 o = (8 * n16 + tq)[:, None]
-                if split:
-                    v = np.where(bok[:, None], wf[br[:, None] + 2 * o + np.arange(2)], 0)
-                    bparts = _split3(v)[:, :, None]
-                else:
-                    bparts = [np.where(bok[:, None], smem[br + o[:, 0]], 0)[:, None]]
-                for b in bparts:
+                for b in b_regs(br, bok, o, 2):
                     _mma(acc[n16 & 1], smem[ar + o], b, 8)
         for r0 in range(s_lo, s_hi if last1 else 0, 8):
             # The last tap of 8 rows in one k8 mma, k = row r0 + k.
@@ -356,11 +355,11 @@ def _seg_tile(si, src16, nf, tyi, txi, f0, tc):
             a = np.where(r[:, None] < s_hi, _lo(smem[aoff[..., None] + rc[:, None] + o]), 0)
             ly = r - syr[:, None]
             ok = (ly >= 0) & (ly < fs)
+            at = boff[:, None] + np.where(ok, ly, 0) * hw
             if split:  # the tap's float32 at word 2o of its row, split
-                v = np.where(ok, wf[boff[:, None] + np.where(ok, ly, 0) * hw + 2 * o], 0)
-                bparts = _split3(v)
+                bparts = _split3(np.where(ok, wf[at + 2 * o], 0))
             else:
-                bparts = [np.where(ok, _lo(smem[boff[:, None] + np.where(ok, ly, 0) * hw + o]), 0)]
+                bparts = [np.where(ok, _lo(smem[at + o]), 0)]
             for b in bparts:
                 _mma(acc[1], a, b[:, None], 8)
         d = acc[0] + acc[1]  # d0, d1: slot g, rows 2t, 2t + 1; d2, d3: slot g + 8
@@ -373,19 +372,23 @@ def _seg_tile(si, src16, nf, tyi, txi, f0, tc):
 
 def emulate_seg(si, src16, nf):
     """``seg_tc_kernel`` at ``nf`` frames a block on ``src16`` (F, H, W),
-    rounded (bf16-exact), in ``si``'s mode (bf16, or wsplit3's split of
-    float32 blocks)."""
-    blocks = si.tc_blocks.float().numpy()
-    n_uy, n_ux, fs, fsk = blocks.shape
+    rounded (bf16-exact), in NumPy, in ``si``'s mode (bf16, or wsplit3's
+    split of the float32 blocks)."""
+    fsp = si.blocks.shape[3]
+    fsk = fused.k_slots(si.fs)
     tc = {
         "fsk": fsk,
+        "fsp": fsp,
         "split": not si.bf16,
-        "blocks": blocks,
-        "bwords": blocks.reshape(n_uy, n_ux, fs * fsk // 2, 2),
+        "f32": si.blocks.numpy(),
         **{k: getattr(si, n).numpy() for k, n in (
             ("sy", "start_y"), ("sx", "start_x"), ("lcy", "lcy"), ("tcy", "tcy"), ("tcx", "tcx"),
             ("ncy", "ncy"), ("ncx", "ncx"), ("pcx", "pcx"), ("scx", "scx"))},
     }  # fmt: skip
+    if si.bf16:
+        blocks = si.tc_blocks.float().numpy()
+        n_uy, n_ux, fs, _ = blocks.shape
+        tc["bwords"] = blocks.reshape(n_uy, n_ux, fs * fsk // 2, 2)
     hout, wout = si.out_shape
     out = np.full((src16.shape[0], hout, wout), np.nan, np.float32)
     for tyi, txi, fz in np.ndindex(-(-hout // seg.TILE_Y), -(-wout // seg.TILE_X),

@@ -15,8 +15,9 @@ This module holds
   bit, on random weights (values whose first part rounds up, negative
   values, tiny values near 2**-126) run through the JAX package's own
   kernel build, and on the kernels of the test plans;
-* both tensor-core kernels, emulated in NumPy in their three-part forms
-  (``tests/test_torch_bf16_tc.py``'s emulations), on u8-integer sources
+* both wsplit3 kernels, emulated in NumPy (the fused one in
+  ``tests/test_torch_wsplit3_tc.py``, the seg one in
+  ``tests/test_torch_bf16_tc.py``), on u8-integer sources
   against the JAX Pallas kernels in interpret mode and against the port's
   fp32 plain forms, within ``fused.wsplit3_bound``: every product is exact
   on every side, and each side's fp32 sums are within ``tc_sum_bound(3n)``
@@ -51,7 +52,8 @@ from jincresize_tpu_torch.kernels import fused, seg
 from jincresize_tpu_torch.operator import build_plane_operator, radius_for_tap
 from jincresize_tpu_torch.phase import plan_phases, plan_phases_seg
 
-from test_torch_bf16_tc import emulate_fused, emulate_seg
+from test_torch_bf16_tc import emulate_seg
+from test_torch_wsplit3_tc import emulate_fused_ws3
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -172,10 +174,10 @@ def test_split_is_exact_and_equals_the_jax_split():
 
 @pytest.mark.parametrize("name", list(FUSED_GEOMS))
 def test_kernel_weight_planes_hold_the_jax_split(name):
-    """``make_fused_interior(..., 'wsplit3')``: ``wtc`` holds three planes
-    of weight rows, laid out as the bf16 mode's, whose values sum to the
-    unrounded kernels bit for bit and are the JAX package's split of them;
-    ``kernels`` and ``w`` stay unrounded (the plain form is the fp32
+    """``make_fused_interior(..., 'wsplit3')``: ``wtc`` holds three parts of
+    weight rows (``ws3_weights``), whose values sum to the unrounded
+    kernels' weight rows bit for bit and are the JAX package's split of
+    them; ``kernels`` and ``w`` stay unrounded (the plain form is the fp32
     mode's)."""
     op = _op(FUSED_GEOMS[name])
     plan = plan_phases(op)
@@ -184,15 +186,14 @@ def test_kernel_weight_planes_hold_the_jax_split(name):
     assert fi.precision == "wsplit3" and fi.parts == 3 and not fi.bf16
     assert torch.equal(fi.kernels, f32.kernels) and torch.equal(fi.w, f32.w)
     lay = fi.layout()
-    assert lay.parts == 3 and fi.wtc.dtype == torch.bfloat16
+    assert isinstance(lay, fused.Ws3Layout) and fi.wtc.dtype == torch.bfloat16
     w = fi.wtc.float().numpy().reshape(lay.ngroups, 3, 2 * lay.wn)
     K = f32.kernels.numpy()
     want = fused.split_bf16x3(K)
     fused.check_split(K, want)
-    one = fused.tc_layout(fi.py, fi.px, fi.qy, fi.qx, *K.shape[1:], fi.shape, fi.g)
-    for p in range(3):
-        assert np.array_equal(w[:, p], fused.tc_weights(want[p], one))
-    assert np.array_equal((w[:, 0] + w[:, 1]) + w[:, 2], fused.tc_weights(K, one))
+    assert np.array_equal(w.reshape(lay.ngroups, -1), fused.ws3_weights(want, lay, fi.qy))
+    whole = fused.ws3_weights(np.stack([K, 0 * K, 0 * K]), lay, fi.qy).reshape(w.shape)
+    assert np.array_equal((w[:, 0] + w[:, 1]) + w[:, 2], whole[:, 0])
     # The JAX build's weights of the same plane: the same values, the same parts.
     jw, jparts = _jax_split(FUSED_GEOMS[name])
     assert np.isin(_bits(K[K != 0]), _bits(jw)).all()
@@ -246,7 +247,7 @@ def test_fused_wsplit3_emulation_matches_pallas(name, shape, oracles):
     src, want = oracles["fused", name]
     op = _op(FUSED_GEOMS[name])
     fi = fused.make_fused_interior(op, plan_phases(op), precision="wsplit3")
-    got = emulate_fused(fi, src, shape)
+    got = emulate_fused_ws3(fi, src, shape)
     nph, kh, kw = fi.kernels.shape
     bound = _bound(kh * kw, fi.kernels.numpy(), src)
     plain = fused.fused_interior_plain(fi, torch.from_numpy(src)).numpy()
@@ -258,15 +259,15 @@ def test_fused_wsplit3_emulation_matches_pallas(name, shape, oracles):
 
 @pytest.mark.parametrize("name", list(SEG_GEOMS))
 def test_seg_wsplit3_emulation_matches_pallas(name, oracles):
-    """The seg kernel's three-pass decomposition (float32 blocks split at
-    each B load), emulated on a u8 source at the frames a block the
-    wrapper picks, within ``wsplit3_bound`` (n = fs**2) of the JAX
-    ``wsplit3_vmem`` Pallas kernel and of the port's plain form, every
-    pixel written."""
+    """The seg kernel's three-pass decomposition (the fp32 mode's float32
+    blocks, at their fsp-float rows, split at each B load), emulated on a
+    u8 source at the frames a block the wrapper picks, within
+    ``wsplit3_bound`` (n = fs**2) of the JAX ``wsplit3_vmem`` Pallas kernel
+    and of the port's plain form, every pixel written."""
     src, want = oracles["seg", name]
     op = _op(SEG_GEOMS[name][0])
     si = seg.make_seg_interior(op, plan_phases_seg(op), precision="wsplit3")
-    assert si.precision == "wsplit3" and si.tc_blocks.dtype == torch.float32
+    assert si.precision == "wsplit3" and si.tc_blocks is None
     nf = seg.frames_of(si, src.shape[0])
     assert nf == src.shape[0]
     got = emulate_seg(si, src, nf)
@@ -369,23 +370,33 @@ def test_sharded_applier_maps_u8_planes(geo, interior):
 
 
 def test_plans_past_the_u8_envelope_run_the_fp32_kernel():
-    """Pinned envelope: the tap-16 2/5 plan (four (84, 84) kernels) fits
-    the fused kernel's fp32 and bf16 modes, but its three weight planes do
-    not fit 227 KB: under ``fp32_u8src`` it builds the fp32 mode and
-    reports ``'fp32'``. Likewise a wide-support drifted 4/3 plan (fs 55):
-    the seg kernel's float32 pair blocks beside one frame's window do not
-    fit, its bf16 blocks do."""
+    """Pinned envelope. The tap-16 2/5 plan (four (84, 84) kernels), past
+    the earlier wsplit3 form's 227 KB (three planes of the bf16 mode's
+    weight rows), now fits the wsplit3 kernel's three parts (16-byte
+    weight rows, stages of 4 rows): under ``fp32_u8src`` it builds
+    ``'wsplit3'``. Past the new boundary: a one-phase plan of (191, 191)
+    kernels at step 11 (fs 181, the deepest ``plan_phases`` admits) fits
+    the bf16 kernel but no wsplit3 shape, so ``kernel_precision`` builds
+    it fp32; a plan there is read from the layouts, as the sweep of
+    tests/test_torch_wsplit3_tc.py does. Likewise a wide-support drifted
+    4/3 plan (fs 55): the seg kernel's float32 pair blocks beside one
+    frame's window do not fit, its bf16 blocks do."""
     op = _op((300, 200, 120, 80, 16))
     plan = plan_phases(op)
     kh, kw = fused.plan_layout(op, plan).kh, fused.plan_layout(op, plan).kw
     geo = (plan.y.p, plan.x.p, plan.y.q, plan.x.q, kh, kw)
     fit = fused.fit_shape(*geo)
-    assert fused.tc_layout(*geo, *fit, parts=1).smem_bytes <= fused.MAX_SMEM_BYTES
-    assert fused.tc_layout(*geo, *fit, parts=3).smem_bytes > fused.MAX_SMEM_BYTES
-    assert fused.kernel_precision(op, plan, "wsplit3") == "fp32"
+    assert (kh, kw) == (84, 84) and fused.tc_layout(*geo, *fit).smem_bytes <= fused.MAX_SMEM_BYTES
+    lay = fused.ws3_layout(*geo, *fit)
+    assert lay.smem_bytes <= fused.MAX_SMEM_BYTES and lay.ch == 4 and not lay.last1
+    assert fused.kernel_precision(op, plan, "wsplit3") == "wsplit3"
     ap = ConvApplier(op, plan=plan, precision="fp32_u8src", device="cpu")
-    assert ap.fi.precision == "fp32" and ap.fi.wtc is None and ap.effective_precision == "fp32"
+    assert ap.fi.precision == "wsplit3" and ap.effective_precision == "fp32_u8src"
     assert ConvApplier(op, plan=plan, precision="bf16", device="cpu").effective_precision == "bf16"
+    deep = (1, 1, 11, 11, 191, 191)
+    assert fused.fit_shape(*deep) == (fused.DEFAULT_SHAPE, 1)
+    assert fused.tc_layout(*deep, fused.DEFAULT_SHAPE, 1).smem_bytes <= fused.MAX_SMEM_BYTES
+    assert fused.ws3_shape(*deep, 1) is None
 
     op = build_plane_operator(400, 300, 300, 225, radius_for_tap(16) * 1.25)
     splan = plan_phases_seg(op)
