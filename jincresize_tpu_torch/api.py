@@ -53,6 +53,7 @@ selection.
 
 from __future__ import annotations
 
+import time
 from dataclasses import asdict, dataclass, replace
 
 import numpy as np
@@ -62,7 +63,7 @@ from .clip import Clip, Frame, VideoFormat
 from .filters import build_lut
 from .geometry import build_plane_geometry, chroma_crop
 from .golden import apply_plane_numpy
-from .metrics import logger
+from .metrics import count, counters, logger, span
 from .operator import PlaneOperator, build_plane_operator, radius_for_tap
 from .phase import geometry_is_periodic, plan_phases, plan_phases_seg
 
@@ -264,6 +265,7 @@ class JincResizer:
     ):
         _validate(cfg)
         _check_mesh(mesh)
+        before = counters()
         if mesh is not None and cfg.impl not in ("auto", "sharded"):
             raise JincError(
                 "JincResize: mesh is only valid with impl='sharded' or 'auto'."
@@ -288,6 +290,7 @@ class JincResizer:
         blur = cfg.blur if cfg.blur else 1.0
         tw, th = cfg.target_width, cfg.target_height
         radius = radius_for_tap(cfg.tap)
+        t0 = time.perf_counter()  # operator_s: the LUT and the plane operators
         lut = build_lut(radius, blur)
         self.peak = fmt.peak
         pos_precision = None if cfg.pos_precision == "f32" else cfg.pos_precision
@@ -348,6 +351,7 @@ class JincResizer:
                 blur=blur,
                 pos_precision=pos_precision,
             )
+        count("operator_s", time.perf_counter() - t0)
         # Luma geometry kwargs, kept for the drift hint.
         self._luma_geometry = dict(
             src_width=width,
@@ -362,13 +366,24 @@ class JincResizer:
             quantize_x=cfg.quant_x,
             quantize_y=cfg.quant_y,
         )
+        t0 = time.perf_counter()
         self._init_engines(mesh)
+        count("engine_s", time.perf_counter() - t0)
 
         # Float-source clamp per plane (SIMD semantics unless opt==0).
         clamp = cfg.float_clamp
         if clamp is None:
             clamp = cfg.opt != 0
         self._float_clamp = clamp and fmt.bits == 32
+        built = {k: v - before[k] for k, v in counters().items()}
+        logger.info(
+            "resizer built: operators %.3f s, engines %.3f s, operator cache "
+            "%d loads, %d builds",
+            built["operator_s"],
+            built["engine_s"],
+            built["operator_cache_loads"],
+            built["operator_cache_builds"],
+        )
 
     # --------------------------------------------------------------- engines
     def _init_engines(self, mesh=None) -> None:
@@ -472,14 +487,17 @@ class JincResizer:
                     for s in src
                 ]
             )
-        t = torch.from_numpy(np.ascontiguousarray(src)).to(self.device)
-        if app is not None:
-            out = app(t, out_dtype=dtype, peak=peak, float_clamp_min=cmin)
-        else:
-            out = apply_xla.resize_plane_batch(
-                dop, t, out_dtype=dtype, peak=peak, float_clamp_min=cmin
-            )
-        return out.cpu().numpy()
+        with span("jinc.upload"):
+            t = torch.from_numpy(np.ascontiguousarray(src)).to(self.device)
+        with span("jinc.engine"):
+            if app is not None:
+                out = app(t, out_dtype=dtype, peak=peak, float_clamp_min=cmin)
+            else:
+                out = apply_xla.resize_plane_batch(
+                    dop, t, out_dtype=dtype, peak=peak, float_clamp_min=cmin
+                )
+        with span("jinc.download"):
+            return out.cpu().numpy()
 
     def _out_frame(self, planes: dict, props: dict) -> Frame:
         out = Frame(format=self.fmt, planes=planes, props=dict(props))
@@ -492,45 +510,51 @@ class JincResizer:
     def process_frame(self, frame: Frame) -> Frame:
         """Resample one frame (all planes). No state is mutated."""
         frame.validate()
-        out_planes = {
-            name: self._resize_planes(name, np.asarray(frame.planes[name])[None])[0]
-            for name in self.fmt.plane_names
-        }
-        return self._out_frame(out_planes, frame.props)
+        out_planes = {}
+        for name in self.fmt.plane_names:
+            with span(f"jinc.plane.{name}"):
+                with span("jinc.stack"):
+                    src = np.asarray(frame.planes[name])[None]
+                out_planes[name] = self._resize_planes(name, src)[0]
+        with span("jinc.frame_out"):
+            return self._out_frame(out_planes, frame.props)
 
     def process_clip_batched(self, clip: Clip) -> Clip:
         """Resample all frames in one batched call per plane."""
         for f in clip.frames:
             f.validate()
-        out_by_plane = {
-            name: self._resize_planes(
-                name, np.stack([f.planes[name] for f in clip.frames], axis=0)
+        out_by_plane = {}
+        for name in self.fmt.plane_names:
+            with span(f"jinc.plane.{name}"):
+                with span("jinc.stack"):
+                    src = np.stack([f.planes[name] for f in clip.frames], axis=0)
+                out_by_plane[name] = self._resize_planes(name, src)
+        with span("jinc.frame_out"):
+            frames = tuple(
+                self._out_frame(
+                    {n: out_by_plane[n][i] for n in self.fmt.plane_names}, f.props
+                )
+                for i, f in enumerate(clip.frames)
             )
-            for name in self.fmt.plane_names
-        }
-        frames = tuple(
-            self._out_frame(
-                {n: out_by_plane[n][i] for n in self.fmt.plane_names}, f.props
+            return Clip(
+                format=self.fmt,
+                frames=frames,
+                width=self.cfg.target_width,
+                height=self.cfg.target_height,
             )
-            for i, f in enumerate(clip.frames)
-        )
-        return Clip(
-            format=self.fmt,
-            frames=frames,
-            width=self.cfg.target_width,
-            height=self.cfg.target_height,
-        )
 
     def __call__(self, clip: Clip) -> Clip:
-        if len(clip.frames) > 1 and self._impl != "numpy":
-            return self.process_clip_batched(clip)
-        frames = tuple(self.process_frame(f) for f in clip.frames)
-        return Clip(
-            format=self.fmt,
-            frames=frames,
-            width=self.cfg.target_width,
-            height=self.cfg.target_height,
-        )
+        with span("jinc.call"):
+            if len(clip.frames) > 1 and self._impl != "numpy":
+                return self.process_clip_batched(clip)
+            frames = tuple(self.process_frame(f) for f in clip.frames)
+            with span("jinc.frame_out"):
+                return Clip(
+                    format=self.fmt,
+                    frames=frames,
+                    width=self.cfg.target_width,
+                    height=self.cfg.target_height,
+                )
 
 
 def jinc_resize(
@@ -670,7 +694,9 @@ class ChainResizer(JincResizer):
         self.peak = fmt.peak
         self.op_luma = composed_luma
         self.op_chroma = composed_chroma
+        t0 = time.perf_counter()
         self._init_engines(mesh)
+        count("engine_s", time.perf_counter() - t0)
         clamp = last.float_clamp
         if clamp is None:
             clamp = last.opt != 0

@@ -43,6 +43,7 @@ from .apply_xla import (DevicePlaneOperator, einsum64, finalize, resolve_device,
                         to_device)
 from .kernels import fused as fused_k
 from .kernels import strips as strips_k
+from .metrics import span
 
 f32 = torch.float32
 
@@ -188,12 +189,13 @@ def _strip_values_banded(
 def banded_strip_values(dop: DevicePlaneOperator, bands: dict, src_f) -> dict:
     """{(y0, y1, x0, x1): (F, ny, nx) values} of every strip, from its row
     band in ``bands`` (``strip_row_bands``)."""
-    return {
-        (s.y0, s.y1, s.x0, s.x1): _strip_values_banded(
-            dop, src_f, s, *bands[(s.y0, s.y1, s.x0, s.x1)]
-        )
-        for s in dop.strips
-    }
+    with span("jinc.strips"):
+        return {
+            (s.y0, s.y1, s.x0, s.x1): _strip_values_banded(
+                dop, src_f, s, *bands[(s.y0, s.y1, s.x0, s.x1)]
+            )
+            for s in dop.strips
+        }
 
 
 def strip_row_bands(op: PlaneOperator) -> dict:
@@ -379,29 +381,30 @@ class ConvApplier:
 
     def _strip_blocks(self, src_f):
         """[(rect, values (F, ny, nx))] for every border strip."""
-        if self.strips_spec is None:
-            return self._strip_blocks_default(src_f)
-        meta = self._strips_meta
-        xlo, width = meta["xlo"], meta["width"]
-        F = src_f.shape[0]
-        dst_w = self.cop.dop.dst_width
-        out = strips_k.strips(self.strips_spec, src_f)
-        blocks = []
-        for si, (y0, y1) in enumerate(meta["strips"]):
-            # Full-width row block: kernel values + per-pixel corner and
-            # exception columns.
-            row_block = torch.zeros((F, y1 - y0, dst_w), dtype=f32, device=src_f.device)
-            row_block[:, :, xlo : xlo + width] = out[:, si, : y1 - y0]
-            p = self._strip_patches.get((y0, y1))
-            if p is not None:
-                band_rows, cols, cols_sx, blocks_band = p
-                row_block[:, :, cols] = _strip_cols_patch(
-                    src_f, band_rows, cols_sx, blocks_band
-                )
-            blocks.append(((y0, y1, 0, dst_w), row_block))
-        if self._rem:
-            blocks.extend(self._strip_blocks_default(src_f, only=self._rem))
-        return blocks
+        with span("jinc.strips"):
+            if self.strips_spec is None:
+                return self._strip_blocks_default(src_f)
+            meta = self._strips_meta
+            xlo, width = meta["xlo"], meta["width"]
+            F = src_f.shape[0]
+            dst_w = self.cop.dop.dst_width
+            out = strips_k.strips(self.strips_spec, src_f)
+            blocks = []
+            for si, (y0, y1) in enumerate(meta["strips"]):
+                # Full-width row block: kernel values + per-pixel corner and
+                # exception columns.
+                row_block = torch.zeros((F, y1 - y0, dst_w), dtype=f32, device=src_f.device)
+                row_block[:, :, xlo : xlo + width] = out[:, si, : y1 - y0]
+                p = self._strip_patches.get((y0, y1))
+                if p is not None:
+                    band_rows, cols, cols_sx, blocks_band = p
+                    row_block[:, :, cols] = _strip_cols_patch(
+                        src_f, band_rows, cols_sx, blocks_band
+                    )
+                blocks.append(((y0, y1, 0, dst_w), row_block))
+            if self._rem:
+                blocks.extend(self._strip_blocks_default(src_f, only=self._rem))
+            return blocks
 
     # --------------------------------------------------------------- assembly
     def _frame_classification(self, op):
@@ -440,38 +443,46 @@ class ConvApplier:
         cop = self.cop
         dop = cop.dop
         ylo, xlo, yhi, xhi, H, W = self._concat
-        block = fused_k.fused_interior(self.fi, src_f)
+        with span("jinc.interior"):
+            block = fused_k.fused_interior(self.fi, src_f)
         by_rect = dict(self._strip_blocks(src_f))
-        mid = [
-            by_rect.pop((ylo, yhi, 0, xlo), None),
-            block,
-            by_rect.pop((ylo, yhi, xhi, W), None),
-        ]
-        mid = [m for m in mid if m is not None]
-        mid = torch.cat(mid, dim=2) if len(mid) > 1 else mid[0]
-        if cop.exc_x.shape[0]:
-            vals = _cols_subset(dop, src_f, cop.exc_x)
-            mid[:, :, cop.exc_x] = vals[:, ylo:yhi]
-        if cop.exc_y.shape[0]:
-            vals = _rows_subset(dop, src_f, cop.exc_y)
-            mid[:, cop.exc_y - ylo, xlo:xhi] = vals[:, :, xlo:xhi]
-        rows = [
-            by_rect.pop((0, ylo, 0, W), None),
-            mid,
-            by_rect.pop((yhi, H, 0, W), None),
-        ]
-        rows = [r for r in rows if r is not None]
-        return torch.cat(rows, dim=1) if len(rows) > 1 else rows[0]
+        with span("jinc.assemble"):
+            mid = [
+                by_rect.pop((ylo, yhi, 0, xlo), None),
+                block,
+                by_rect.pop((ylo, yhi, xhi, W), None),
+            ]
+            mid = [m for m in mid if m is not None]
+            mid = torch.cat(mid, dim=2) if len(mid) > 1 else mid[0]
+            if cop.exc_x.shape[0]:
+                vals = _cols_subset(dop, src_f, cop.exc_x)
+                mid[:, :, cop.exc_x] = vals[:, ylo:yhi]
+            if cop.exc_y.shape[0]:
+                vals = _rows_subset(dop, src_f, cop.exc_y)
+                mid[:, cop.exc_y - ylo, xlo:xhi] = vals[:, :, xlo:xhi]
+            rows = [
+                by_rect.pop((0, ylo, 0, W), None),
+                mid,
+                by_rect.pop((yhi, H, 0, W), None),
+            ]
+            rows = [r for r in rows if r is not None]
+            return torch.cat(rows, dim=1) if len(rows) > 1 else rows[0]
 
     def _acc(self, src_f):
         if self._concat is not None:
             return self._acc_concat(src_f)
-        block = fused_k.fused_interior(self.fi, src_f)
-        return _assemble(self.cop, block, src_f, self._strip_blocks(src_f))
+        with span("jinc.interior"):
+            block = fused_k.fused_interior(self.fi, src_f)
+        strips = self._strip_blocks(src_f)
+        with span("jinc.assemble"):
+            return _assemble(self.cop, block, src_f, strips)
 
     def __call__(self, src, out_dtype=f32, peak=None, float_clamp_min=None):
         """Resample ``src`` (H, W) or (F, H, W) on the applier's device."""
         if src.dim() == 2:
             return self(src[None], out_dtype, peak, float_clamp_min)[0]
-        src_f = source_f32(src, float_clamp_min)
-        return finalize(self._acc(src_f), out_dtype, peak)
+        with span("jinc.source_f32"):
+            src_f = source_f32(src, float_clamp_min)
+        acc = self._acc(src_f)
+        with span("jinc.finalize"):
+            return finalize(acc, out_dtype, peak)

@@ -23,6 +23,7 @@ from .apply_gather import assemble, concat, strips_frame_interior
 from .apply_xla import finalize, resolve_device, source_f32, to_device
 from .kernels import fused as fused_k
 from .kernels import seg as seg_k
+from .metrics import span
 
 f32 = torch.float32
 
@@ -92,22 +93,29 @@ class SegConvApplier:
     def _acc(self, src_f):
         """(F, H, W) float32 -> (F, dst_h, dst_w) float32 accumulator."""
         dop = self._dop
-        interior = seg_k.seg_interior(self.si, src_f)
+        with span("jinc.interior"):
+            interior = seg_k.seg_interior(self.si, src_f)
         strips = banded_strip_values(dop, self._strip_bands, src_f)
-        if self._concat:
-            return concat(self.op, interior, self._rect, strips)
-        # Exceptions: start-offset outliers + trailing partial periods, with
-        # apply_conv._assemble's precedence: columns, then rows, then strips.
-        fixups = []
-        if self._exc_x.shape[0]:
-            cols = _cols_subset(dop, src_f, self._exc_x)
-            fixups.append(((slice(None), slice(None), self._exc_x), cols))
-        if self._exc_y.shape[0]:
-            fixups.append(((slice(None), self._exc_y), _rows_subset(dop, src_f, self._exc_y)))
-        return assemble(self.op, interior, self._rect, strips, src_f, fixups)
+        with span("jinc.assemble"):
+            if self._concat:
+                return concat(self.op, interior, self._rect, strips)
+            # Exceptions: start-offset outliers + trailing partial periods, with
+            # apply_conv._assemble's precedence: columns, then rows, then strips.
+            fixups = []
+            if self._exc_x.shape[0]:
+                cols = _cols_subset(dop, src_f, self._exc_x)
+                fixups.append(((slice(None), slice(None), self._exc_x), cols))
+            if self._exc_y.shape[0]:
+                rows = _rows_subset(dop, src_f, self._exc_y)
+                fixups.append(((slice(None), self._exc_y), rows))
+            return assemble(self.op, interior, self._rect, strips, src_f, fixups)
 
     def __call__(self, src, out_dtype=f32, peak=None, float_clamp_min=None):
         """Resample ``src`` (H, W) or (F, H, W) on the applier's device."""
         if src.dim() == 2:
             return self(src[None], out_dtype, peak, float_clamp_min)[0]
-        return finalize(self._acc(source_f32(src, float_clamp_min)), out_dtype, peak)
+        with span("jinc.source_f32"):
+            src_f = source_f32(src, float_clamp_min)
+        acc = self._acc(src_f)
+        with span("jinc.finalize"):
+            return finalize(acc, out_dtype, peak)

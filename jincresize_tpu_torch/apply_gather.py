@@ -17,6 +17,7 @@ from .operator import PlaneOperator
 from .apply_conv import banded_strip_values, strip_row_bands
 from .apply_xla import finalize, resolve_device, source_f32, to_device
 from .kernels import gather as gather_k
+from .metrics import span
 
 f32 = torch.float32
 
@@ -88,14 +89,20 @@ class GatherApplier:
 
     def _acc(self, src_f):
         """(F, H, W) float32 -> (F, dst_h, dst_w) float32 accumulator."""
-        interior = gather_k.gather_interior(self.gi, src_f)
+        with span("jinc.interior"):
+            interior = gather_k.gather_interior(self.gi, src_f)
         strips = banded_strip_values(self._dop, self._strip_bands, src_f)
-        if self._concat:
-            return concat(self.op, interior, self._rect, strips)
-        return assemble(self.op, interior, self._rect, strips, src_f)
+        with span("jinc.assemble"):
+            if self._concat:
+                return concat(self.op, interior, self._rect, strips)
+            return assemble(self.op, interior, self._rect, strips, src_f)
 
     def __call__(self, src, out_dtype=f32, peak=None, float_clamp_min=None):
         """Resample ``src`` (H, W) or (F, H, W) on the applier's device."""
         if src.dim() == 2:
             return self(src[None], out_dtype, peak, float_clamp_min)[0]
-        return finalize(self._acc(source_f32(src, float_clamp_min)), out_dtype, peak)
+        with span("jinc.source_f32"):
+            src_f = source_f32(src, float_clamp_min)
+        acc = self._acc(src_f)
+        with span("jinc.finalize"):
+            return finalize(acc, out_dtype, peak)

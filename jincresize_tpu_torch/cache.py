@@ -11,10 +11,10 @@ Format: a single .npz per operator under a cache directory; the key hashes
 every input that affects coefficients (dims, radius, crop, quantization,
 blur, LUT size) plus the builder version.
 
-A copy of ``jincresize_tpu/cache.py`` with one change: the default directory
+A copy of ``jincresize_tpu/cache.py`` with two changes: the default directory
 is the port's own (``build/operator_cache/`` at the root of the checkout, or
 ``$JINCRESIZE_TORCH_CACHE_DIR``), so the two packages never load each other's
-files.
+files; and ``cached_build`` counts its loads and builds in ``metrics``.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ from pathlib import Path
 
 import numpy as np
 
+from .metrics import count
 from .operator import BorderStrip, PlaneOperator
 
 _BUILDER_VERSION = 1  # bump on any coefficient-semantics change
@@ -119,16 +120,22 @@ def load_operator(path: str | Path) -> PlaneOperator:
 
 
 def cached_build(build_fn, cache_dir: str | Path | None = None, **geometry):
-    """Build-or-load: returns build_fn(**geometry), cached on disk by key."""
+    """Build-or-load: returns build_fn(**geometry), cached on disk by key.
+    Counts ``operator_cache_loads`` or ``operator_cache_builds`` (a corrupt
+    entry is rebuilt, and counts as a build)."""
     cdir = Path(cache_dir) if cache_dir is not None else default_cache_dir()
     key = geometry_key(**{k: v for k, v in geometry.items() if v is not None})
     path = cdir / f"op_{key}.npz"
     if path.exists():
         try:
-            return load_operator(path)
+            op = load_operator(path)
         except Exception:
             pass  # corrupt cache entry: rebuild
+        else:
+            count("operator_cache_loads")
+            return op
     op = build_fn(**geometry)
+    count("operator_cache_builds")
     try:
         save_operator(op, path)
     except OSError:

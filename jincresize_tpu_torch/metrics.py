@@ -1,12 +1,26 @@
-"""Observability: operator and throughput metrics, and device traces.
+"""Observability: spans, set-up counters, device traces, operator stats.
 
-``log_operator_stats`` and ``ThroughputMeter`` are copies of the JAX
-package's (``jincresize_tpu/metrics.py``), logging to the
-``jincresize_tpu_torch`` logger. ``device_trace`` is the port's counterpart
-of its ``jax.profiler`` scope: a ``torch.profiler`` scope that records CPU
-activity, and CUDA activity when a card is visible, and writes a Chrome
-trace into ``logdir`` (open it in ``chrome://tracing`` or Perfetto);
-``device_time_by_op`` and ``device_busy`` read that trace's device time.
+``span(name)`` marks one step of a call (``jinc.call``, ``jinc.plane.<name>``,
+``jinc.upload``, ``jinc.engine``, ``jinc.interior``, ...) as a
+``torch.profiler.record_function`` event while a profiler records, so the
+steps land in the same trace as the device work, on its clock. With no
+profiler recording a span costs one flag check: it dispatches no op and
+allocates nothing.
+
+``count(name, value)`` adds to a process-wide record of what set-up costs,
+which ``counters()`` returns a copy of. It is always on and only grows. Its
+keys are fixed: ``operator_s`` (host seconds in ``JincResizer.__init__``
+building or loading the plane operators and their LUT), ``engine_s`` (host
+seconds in ``JincResizer._init_engines``: engine selection, the appliers'
+tables, weight splits and uploads), ``operator_cache_loads`` and
+``operator_cache_builds`` (entries ``cache.cached_build`` loaded or built).
+
+``device_trace`` is a ``torch.profiler`` scope that records CPU activity, and
+CUDA activity when a card is visible, and writes a Chrome trace into
+``logdir`` (open it in ``chrome://tracing`` or Perfetto); ``device_time_by_op``
+and ``device_busy`` read that trace's device time. ``log_operator_stats`` is
+a copy of the JAX package's (``jincresize_tpu/metrics.py``). Everything logs
+to the ``jincresize_tpu_torch`` logger.
 """
 
 from __future__ import annotations
@@ -15,12 +29,39 @@ import contextlib
 import json
 import logging
 import os
-import time
-from dataclasses import dataclass, field
 
 import torch
 
 logger = logging.getLogger("jincresize_tpu_torch")
+
+_profiling = torch._C._autograd._profiler_enabled
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """Context manager: a ``record_function(name)`` event while a profiler
+    records, else a shared no-op."""
+    if _profiling():
+        return torch.profiler.record_function(name)
+    return _OFF
+
+
+_COUNTERS = {
+    "operator_s": 0.0,
+    "engine_s": 0.0,
+    "operator_cache_loads": 0,
+    "operator_cache_builds": 0,
+}
+
+
+def count(name: str, value=1) -> None:
+    """Add ``value`` to the counter ``name`` (one of ``counters()``'s keys)."""
+    _COUNTERS[name] += value
+
+
+def counters() -> dict:
+    """A copy of the process-wide set-up counters."""
+    return dict(_COUNTERS)
 
 
 def log_operator_stats(op, label: str = "operator") -> dict:
@@ -28,38 +69,6 @@ def log_operator_stats(op, label: str = "operator") -> dict:
     st = op.stats()
     logger.info("%s stats: %s", label, json.dumps(st))
     return st
-
-
-@dataclass
-class ThroughputMeter:
-    """Accumulates frame timings and reports px/s and nnz/s."""
-
-    dst_pixels: int
-    logical_nnz: int
-    times_s: list = field(default_factory=list)
-
-    def record(self, seconds: float) -> None:
-        self.times_s.append(seconds)
-
-    @contextlib.contextmanager
-    def measure(self):
-        t0 = time.perf_counter()
-        yield
-        self.record(time.perf_counter() - t0)
-
-    def report(self) -> dict:
-        if not self.times_s:
-            return {}
-        best = min(self.times_s)
-        rep = {
-            "frames": len(self.times_s),
-            "best_s": best,
-            "mean_s": sum(self.times_s) / len(self.times_s),
-            "px_per_s": self.dst_pixels / best,
-            "nnz_per_s": self.logical_nnz / best,
-        }
-        logger.info("throughput: %s", json.dumps(rep))
-        return rep
 
 
 @contextlib.contextmanager
@@ -100,13 +109,17 @@ def device_time_by_op(trace_path) -> dict[str, tuple[float, int]]:
 
 def device_busy(trace_path) -> tuple[float, float]:
     """(busy ms, span ms) of the device operations in a ``device_trace``
-    trace: their summed time, and the time from the first one's start to
-    the last one's end. ``1 - busy / span`` is the device's idle share over
-    the span (below 0 where copies overlap kernels); (0, 0) without CUDA
-    activity."""
+    trace: the length of the union of their intervals, so a copy that
+    overlaps a kernel counts once, and the time from the first one's start
+    to the last one's end. ``1 - busy / span`` is the device's idle share
+    over the span, never below 0; (0, 0) without CUDA activity."""
     events = _device_events(trace_path)
     if not events:
         return 0.0, 0.0
-    busy = sum(e["dur"] for e in events)
-    span = max(e["ts"] + e["dur"] for e in events) - min(e["ts"] for e in events)
-    return busy / 1e3, span / 1e3
+    busy, reach = 0.0, float("-inf")
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in events):
+        if b > reach:
+            busy += b - max(a, reach)
+            reach = b
+    extent = max(e["ts"] + e["dur"] for e in events) - min(e["ts"] for e in events)
+    return busy / 1e3, extent / 1e3

@@ -48,18 +48,6 @@ def test_log_operator_stats_equal_jax(geom, caplog):
     assert f"luma stats: {json.dumps(st)}" in caplog.messages
 
 
-def test_throughput_meter_equal_jax():
-    m, jm = metrics.ThroughputMeter(1000, 5000), jmetrics.ThroughputMeter(1000, 5000)
-    for t in (0.5, 0.25, 0.4):
-        m.record(t)
-        jm.record(t)
-    with m.measure():
-        pass
-    jm.record(m.times_s[-1])
-    assert m.report() == jm.report()
-    assert metrics.ThroughputMeter(1, 1).report() == {}
-
-
 # (name, src_w, src_h, dst_w, dst_h, JincConfig kwargs, hint expected): the
 # 1.5x crop geometry plans periodic only with float64 positions.
 DRIFT = {"src_left": 0.123, "src_top": 0.456}
@@ -124,3 +112,15 @@ def test_device_time_by_op_sums_device_events(tmp_path):
         ("Memset (Device)", (0.25, 1)),
     ]
     assert metrics.device_busy(path) == (5.25, 10.0)  # the device idles 47.5% of its span
+    # A download and a kernel under an upload count once: busy is the union
+    # of the intervals (0-4 ms, 5-6 ms), not their 8 ms sum.
+    events = [
+        {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy HtoD (Pageable -> Device)", "ts": 0.0,
+         "dur": 3000.0},
+        {"ph": "X", "cat": "kernel", "name": "fused_interior_kernel", "ts": 1000.0, "dur": 3000.0},
+        {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy DtoH (Device -> Pageable)", "ts": 1500.0,
+         "dur": 1000.0},
+        {"ph": "X", "cat": "gpu_memset", "name": "Memset (Device)", "ts": 5000.0, "dur": 1000.0},
+    ]  # fmt: skip
+    path.write_text(json.dumps({"traceEvents": events}))
+    assert metrics.device_busy(path) == (5.0, 6.0)
