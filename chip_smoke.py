@@ -146,7 +146,14 @@ Phases (each raises on failure; nothing catches it):
    ``python -m jincresize_tpu_torch.bench`` in
    its three modes and the default one under ``--precision bf16``, run in
    this process, and the probe beside its bound and
-   ``torch.zeros``, in one order and the other;
+   ``torch.zeros``, in one order and the other; the exception-line kernel
+   (``kernels/lines.py``) on the luma and chroma planes of the tap-16
+   2560x1440 -> 1920x1080 yuv420p10 deployment against its plain form at
+   F = 1 and 8 (0), timed on 8 frames beside its bound and the plain form,
+   one luma ``SegConvApplier`` call's and one ``JincResizer`` call's device
+   launches with the ``exception_launches`` / ``exception_lines`` counters
+   read before and after (1 and 2 a plane call), and a 4K -> 8K call that
+   leaves both counters unchanged (``exc_lines_row``);
 5. two processes -- ``python3 chip_smoke.py --dist-worker <port> <rank>``,
    twice, joined by a gloo group (``distributed.init_distributed``; NCCL
    refuses two ranks on one card, so the halos cross through host buffers),
@@ -267,6 +274,10 @@ PREV_BF16_MS_PER_FRAME = {"fused": 0.745, "deep_fused": 0.687, "seg": 0.297}
 # table, H100 80GB HBM3, 700 W), printed beside this run's.
 PREV_WSPLIT3_MS_PER_FRAME = {"fused": 0.4599, "deep_fused": 0.3104, "thirds_fused": 0.4576,
                              "seg": 0.1841, "deep_seg": 0.5584}
+# Device launches a frame of the tap-16 1440p -> 1080p yuv420p10 benchmark
+# cell before the exception lines had a kernel (its traced runs on an H100
+# 80GB HBM3, 700 W), printed beside this run's.
+PREV_TAP16_LAUNCHES_PER_FRAME = 1239
 # The chain: 1080p -> 4K -> 8K tap 3 (2x then 2x), two frames.
 CHAIN = ((1920, 1080), (3840, 2160), (7680, 4320))
 CHAIN_TAP = 3
@@ -446,6 +457,133 @@ def cuda_ms(fn, iters: int, warmup: int = 2, reps: int = 1) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b) / reps)
     return statistics.median(times)
+
+
+def exc_lines_row(card: str, periodic=None) -> dict:
+    """Phase 4's exception-line row, on the tap-16 1440p -> 1080p yuv420p10
+    deployment of the benchmark (``DEEP_DRIFT``, fs 44, ``fused-seg`` on every
+    plane): on its luma and chroma planes, the kernel of
+    ``kernels/lines.py`` against its plain form at F = 1 and
+    ``TIMING_FRAMES`` (0 difference, NaN canvases around the lines, so a pixel
+    written where no line lies shows too), its CUDA-event median on an
+    8-frame batch beside its bound and the plain form's time; then one luma
+    ``SegConvApplier`` call and one whole one-frame ``JincResizer`` call, each
+    with the device launches of a ``metrics.device_trace`` and the
+    ``exception_launches`` / ``exception_lines`` counters read before and
+    after (one launch and two lines a plane call); the row's ``launches`` is
+    ``exc_lines.launches``, set to 0 just before that one ``JincResizer``
+    call (3, one a plane), not what the comparisons and timing loops
+    launched. ``periodic``: a
+    4K -> 8K ``JincResizer`` and a clip, whose appliers must have no
+    exception lines and whose call must leave both counters as they were.
+    Returns the row of the kernels' JSON line."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from jincresize_tpu_torch import metrics
+    from jincresize_tpu_torch.api import JincConfig, JincResizer
+    from jincresize_tpu_torch.clip import Clip, random_frame, yuv420p
+    from jincresize_tpu_torch.kernels import lines as lines_k
+
+    dev = torch.device(DEVICE)
+    fmt = yuv420p(10)
+    sw, sh, dw, dh = DEEP_DRIFT
+    geo = f"{sw}x{sh}->{dw}x{dh} tap{DEEP_TAP} yuv420p10"
+    clip = Clip.from_frames([random_frame(fmt, sw, sh, seed=1900)])
+    r = JincResizer(fmt, sw, sh, JincConfig(dw, dh, tap=DEEP_TAP, operator_cache=False),
+                    frame0=clip.frames[0], device=dev)  # fmt: skip
+    assert set(r.engines.values()) == {"fused-seg"}, r.engines
+    rng = np.random.default_rng(1901)
+    row = {"ms": {}, "plain_ms": {}, "bound_ms": {}, "max_abs_err": 0.0}
+    for plane, op, app in (("luma", r.op_luma, r._applier_luma),
+                           ("chroma", r.op_chroma, r._applier_chroma)):  # fmt: skip
+        spec = app.lines
+        assert spec is not None and spec.n_lines == 2, spec
+        H, W = op.src_height, op.src_width
+        src = torch.from_numpy(rng.random((TIMING_FRAMES, H, W), dtype=np.float32)).to(dev)
+        shape = (TIMING_FRAMES, op.dst_height, op.dst_width)
+        for F in (1, TIMING_FRAMES):
+            got = torch.full(shape[1:], float("nan"), device=dev).expand(F, -1, -1).clone()
+            want = got.clone()
+            lines_k.exc_lines(spec, src[:F], got)
+            lines_k.exc_lines_plain(spec, src[:F], want)
+            torch.cuda.synchronize()
+            same_nan = torch.equal(got.isnan(), want.isnan())
+            err = float((got - want).nan_to_num().abs().max())
+            n = int((~got.isnan()).sum())
+            print(f"[4] exc_lines {geo} {plane} F={F}: {n} pixels written, max |kernel - plain "
+                  f"form| {err}, NaN where the plain form has NaN: {same_nan}")
+            assert same_nan and err == 0 and n == F * spec.n_pixels, (same_nan, err, n)
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+        out = torch.zeros(shape, device=dev)
+        row["ms"][plane] = cuda_ms(lambda: lines_k.exc_lines(spec, src, out), 20, reps=10)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        lines_k.exc_lines_plain(spec, src, out)
+        b.record()
+        b.synchronize()
+        row["plain_ms"][plane] = a.elapsed_time(b)
+        # Bound: 2 operations a tap at the fp32 peak, against each written
+        # sample, the class-pair blocks the line pixels use (one fs x fs
+        # block a distinct (cy, cx) pair) and every source sample a window
+        # reads.
+        fs, n_px = spec.dop.filter_size, spec.n_pixels
+        read = np.zeros((H, W), dtype=bool)
+        ys, xs = lines_k.pixels(spec)
+        for y, x in zip(ys.tolist(), xs.tolist(), strict=True):
+            read[np.ix_(np.clip(op.start_y[y] + np.arange(fs), 0, H - 1),
+                        np.clip(op.start_x[x] + np.arange(fs), 0, W - 1))] = True  # fmt: skip
+        n_blocks = len(set(zip(op.cy_idx[ys].tolist(), op.cx_idx[xs].tolist(), strict=True)))
+        nbytes = 4 * TIMING_FRAMES * (n_px + int(read.sum())) + 4 * fs * fs * n_blocks
+        b_ms, by = bound_ms(2.0 * n_px * fs * fs * TIMING_FRAMES, nbytes)
+        row["bound_ms"][plane] = (b_ms, by)
+        print(f"[4] exc_lines {geo} {plane}: {n_px} pixels, {spec.lines.shape[0]} segments, "
+              f"{row['ms'][plane] * 1e3:.2f} us per {TIMING_FRAMES}-frame batch "
+              f"({row['ms'][plane] / TIMING_FRAMES * 1e3:.2f} us/frame), plain form "
+              f"{row['plain_ms'][plane]:.2f} ms; bound {b_ms * 1e3:.3f} us ({by}; "
+              f"{n_blocks} class-pair blocks), "
+              f"{b_ms / row['ms'][plane]:.1%} of it [{card}]")
+        del src, out, got, want
+
+    def traced(fn):
+        """(device launches of ``fn()`` in a trace, the counters' change)."""
+        before = metrics.counters()
+        with tempfile.TemporaryDirectory() as d:
+            with metrics.device_trace(d):
+                fn()
+                torch.cuda.synchronize()
+            n = sum(c for _, c in metrics.device_time_by_op(os.path.join(d, "trace.json")).values())
+        after = metrics.counters()
+        keys = ("exception_launches", "exception_lines")
+        return n, {k: after[k] - before[k] for k in keys}
+
+    luma = torch.from_numpy(clip.frames[0].planes["Y"][None]).to(dev)
+    r._applier_luma(luma, out_dtype=np.uint16, peak=1023.0)  # warm
+    n, d = traced(lambda: r._applier_luma(luma, out_dtype=np.uint16, peak=1023.0))
+    print(f"[4] one luma SegConvApplier call ({geo}, 1 frame): {n} device launches, counters "
+          f"{d} [{card}]")
+    assert d == {"exception_launches": 1, "exception_lines": 2}, d
+    row["applier_launches"] = n
+    r(clip)  # warm
+    lines_k.exc_lines.launches = 0
+    n, d = traced(lambda: r(clip))
+    row["launches"] = lines_k.exc_lines.launches
+    print(f"[4] one JincResizer call ({geo}, 1 frame, 3 planes): {n} device launches (before the "
+          f"exception-line kernel: {PREV_TAP16_LAUNCHES_PER_FRAME} a frame in the traced cell), counters {d} [{card}]")
+    assert d == {"exception_launches": 3, "exception_lines": 6} and row["launches"] == 3, (d, row)
+    row["call_launches"] = n
+    if periodic is not None:
+        pr, pclip = periodic
+        assert pr._applier_luma.lines is None and pr._applier_chroma.lines is None
+        before = metrics.counters()
+        pr(pclip)
+        after = metrics.counters()
+        d = {k: after[k] - before[k] for k in ("exception_launches", "exception_lines")}
+        print(f"[4] one 4K -> 8K JincResizer call: counters {d} (no exception lines)")
+        assert d == {"exception_launches": 0, "exception_lines": 0}, d
+    return row
 
 
 def dist_phase(card: str) -> None:
@@ -2351,6 +2489,10 @@ def main() -> int:
         print(f"[4] conv1d vs strips kernel at {k}: max |err| {v:.3g} (bound {DEEP_TOL:g})")
     assert all(v <= DEEP_TOL for v in strips_lib_err.values()), strips_lib_err
 
+    # The exception-line kernel on the tap-16 1440p -> 1080p planes; the
+    # 4K -> 8K resizer of phase 3 has no exception lines.
+    exc_row = exc_lines_row(card, (resizer, Clip.from_frames(clip.frames[:1])))
+
     print(f"[4] phases 1-4 took {time.perf_counter() - t_start:.1f} s")
 
     # ---------------------------------------------------------------- phase 5
@@ -2475,6 +2617,19 @@ def main() -> int:
             "plain_ms": ms["gather_band_plain"],
             "bound_ms": bounds["gather_band"][0],
             "bound_by": bounds["gather_band"][1],
+            "library_ms": None,
+        },
+        {
+            "name": "exc_lines",
+            "route": "cuda",
+            "source": "jincresize_tpu_torch/csrc/exc_lines.cu",
+            "replaces": None,  # the JAX package's fixups are XLA ops, no pallas_call
+            "launches": exc_row["launches"],
+            "max_abs_err": exc_row["max_abs_err"],
+            "ms": exc_row["ms"]["luma"],
+            "plain_ms": exc_row["plain_ms"]["luma"],
+            "bound_ms": exc_row["bound_ms"]["luma"][0],
+            "bound_by": exc_row["bound_ms"]["luma"][1],
             "library_ms": None,
         },
         {

@@ -5,11 +5,13 @@ periodic geometry (``phase.plan_phases``) the interior resample is a strided
 correlation in which every (row-phase, column-phase) pair owns one (fs, fs)
 coefficient block; ``kernels/fused.py`` computes it in destination layout.
 Full-width top/bottom strips run on ``kernels/strips.py``; exception rows and
-columns (float32 position drift) and the left/right strips are patched with
-small gathers and tap sums. When the strips exactly frame the interior, the
-canvas is assembled with one concatenate. ``strip_row_bands`` and
-``banded_strip_values`` serve the gather and segment-periodic appliers'
-strips from each strip's source row band (``_strip_values_banded``).
+columns (float32 position drift, partial trailing periods) are written into
+the canvas by ``kernels/lines.py`` (one kernel launch a call); the left/right
+strips are patched with small gathers and tap sums. When the strips exactly
+frame the interior, the canvas is assembled with one concatenate.
+``strip_row_bands`` and ``banded_strip_values`` serve the gather and
+segment-periodic appliers' strips from each strip's source row band
+(``_strip_values_banded``).
 
 The JAX package's XLA shift-sum interiors (``apply_plane_conv`` and its
 deep-tap forms ``_shift_sum_deep``, ``_shift_sum_scan``, ``_shift_sum_mxu``)
@@ -42,6 +44,7 @@ from .apply_strips_fast import plan_strips, strip_values_fast, window_indices
 from .apply_xla import (DevicePlaneOperator, einsum64, finalize, resolve_device, source_f32,
                         to_device)
 from .kernels import fused as fused_k
+from .kernels import lines as lines_k
 from .kernels import strips as strips_k
 from .metrics import span
 
@@ -103,42 +106,9 @@ def build_conv_operator(
 
 
 # ---------------------------------------------------------------------------
-# Fixup computations (exceptions + strips): small targeted gathers. Sources
-# are (F, H, W) float32; results carry the frame dimension first.
+# Strip computations: small targeted gathers. Sources are (F, H, W) float32;
+# results carry the frame dimension first.
 # ---------------------------------------------------------------------------
-
-
-def _cols_subset(dop: DevicePlaneOperator, src_f, sel) -> torch.Tensor:
-    """Recompute a subset of destination columns (all rows): (F, dst_h, m)."""
-    fs = dop.filter_size
-    F, H, W = src_f.shape
-    taps = torch.arange(fs, device=src_f.device)
-    cols = torch.clamp(dop.start_x[sel][:, None] + taps[None, :], 0, W - 1)
-    P = src_f[:, :, cols]  # (F, H, m, fs)
-    cxs = dop.cx_idx[sel]
-    acc = torch.zeros((F, dop.dst_height, sel.shape[0]), dtype=f32, device=src_f.device)
-    for ly in range(fs):
-        rows = torch.clamp(dop.start_y + ly, 0, H - 1)
-        Prow = P[:, rows]  # (F, dst_h, m, fs)
-        panex = dop.pair_blocks[:, cxs, ly, :]  # (n_uy, m, fs)
-        Wrow = panex[dop.cy_idx]  # (dst_h, m, fs)
-        acc += (Prow * Wrow).sum(-1)
-    return acc
-
-
-def _rows_subset(dop: DevicePlaneOperator, src_f, sel) -> torch.Tensor:
-    """Recompute a subset of destination rows (all columns): (F, m, dst_w)."""
-    fs = dop.filter_size
-    F, H, W = src_f.shape
-    m = sel.shape[0]
-    taps = torch.arange(fs, device=src_f.device)
-    rows_n = torch.clamp(dop.start_y[sel][:, None] + taps[None, :], 0, H - 1)
-    S = src_f[:, rows_n.reshape(-1)]  # (F, m*fs, W)
-    cols = torch.clamp(dop.start_x[:, None] + taps[None, :], 0, W - 1)
-    P = S[:, :, cols].reshape(F, m, fs, dop.dst_width, fs)  # (F, m, k, w, l)
-    pane_sel = dop.pair_blocks[dop.cy_idx[sel]]  # (m, n_ux, fs, fs)
-    Wm = pane_sel[:, dop.cx_idx]  # (m, w, fs, fs)
-    return (P.permute(0, 1, 3, 2, 4) * Wm).sum((-2, -1))
 
 
 def _strip_values(dop: DevicePlaneOperator, src_f, s) -> torch.Tensor:
@@ -242,8 +212,10 @@ def _strip_cols_patch(src_f, band_rows, cols_sx, blocks_band):
 # ---------------------------------------------------------------------------
 
 
-def _assemble(cop: ConvOperator, block, src_f, strip_blocks) -> torch.Tensor:
-    """Paste the dst-layout interior block, then exception fixups, then strips.
+def _assemble(cop: ConvOperator, block, src_f, strip_blocks, lines=None) -> torch.Tensor:
+    """Paste the dst-layout interior block, then the exception lines
+    ``lines`` (``kernels.lines.make_lines`` over the whole canvas, or None),
+    then strips.
 
     Used when the strips do not exactly frame the interior.
     """
@@ -255,10 +227,8 @@ def _assemble(cop: ConvOperator, block, src_f, strip_blocks) -> torch.Tensor:
     )
     canvas[:, ylo : ylo + py * nyb, xlo : xlo + px * nxb] = block
     # Exception fixups (float32 drift deviations + partial trailing periods).
-    if cop.exc_x.shape[0]:
-        canvas[:, :, cop.exc_x] = _cols_subset(dop, src_f, cop.exc_x)
-    if cop.exc_y.shape[0]:
-        canvas[:, cop.exc_y, :] = _rows_subset(dop, src_f, cop.exc_y)
+    if lines is not None:
+        lines_k.exc_lines(lines, src_f, canvas)
     # Border strips own their pixels.
     for (y0, y1, x0, x1), blk in strip_blocks:
         canvas[:, y0:y1, x0:x1] = blk
@@ -324,6 +294,17 @@ class ConvApplier:
         self.strips_spec = None
         self._setup_strip_kernel(op, plan)
         self._concat = self._frame_classification(op)
+        # The exception lines: over the middle block of the one-concatenate
+        # assembly (columns over its rows, rows over the interior's columns),
+        # else over the whole canvas.
+        if self._concat is not None:
+            ylo, xlo, yhi, xhi, _, _ = self._concat
+            window = dict(col_rows=(ylo, yhi), row_cols=(xlo, xhi), origin=(ylo, 0))
+        else:
+            window = {}
+        self.lines = lines_k.make_lines(
+            self.cop.dop, plan.x.exceptions, plan.y.exceptions, **window
+        )
 
     # ----------------------------------------------------------------- strips
     def _strip_blocks_default(self, src_f, only=None):
@@ -440,8 +421,6 @@ class ConvApplier:
         bottom], with exception fixups applied to the middle block only (the
         border strips own their pixels -- same precedence as the
         paste-then-overwrite order of ``_assemble``)."""
-        cop = self.cop
-        dop = cop.dop
         ylo, xlo, yhi, xhi, H, W = self._concat
         with span("jinc.interior"):
             block = fused_k.fused_interior(self.fi, src_f)
@@ -454,12 +433,8 @@ class ConvApplier:
             ]
             mid = [m for m in mid if m is not None]
             mid = torch.cat(mid, dim=2) if len(mid) > 1 else mid[0]
-            if cop.exc_x.shape[0]:
-                vals = _cols_subset(dop, src_f, cop.exc_x)
-                mid[:, :, cop.exc_x] = vals[:, ylo:yhi]
-            if cop.exc_y.shape[0]:
-                vals = _rows_subset(dop, src_f, cop.exc_y)
-                mid[:, cop.exc_y - ylo, xlo:xhi] = vals[:, :, xlo:xhi]
+            if self.lines is not None:
+                lines_k.exc_lines(self.lines, src_f, mid)
             rows = [
                 by_rect.pop((0, ylo, 0, W), None),
                 mid,
@@ -475,7 +450,7 @@ class ConvApplier:
             block = fused_k.fused_interior(self.fi, src_f)
         strips = self._strip_blocks(src_f)
         with span("jinc.assemble"):
-            return _assemble(self.cop, block, src_f, strips)
+            return _assemble(self.cop, block, src_f, strips, self.lines)
 
     def __call__(self, src, out_dtype=f32, peak=None, float_clamp_min=None):
         """Resample ``src`` (H, W) or (F, H, W) on the applier's device."""

@@ -3,25 +3,25 @@
 Port of ``jincresize_tpu/apply_conv_seg.py``. Pairs the shared planner
 ``phase.plan_phases_seg`` with ``kernels/seg.py``: the kernel computes the
 plan-covered interior rectangle; exception rows and columns (start-offset
-outliers and partial trailing periods) are recomputed with the conv path's
-``_cols_subset``/``_rows_subset``; border strips come from each strip's
-source row band. The canvas is assembled with one concatenate when the
-strips frame the interior and no exceptions exist, else pasted with the
-precedence columns, then rows, then strips.
+outliers and partial trailing periods) are written into the canvas by
+``kernels/lines.py`` (one kernel launch a call); border strips come from
+each strip's source row band. The canvas is assembled with one concatenate
+when the strips frame the interior and no exceptions exist, else pasted
+with the precedence columns, then rows, then strips.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from .operator import PlaneOperator
 from .phase import SegPhasePlan, plan_phases_seg
 
-from .apply_conv import _cols_subset, _rows_subset, banded_strip_values, strip_row_bands
+from .apply_conv import banded_strip_values, strip_row_bands
 from .apply_gather import assemble, concat, strips_frame_interior
 from .apply_xla import finalize, resolve_device, source_f32, to_device
 from .kernels import fused as fused_k
+from .kernels import lines as lines_k
 from .kernels import seg as seg_k
 from .metrics import span
 
@@ -77,12 +77,7 @@ class SegConvApplier:
         self.effective_precision = fused_k.APPLIER_PRECISION[self.si.precision]
         self._dop = to_device(op, self.device)
         self._strip_bands = strip_row_bands(op)
-
-        def t(a):
-            return torch.from_numpy(a.astype(np.int64)).to(self.device)
-
-        self._exc_x = t(plan.x.exceptions)
-        self._exc_y = t(plan.y.exceptions)
+        self.lines = lines_k.make_lines(self._dop, plan.x.exceptions, plan.y.exceptions)
         self._rect = (plan.y.lo, plan.y.hi, plan.x.lo, plan.x.hi)
         self._concat = (
             strips_frame_interior(op, *self._rect)
@@ -101,14 +96,7 @@ class SegConvApplier:
                 return concat(self.op, interior, self._rect, strips)
             # Exceptions: start-offset outliers + trailing partial periods, with
             # apply_conv._assemble's precedence: columns, then rows, then strips.
-            fixups = []
-            if self._exc_x.shape[0]:
-                cols = _cols_subset(dop, src_f, self._exc_x)
-                fixups.append(((slice(None), slice(None), self._exc_x), cols))
-            if self._exc_y.shape[0]:
-                rows = _rows_subset(dop, src_f, self._exc_y)
-                fixups.append(((slice(None), self._exc_y), rows))
-            return assemble(self.op, interior, self._rect, strips, src_f, fixups)
+            return assemble(self.op, interior, self._rect, strips, src_f, self.lines)
 
     def __call__(self, src, out_dtype=f32, peak=None, float_clamp_min=None):
         """Resample ``src`` (H, W) or (F, H, W) on the applier's device."""

@@ -17,6 +17,7 @@ from .operator import PlaneOperator
 from .apply_conv import banded_strip_values, strip_row_bands
 from .apply_xla import finalize, resolve_device, source_f32, to_device
 from .kernels import gather as gather_k
+from .kernels import lines as lines_k
 from .metrics import span
 
 f32 = torch.float32
@@ -39,16 +40,17 @@ def strips_frame_interior(op: PlaneOperator, ylo: int, yhi: int, xlo: int, xhi: 
     return rects == expected and len(rects) == len(op.strips)
 
 
-def assemble(op, interior, rect, strips: dict, src_f, fixups=()) -> torch.Tensor:
+def assemble(op, interior, rect, strips: dict, src_f, lines=None) -> torch.Tensor:
     """Canvas (F, dst_h, dst_w) from the interior block at ``rect`` =
-    (ylo, yhi, xlo, xhi), the fixups ``(index, values)`` pasted in order, and
-    the strips ``{(y0, y1, x0, x1): values}``, which own their pixels."""
+    (ylo, yhi, xlo, xhi), the exception lines ``lines``
+    (``kernels.lines.make_lines`` over the whole canvas, or None), and the
+    strips ``{(y0, y1, x0, x1): values}``, which own their pixels."""
     ylo, yhi, xlo, xhi = rect
     H, W = op.dst_height, op.dst_width
     canvas = torch.zeros((src_f.shape[0], H, W), dtype=f32, device=src_f.device)
     canvas[:, ylo:yhi, xlo:xhi] = interior
-    for index, vals in fixups:
-        canvas[index] = vals
+    if lines is not None:
+        lines_k.exc_lines(lines, src_f, canvas)
     for (y0, y1, x0, x1), vals in strips.items():
         canvas[:, y0:y1, x0:x1] = vals
     return canvas

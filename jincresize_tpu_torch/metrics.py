@@ -1,4 +1,4 @@
-"""Observability: spans, set-up counters, device traces, operator stats.
+"""Observability: spans, counters, device traces, operator stats.
 
 ``span(name)`` marks one step of a call (``jinc.call``, ``jinc.plane.<name>``,
 ``jinc.upload``, ``jinc.engine``, ``jinc.interior``, ...) as a
@@ -7,13 +7,18 @@ steps land in the same trace as the device work, on its clock. With no
 profiler recording a span costs one flag check: it dispatches no op and
 allocates nothing.
 
-``count(name, value)`` adds to a process-wide record of what set-up costs,
-which ``counters()`` returns a copy of. It is always on and only grows. Its
-keys are fixed: ``operator_s`` (host seconds in ``JincResizer.__init__``
+``count(name, value)`` adds to a process-wide record, which ``counters()``
+returns a copy of. It is always on and only grows. Its keys are fixed. What
+set-up costs: ``operator_s`` (host seconds in ``JincResizer.__init__``
 building or loading the plane operators and their LUT), ``engine_s`` (host
 seconds in ``JincResizer._init_engines``: engine selection, the appliers'
 tables, weight splits and uploads), ``operator_cache_loads`` and
 ``operator_cache_builds`` (entries ``cache.cached_build`` loaded or built).
+What the calls' exception-line fixups (``kernels.lines.exc_lines``) do:
+``exception_launches`` (launches of the kernel on the card, one a plane
+call that has exception lines; its plain form on the CPU launches nothing)
+and ``exception_lines`` (the exception columns and rows computed, by either
+form).
 
 ``device_trace`` is a ``torch.profiler`` scope that records CPU activity, and
 CUDA activity when a card is visible, and writes a Chrome trace into
@@ -51,6 +56,8 @@ _COUNTERS = {
     "engine_s": 0.0,
     "operator_cache_loads": 0,
     "operator_cache_builds": 0,
+    "exception_launches": 0,
+    "exception_lines": 0,
 }
 
 
@@ -60,7 +67,7 @@ def count(name: str, value=1) -> None:
 
 
 def counters() -> dict:
-    """A copy of the process-wide set-up counters."""
+    """A copy of the process-wide counters."""
     return dict(_COUNTERS)
 
 

@@ -24,6 +24,7 @@ import torch
 
 from ..apply_conv import ConvApplier, _assemble
 from ..kernels import fused as fused_k
+from ..kernels import lines as lines_k
 from ..operator import build_plane_operator, radius_for_tap
 from ._timing import add_device_arg, calls_ms, open_device
 
@@ -44,6 +45,9 @@ def main(argv=None, size=None) -> dict:
     cop = app.cop
     print(f"# exc_x: {tuple(cop.exc_x.shape)} exc_y: {tuple(cop.exc_y.shape)}", file=sys.stderr)
     print(f"# strips: {[(s.y0, s.y1, s.x0, s.x1) for s in cop.dop.strips]}", file=sys.stderr)
+    # The exception lines over the whole canvas, as _assemble pastes them.
+    exc = [e.cpu().numpy() for e in (cop.exc_x, cop.exc_y)]
+    lines = lines_k.make_lines(cop.dop, *exc)
     src = torch.from_numpy(np.random.default_rng(0).random((F, sh, sw), dtype=np.float32))
     src = src.to(device)
     ylo, xlo, py, px = cop.meta[:4]
@@ -58,7 +62,7 @@ def main(argv=None, size=None) -> dict:
         "interior only": lambda: fused_k.fused_interior(app.fi, src),
         "interior+paste": paste,
         "interior+paste+strips": lambda: _assemble(
-            cop, fused_k.fused_interior(app.fi, src), src, app._strip_blocks(src)
+            cop, fused_k.fused_interior(app.fi, src), src, app._strip_blocks(src), lines
         ),
         "full (=+exceptions+finalize)": lambda: app(src),
     }
