@@ -39,22 +39,29 @@ def one_torch_thread():
     torch.set_num_threads(old)
 
 
-# Small stand-ins of the cells' sizes, for runs of the whole harness on the
-# CPU, where the program runs its plain forms. Each keeps its cell's ratio,
-# and 256x144 -> 192x108 at tap 16 is drifted, as 1440p -> 1080p is.
-# ``impl='pallas'`` takes the engines in the order ``'auto'`` takes them on
-# a card (on the CPU ``'auto'`` goes from ``fused`` to ``xla``): fused on
-# every plane of the first, fused-seg on every plane of the second.
-TINY = {
-    "jinc256_2160p_to_4320p_yuv420p8": (64, 36, 128, 72),
-    "jinc_tap16_1440p_to_1080p_yuv420p10": (256, 144, 192, 108),
-}
+def at_standin(config: dict) -> dict:
+    """The keys of ``config`` that put it at its stand-in size under
+    ``impl='pallas'``, with no operator cache: ``config.update(...)`` them."""
+    s = config["standin"]
+    jc = dict(config["jinc_config"], target_width=s["target_width"],
+              target_height=s["target_height"], impl="pallas", operator_cache=False)  # fmt: skip
+    return {"src_width": s["src_width"], "src_height": s["src_height"], "jinc_config": jc}
+
+
+@pytest.fixture(name="at_standin")
+def at_standin_fixture():
+    """``at_standin(config)``, for tests that build the system alone."""
+    return at_standin
 
 
 @pytest.fixture
 def tiny_run():
-    """``tiny_run(cell, seed, **kw)``: one run of ``cell`` on the CPU at a
-    small stand-in of its size, with its own format, filter and limits."""
+    """``tiny_run(cell, seed, **kw)``: one run of ``cell`` on the CPU at the
+    stand-in size its configuration file gives (``standin``), with its own
+    format, filter and limits. ``impl='pallas'`` takes the engines in the
+    order ``'auto'`` takes them on a card (on the CPU ``'auto'`` goes from
+    ``fused`` to ``xla``), and ``test_bench_standins.py`` holds each
+    stand-in to the engines its file states."""
     import time
 
     from benchmark import harness
@@ -63,11 +70,7 @@ def tiny_run():
         spec = harness.load_spec()
         cell = harness.workload(spec, cell_name)
         config = harness.config_of(spec, cell)
-        sw, sh, dw, dh = TINY[config["name"]]
-        config.update(src_width=sw, src_height=sh)
-        config["jinc_config"].update(
-            target_width=dw, target_height=dh, impl="pallas", operator_cache=False
-        )
+        config.update(at_standin(config))
         traffic = dict(harness.traffic_of(cell), trace_skip=1, trace_calls=2, check_calls=1)
         return harness.run_cell(spec, cell, seed, seconds, kw.pop("trace", False), "cpu",
                                 time.perf_counter(), config=config, traffic=traffic, **kw)  # fmt: skip

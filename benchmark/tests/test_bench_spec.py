@@ -130,3 +130,18 @@ def test_a_reader_per_metric(metric):
     from benchmark.harness import reader
 
     assert callable(reader(metric["name"]))
+
+
+@pytest.mark.parametrize("config", SPEC["configs"], ids=lambda c: c["name"])
+def test_config_standin_and_engines(config):
+    """Each configuration carries what the CPU tests need to run it: a
+    stand-in size with a line on the plan it keeps, and the engine each
+    plane takes on the card, as ``JincResizer(...).engines`` reports it."""
+    body = json.loads((ROOT / config["file"]).read_text())
+    s = body["standin"]
+    assert set(s) == {"src_width", "src_height", "target_width", "target_height", "why"}
+    sizes = [s[k] for k in ("src_width", "src_height", "target_width", "target_height")]
+    assert all(isinstance(n, int) and n > 0 for n in sizes) and line(s["why"])
+    engines = body["engines"]
+    assert isinstance(engines, dict) and "luma" in engines and set(engines) <= {"luma", "chroma"}
+    assert all(isinstance(e, str) and e for e in engines.values())

@@ -1,5 +1,5 @@
 """The work count of ``resample_roofline``: the reference's nonzero weights
-against a hand count, and fs**2 a pixel as the upper limit at both
+against a hand count, and fs**2 a pixel as the upper limit at the
 configurations' sizes."""
 
 import json
@@ -62,3 +62,19 @@ def test_upper_limits_at_the_configurations_sizes():
     t, by = work.bound_s(ops, work.frame_bytes(down))
     assert by == "operations" and t == pytest.approx(12.17e-6, rel=1e-3)
     assert work.frame_bytes(down) / work.PEAK_BYTES_S == pytest.approx(5.16e-6, rel=1e-3)
+
+
+def test_count_at_the_default_filter_upscale():
+    """1920x1080 -> 3840x2160 at tap 3 (fs 7): the reference counts
+    390,945,716 nonzero weights a frame, 0.6413 of the fs**2 = 49 a pixel
+    that bound it. 2 x that is 7.82e8 operations (0.79 us) against 15.55 MB (4.64 us): the
+    least time of this frame is set by its bytes, not its operations."""
+    cfg = load("jinc36_1080p_to_2160p_yuv420p8")
+    up = jinc_ewa.upper_nnz_per_frame(cfg)
+    assert up == 49 * (3840 * 2160 + 2 * 1920 * 1080)
+    nnz = jinc_ewa.compare(cfg, [], "cpu")["nnz_per_frame"]
+    assert 0 < nnz <= up and nnz / up == pytest.approx(0.6413, abs=1e-4)
+    assert work.frame_bytes(cfg) == 1920 * 1080 * 3 // 2 + 3840 * 2160 * 3 // 2
+    t, by = work.bound_s(2 * nnz, work.frame_bytes(cfg))
+    assert by == "bytes" and t == pytest.approx(4.642e-6, rel=1e-3)
+    assert 2 * nnz / work.PEAK_FLOPS == pytest.approx(0.7906e-6, rel=1e-3)
