@@ -63,7 +63,7 @@ from .clip import Clip, Frame, VideoFormat
 from .filters import build_lut
 from .geometry import build_plane_geometry, chroma_crop
 from .golden import apply_plane_numpy
-from .metrics import count, counters, logger, span
+from .metrics import count, counters, held_bytes, logger, span
 from .operator import PlaneOperator, build_plane_operator, radius_for_tap
 from .phase import geometry_is_periodic, plan_phases, plan_phases_seg
 
@@ -369,6 +369,7 @@ class JincResizer:
         t0 = time.perf_counter()
         self._init_engines(mesh)
         count("engine_s", time.perf_counter() - t0)
+        count("engine_bytes", self.engine_bytes())
 
         # Float-source clamp per plane (SIMD semantics unless opt==0).
         clamp = cfg.float_clamp
@@ -377,10 +378,11 @@ class JincResizer:
         self._float_clamp = clamp and fmt.bits == 32
         built = {k: v - before[k] for k, v in counters().items()}
         logger.info(
-            "resizer built: operators %.3f s, engines %.3f s, operator cache "
-            "%d loads, %d builds",
+            "resizer built: operators %.3f s, engines %.3f s and %.1f MB, operator "
+            "cache %d loads, %d builds",
             built["operator_s"],
             built["engine_s"],
+            built["engine_bytes"] / 1e6,
             built["operator_cache_loads"],
             built["operator_cache_builds"],
         )
@@ -429,6 +431,12 @@ class JincResizer:
             setattr(self, f"_dev_{plane}", dev)
             self.engines[plane] = eng
         self._maybe_drift_hint()
+
+    def engine_bytes(self) -> int:
+        """Bytes of the device tables the engines hold: every plane's applier
+        and device operator (``metrics.held_bytes``)."""
+        return held_bytes(self._applier_luma, self._applier_chroma, self._dev_luma,
+                          self._dev_chroma)  # fmt: skip
 
     def _maybe_drift_hint(self) -> None:
         """Log when float32 position drift kept a rational geometry off the
@@ -697,6 +705,7 @@ class ChainResizer(JincResizer):
         t0 = time.perf_counter()
         self._init_engines(mesh)
         count("engine_s", time.perf_counter() - t0)
+        count("engine_bytes", self.engine_bytes())
         clamp = last.float_clamp
         if clamp is None:
             clamp = last.opt != 0

@@ -86,6 +86,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import metrics
 from ..operator import PlaneOperator
 
 from . import _build
@@ -285,7 +286,8 @@ def gather_interior(gi: GatherInterior, src_f: torch.Tensor) -> torch.Tensor:
 
     On a CPU tensor this is ``gather_interior_plain``. On a CUDA tensor it
     launches ``csrc/gather_interior.cu`` (counted in
-    ``gather_interior.launches``) or raises; it never falls back.
+    ``gather_interior.launches`` and the counter ``gather_launches``) or
+    raises; it never falls back.
     """
     if src_f.device.type == "cpu":
         return gather_interior_plain(gi, src_f)
@@ -312,6 +314,7 @@ def gather_interior(gi: GatherInterior, src_f: torch.Tensor) -> torch.Tensor:
         )  # fmt: skip
     _build.check(rc, "jt_gather_interior")
     gather_interior.launches += 1
+    metrics.count("gather_launches")
     return out
 
 

@@ -18,7 +18,13 @@ What the calls' exception-line fixups (``kernels.lines.exc_lines``) do:
 ``exception_launches`` (launches of the kernel on the card, one a plane
 call that has exception lines; its plain form on the CPU launches nothing)
 and ``exception_lines`` (the exception columns and rows computed, by either
-form).
+form). What the gather engine does: ``gather_launches`` (launches of the
+gather interior kernel, ``kernels.gather.gather_interior``, on the card, one
+a plane call; its plain form on the CPU launches nothing). What the engines
+hold: ``engine_bytes`` (bytes of the device tables that each
+``JincResizer._init_engines`` left in its appliers and device operators --
+dictionaries, padded blocks, weight splits, strip blocks, index tables --
+as ``held_bytes`` counts them).
 
 ``device_trace`` is a ``torch.profiler`` scope that records CPU activity, and
 CUDA activity when a card is visible, and writes a Chrome trace into
@@ -58,6 +64,8 @@ _COUNTERS = {
     "operator_cache_builds": 0,
     "exception_launches": 0,
     "exception_lines": 0,
+    "gather_launches": 0,
+    "engine_bytes": 0,
 }
 
 
@@ -69,6 +77,31 @@ def count(name: str, value=1) -> None:
 def counters() -> dict:
     """A copy of the process-wide counters."""
     return dict(_COUNTERS)
+
+
+def held_bytes(*objs) -> int:
+    """Bytes of the tensor storages reachable from ``objs`` through dataclass
+    fields and the attributes of the port's own objects, dicts, lists and
+    tuples: the tables an applier or a device operator holds. A storage
+    that several tensors view counts once, at its whole size."""
+    storages, seen, todo = {}, set(), list(objs)
+    while todo:
+        o = todo.pop()
+        if isinstance(o, torch.Tensor):
+            s = o.untyped_storage()
+            storages[(str(o.device), s.data_ptr())] = s.nbytes()
+        elif id(o) in seen or o is None:
+            continue
+        elif isinstance(o, dict):
+            seen.add(id(o))
+            todo.extend(o.values())
+        elif isinstance(o, (list, tuple)):
+            seen.add(id(o))
+            todo.extend(o)
+        elif type(o).__module__.split(".")[0] == __package__ and hasattr(o, "__dict__"):
+            seen.add(id(o))
+            todo.extend(vars(o).values())
+    return sum(storages.values())
 
 
 def log_operator_stats(op, label: str = "operator") -> dict:
