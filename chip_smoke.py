@@ -62,7 +62,9 @@ Phases (each raises on failure; nothing catches it):
    within ``kernels.fused.wsplit3_bound`` (the reading printed); every
    launch counted;
 3. end to end, one path after another, each with the launch counts set to 0
-   just before and read just after, on 4-frame yuv420p8 clips:
+   just before and read just after (the gather engine's by kernel: the
+   tile or the class-grouped one, as ``takes_grouped`` picks for each
+   plane), on 4-frame yuv420p8 clips:
    3840x2160 -> 7680x4320 tap 8 (periodic: ``fused``), 2560x1440 -> 3840x2160
    tap 8 (drifted 1.5x: ``fused-seg``), 1920x1080 -> 3740x2104 tap 8
    (aperiodic: ``gather``), 3840x2160 -> 1920x1080 tap 16 (deep taps:
@@ -153,7 +155,15 @@ Phases (each raises on failure; nothing catches it):
    one luma ``SegConvApplier`` call's and one ``JincResizer`` call's device
    launches with the ``exception_launches`` / ``exception_lines`` counters
    read before and after (1 and 2 a plane call), and a 4K -> 8K call that
-   leaves both counters unchanged (``exc_lines_row``);
+   leaves both counters unchanged (``exc_lines_row``); the class-grouped
+   gather kernel on the luma and chroma planes of the 3840x2160 ->
+   1366x768 tap-16 deployment and the tap-8 1080p -> 3740x2104 luma plane
+   against the plain form and the tile kernel at F = 1, 2, 3, 4 and 8 (0),
+   both kernels timed a frame at each beside the kernel ``takes_grouped``
+   picks, the cell's launch (luma, one frame) beside its bound and the plain
+   form, and one one-frame call's
+   ``gather_launches`` / ``gather_grouped_launches`` (3 each;
+   ``gather_grouped_row``);
 5. two processes -- ``python3 chip_smoke.py --dist-worker <port> <rank>``,
    twice, joined by a gloo group (``distributed.init_distributed``; NCCL
    refuses two ranks on one card, so the halos cross through host buffers),
@@ -586,6 +596,94 @@ def exc_lines_row(card: str, periodic=None) -> dict:
     return row
 
 
+def gather_grouped_row(card: str, deep=None, aperiodic=None) -> dict:
+    """Phase 4's row of the class-grouped gather kernel, on the benchmark's
+    gather deployment (``DEEP_APERIODIC``, 3840x2160 -> 1366x768 tap 16
+    yuv420p8, ``gather`` on every plane): on its luma and chroma planes and
+    on the tap-8 1080p -> 3740x2104 luma plane (``APERIODIC``), at each of
+    ``KERNEL_FRAMES``, ``gather_interior_grouped`` against the plain form
+    and against ``gather_interior_tile`` (0 difference), both kernels'
+    CUDA-event ms a frame, and the kernel ``takes_grouped`` picks; then one
+    whole one-frame ``JincResizer`` call with the ``gather_launches`` /
+    ``gather_grouped_launches`` counters read before and after (3 each, one
+    a plane). ``deep``: that deployment's ``JincResizer``; ``aperiodic``: a
+    ``GatherApplier`` of the 1080p -> 3740x2104 luma plane (its resizer's);
+    each is built when not given. Returns the row's readings at the
+    benchmark cell's launch, the deployment's luma plane at one frame:
+    ``ms``, ``plain_ms``, ``bound_ms``, ``bound_by``, and ``max_abs_err``
+    over every check."""
+    import numpy as np
+    import torch
+
+    from jincresize_tpu_torch import metrics
+    from jincresize_tpu_torch.api import JincConfig, JincResizer
+    from jincresize_tpu_torch.apply_gather import GatherApplier
+    from jincresize_tpu_torch.clip import Clip, random_frame, yuv420p
+    from jincresize_tpu_torch.kernels import gather as gather_k
+    from jincresize_tpu_torch.operator import build_plane_operator, radius_for_tap
+
+    dev = torch.device(DEVICE)
+    fmt = yuv420p(8)
+    sw, sh, dw, dh = DEEP_APERIODIC
+    clip = Clip.from_frames([random_frame(fmt, sw, sh, seed=2200)])
+    if deep is None:
+        deep = JincResizer(fmt, sw, sh, JincConfig(dw, dh, tap=DEEP_TAP), frame0=clip.frames[0],
+                           device=dev)  # fmt: skip
+    assert deep.engines == {"luma": "gather", "chroma": "gather"}, deep.engines
+    if aperiodic is None:
+        asw, ash, adw, adh = APERIODIC
+        aperiodic = GatherApplier(build_plane_operator(asw, ash, adw, adh, radius_for_tap(8)), dev)
+    cell_luma = f"{sw}x{sh}->{dw}x{dh} tap{DEEP_TAP} luma"
+    planes = {cell_luma: deep._applier_luma,
+              f"{sw}x{sh}->{dw}x{dh} tap{DEEP_TAP} chroma": deep._applier_chroma,
+              "{}x{}->{}x{} tap8 luma".format(*APERIODIC): aperiodic}  # fmt: skip
+    grouped, tile = gather_k.gather_interior_grouped, gather_k.gather_interior_tile
+    rng = np.random.default_rng(2201)
+    row = {"max_abs_err": 0.0}
+    for name, app in planes.items():
+        gi, op = app.gi, app.op
+        assert gi.groups is not None, name
+        n_class = gather_k.class_rows(op.cy_idx[op.y_lo : op.y_hi])
+        src = torch.from_numpy(rng.random((max(KERNEL_FRAMES), gi.src_height, gi.src_width),
+                                          dtype=np.float32)).to(dev)  # fmt: skip
+        for F in KERNEL_FRAMES:
+            x = src[:F].contiguous()
+            want = gather_k.gather_interior_plain(gi, x)
+            got, by_tile = grouped(gi, x), tile(gi, x)
+            torch.cuda.synchronize()
+            err = max(float((got - want).abs().max()), float((got - by_tile).abs().max()))
+            assert err == 0 and torch.equal(got, want) and torch.equal(got, by_tile), (name, F, err)
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            ms = cuda_ms(lambda: grouped(gi, x), 10) / F
+            tile_ms = cuda_ms(lambda: tile(gi, x), 10) / F
+            pick = "grouped" if gather_k.takes_grouped(gi, F) else "tile"
+            print(f"[4] gather {name} F={F}: K {gi.group_rows} ({n_class} rows a class, "
+                  f"{gi.groups.shape[0]} groups); grouped {ms:.4f}, tile {tile_ms:.4f} ms a frame "
+                  f"(tile / grouped {tile_ms / ms:.2f}); takes_grouped picks the {pick} kernel; "
+                  f"max |grouped - plain form|, |grouped - tile| {err} [{card}]")
+            if name == cell_luma and F == 1:
+                nyi, nxi = gi.out_shape
+                b_ms, by = bound_ms(2.0 * gi.fs**2 * nyi * nxi,
+                                    4.0 * (gi.src_height * gi.src_width + nyi * nxi))  # fmt: skip
+                plain_ms = cuda_ms(lambda: gather_k.gather_interior_plain(gi, x), 1, warmup=0)
+                row.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by)
+                print(f"[4] gather grouped {name} F=1 (the cell's launch): {ms:.4f} ms, the plain "
+                      f"form {plain_ms:.1f} ms; bound {b_ms:.4f} ms ({by}), the grouped kernel at "
+                      f"{b_ms / ms:.2%} of it [{card}]")
+        del src, x, want, got, by_tile
+    deep(clip)  # warm
+    keys = ("gather_launches", "gather_grouped_launches")
+    before = metrics.counters()
+    deep(clip)
+    torch.cuda.synchronize()
+    after = metrics.counters()
+    d = {k: after[k] - before[k] for k in keys}
+    print(f"[4] one JincResizer call ({sw}x{sh}->{dw}x{dh} tap{DEEP_TAP} yuv420p8, 1 frame, 3 "
+          f"planes): counters {d} [{card}]")
+    assert d == {"gather_launches": 3, "gather_grouped_launches": 3}, d
+    return row
+
+
 def dist_phase(card: str) -> None:
     """Phase 5: start ``DIST_RANKS`` workers (``--dist-worker``), wait for
     both within ``DIST_TIMEOUT`` seconds, print their lines, and raise on a
@@ -765,7 +863,8 @@ def main() -> int:
     wrappers = {
         "fused": fused_k.fused_interior,
         "strips": strips_k.strips,
-        "gather": gather_k.gather_interior,
+        "gather": gather_k.gather_interior_tile,
+        "gather_grouped": gather_k.gather_interior_grouped,
         "seg": seg_k.seg_interior,
         "gather_band": gather_k.gather_band,
         "out_only": probe.out_only,
@@ -943,7 +1042,10 @@ def main() -> int:
 
     def check_interior(kind, name, op, bits, rng, frames=2, precision="fp32"):
         """The gather or seg kernel (seg: in its ``precision`` mode) against
-        its plain form on ``op``."""
+        its plain form on ``op``. ``gather``: ``gather_interior``, which
+        launches the kernel ``takes_grouped`` names, and where the tables have
+        row groups the other kernel too, bit-equal to it (its error counts as
+        ``gather_grouped``'s)."""
         if kind == "seg":
             plan = plan_phases_seg(op)
             assert plan is not None and seg_k.is_supported(op, plan), name
@@ -962,12 +1064,25 @@ def main() -> int:
             info = f"interior={tables.out_shape[1]}x{tables.out_shape[0]}"
         src = rand_src(op, bits, rng, frames)
         before = counts()
-        got = wrappers[kind](tables, src)
+        ran = kind
+        if kind == "gather":
+            ran = "gather_grouped" if gather_k.takes_grouped(tables, frames) else "gather"
+            got = gather_k.gather_interior(tables, src)
+        else:
+            got = wrappers[kind](tables, src)
         ref = plain(tables, src)
         torch.cuda.synchronize()
-        assert counts() == {**before, kind: before[kind] + 1}, (name, before, counts())
+        assert counts() == {**before, ran: before[ran] + 1}, (name, before, counts())
         assert torch.isfinite(got).all(), name
         err = err_of(got, ref, 32 if precision == "wsplit3" else bits)  # wsplit3: fp32 |err|
+        if kind == "gather" and tables.groups is not None:
+            other = (gather_k.gather_interior_tile if ran == "gather_grouped"
+                     else gather_k.gather_interior_grouped)(tables, src)  # fmt: skip
+            assert torch.equal(other, got), name
+            covered["gather_grouped"] += 1
+            if bits == 32:
+                max_err["gather_grouped"] = max(max_err["gather_grouped"], err)
+            info += f" K={tables.group_rows} ({ran} chosen, the other kernel equal)"
         moved = ""
         if precision == "fp32":
             assert err == 0, (name, kind, err)  # both kernels sum in the plain form's order: exact
@@ -1377,6 +1492,13 @@ def main() -> int:
         apps = [r._applier_chroma if n in ("U", "V") else r._applier_luma for n in fmt.plane_names]
         return {"fused": len(apps), "strips": sum(a.strips_spec is not None for a in apps)}
 
+    def gather_expect(r, frames):
+        """Launches of one call of a gather-engine resizer over ``frames``
+        frames, by kernel (``takes_grouped`` on each plane's tables)."""
+        apps = [r._applier_chroma if n in ("U", "V") else r._applier_luma for n in fmt.plane_names]
+        grouped = sum(gather_k.takes_grouped(a.gi, frames) for a in apps)
+        return {"gather": len(apps) - grouped, "gather_grouped": grouped}
+
     def path_counts():
         """The launch counts of the path just driven (read once a path); its
         kernel modes' counts are added to ``main_modes``."""
@@ -1448,10 +1570,11 @@ def main() -> int:
         pout = pr(pclip)
         torch.cuda.synchronize()
         got = path_counts()
-        launches[kind] = got[kind]
+        want = gather_expect(pr, E2E_FRAMES) if kind == "gather" else {kind: n_planes}
+        launches.update({k: got[k] for k in want})
         print(f"[3] JincResizer 4x {sw}x{sh} yuv420p8 -> {dw}x{dh} tap8 ({engine}) in "
               f"{time.perf_counter() - t0:.1f} s; launches {got}")
-        assert got == {**dict.fromkeys(wrappers, 0), kind: n_planes}, got
+        assert got == {**dict.fromkeys(wrappers, 0), **want}, (got, want)
         assert_modes(f"{engine} yuv420p8", u8_modes(pr))
         pref = JincResizer(fmt, sw, sh, replace(pr.cfg, impl="xla"), device=dev)(pclip)
         against(f"{engine} engine", pout, pref)
@@ -1515,8 +1638,10 @@ def main() -> int:
     assert_modes("deep aperiodic gather yuv420p8", u8_modes(deep_aper_r))
     print(f"[3] JincResizer 4x {deep_aper_geo} yuv420p8 tap16 (gather) in "
           f"{time.perf_counter() - t0:.1f} s; launches {got}")
-    assert got == {**dict.fromkeys(wrappers, 0), "gather": n_planes}, got
-    launches["gather"] += got["gather"]
+    want = gather_expect(deep_aper_r, E2E_FRAMES)
+    assert got == {**dict.fromkeys(wrappers, 0), **want}, (got, want)
+    for k in want:
+        launches[k] += got[k]
     t0 = time.perf_counter()
     aref = JincResizer(fmt, dasw, dash, replace(aper_cfg, impl="xla"), device=dev)(aclip)
     torch.cuda.synchronize()
@@ -1901,9 +2026,9 @@ def main() -> int:
     res, _ = run_tool(bench_gather, ["--geometry", "4k", "--impl", "seg", "--check", "--iters", "1"],
                       ("seg",))  # fmt: skip
     assert res["engine"] == "fused-seg" and res["check_lsb"] <= 1, res
-    res, _ = run_tool(bench_gather, ["--geometry", "4k", "--impl", "gather", "--iters", "1"],
-                      ("gather",))  # fmt: skip
-    assert res["engine"] == "gather", res
+    # Either gather kernel, as takes_grouped picks for the 8-frame batch.
+    res, got = run_tool(bench_gather, ["--geometry", "4k", "--impl", "gather", "--iters", "1"], ())
+    assert res["engine"] == "gather" and got["gather"] + got["gather_grouped"] > 0, (res, got)
     res, _ = run_tool(streaming_pipeline, [], ("fused",))
     assert res["value"] > 0, res
 
@@ -2177,7 +2302,7 @@ def main() -> int:
         ("gather_drift", lambda: gather_k.gather_interior(gather_app.gi, tsrc_d)),
         ("seg_applier", lambda: seg_app(tsrc_d)),
         ("gather_applier", lambda: gather_app(tsrc_d)),
-        ("gather", lambda: gather_k.gather_interior(gi_aper, tsrc_a)),
+        ("gather", lambda: gather_k.gather_interior_tile(gi_aper, tsrc_a)),
         ("gather_plain", lambda: gather_k.gather_interior_plain(gi_aper, tsrc_a)),
     )
     new_ms = {}
@@ -2492,6 +2617,9 @@ def main() -> int:
     # The exception-line kernel on the tap-16 1440p -> 1080p planes; the
     # 4K -> 8K resizer of phase 3 has no exception lines.
     exc_row = exc_lines_row(card, (resizer, Clip.from_frames(clip.frames[:1])))
+    # The class-grouped gather kernel on the gather cell's planes and the
+    # tap-8 aperiodic luma plane, and one call's counters.
+    grouped_row = gather_grouped_row(card, deep_aper_r, aper_r._applier_luma)
 
     print(f"[4] phases 1-4 took {time.perf_counter() - t_start:.1f} s")
 
@@ -2617,6 +2745,19 @@ def main() -> int:
             "plain_ms": ms["gather_band_plain"],
             "bound_ms": bounds["gather_band"][0],
             "bound_by": bounds["gather_band"][1],
+            "library_ms": None,
+        },
+        {
+            "name": "gather_interior_grouped",
+            "route": "cuda",
+            "source": "jincresize_tpu_torch/csrc/gather_interior.cu",
+            "replaces": "jincresize_tpu/kernels/pallas_gather.py:137",
+            "launches": launches["gather_grouped"],
+            "max_abs_err": grouped_row["max_abs_err"],
+            "ms": grouped_row["ms"],
+            "plain_ms": grouped_row["plain_ms"],
+            "bound_ms": grouped_row["bound_ms"],
+            "bound_by": grouped_row["bound_by"],
             "library_ms": None,
         },
         {

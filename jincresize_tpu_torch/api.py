@@ -377,14 +377,23 @@ class JincResizer:
             clamp = cfg.opt != 0
         self._float_clamp = clamp and fmt.bits == 32
         built = {k: v - before[k] for k, v in counters().items()}
+        # The gather interiors' rows a group (1: the tile kernel) beside the
+        # most rows of one row class, which chose it.
+        groups = "".join(
+            f", gather {plane} {a.gi.group_rows} rows a group "
+            f"({gather_k.class_rows(a.op.cy_idx[a.op.y_lo : a.op.y_hi])} a class)"
+            for plane in ("luma", "chroma")
+            if isinstance(a := getattr(self, f"_applier_{plane}"), GatherApplier)
+        )
         logger.info(
             "resizer built: operators %.3f s, engines %.3f s and %.1f MB, operator "
-            "cache %d loads, %d builds",
+            "cache %d loads, %d builds%s",
             built["operator_s"],
             built["engine_s"],
             built["engine_bytes"] / 1e6,
             built["operator_cache_loads"],
             built["operator_cache_builds"],
+            groups,
         )
 
     # --------------------------------------------------------------- engines

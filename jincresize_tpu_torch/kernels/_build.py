@@ -37,6 +37,7 @@ _SIGNATURES = {
     "jt_out_only": [_P] + [_I] * 5 + [_P],
     "jt_strips": [_P] * 5 + [_I] * 15 + [_P],
     "jt_gather_interior": [_P] * 7 + [_I] * 11 + [_P],
+    "jt_gather_interior_grouped": [_P] * 8 + [_I] * 12 + [_P],
     "jt_gather_band": [_P] * 7 + [_I] * 13 + [_P],
     "jt_seg_interior": [_P] * 11 + [_I] * 14 + [_P],
     "jt_seg_interior_bf16": [_P] * 12 + [_I] * 16 + [_P],

@@ -1,4 +1,4 @@
-"""General-geometry gather interior: hand-written CUDA kernel and plain form.
+"""General-geometry gather interior: hand-written CUDA kernels and plain form.
 
 ``gather_interior`` replaces ``jincresize_tpu/kernels/pallas_gather.py``
 ``make_gather_interior``/``_gather_kernel`` (:137, ``pallas_call`` :455).
@@ -11,21 +11,47 @@ geometry, periodic or not, at any filter size:
 with the operator's own window starts ``sy``/``sx`` and dictionary classes
 ``cy``/``cx``. Borders and the canvas are the caller's (``apply_gather``).
 
-The CUDA kernel is ``csrc/gather_interior.cu`` over the tile body of
-``csrc/gather_tile.cuh``. What bounds it on an H100 is feeding the FMAs,
-not their count: every pixel may own a different (fs, fs) block, so each
-weight serves only the frames of its pixel, while the source is small and
-shared by neighbouring windows. A block streams its tile's source window
-(32 columns by 16 rows of output) through a double-buffered ``cp.async``
-ring of source rows in shared memory, frames side by side; a thread owns
-one column, 2 rows and up to 8 frames (``FRAMES``, chosen from F by
-``choose_ring``), loads each staged row's source values once for both of
-its rows, and reads each row's weights as one linear stream of 16-byte
-loads through its block, two chunks ahead: one load serves 4 taps times
-its frames. Per pixel and frame the sum is an ``fmaf`` chain along each tap
-row, the row sums added in ly order (more accurate than one running sum
-over fs**2 taps); the plain form sums alike, so kernel and plain form agree
-bit for bit.
+Two CUDA kernels in ``csrc/gather_interior.cu`` compute it; the wrapper
+picks one from the tables and the launch, with no setting. What bounds
+both on an H100 is feeding the FMAs, not their count: every pixel may own a
+different (fs, fs) block, while the source is small and shared by
+neighbouring windows.
+
+The tile kernel (the tile body of ``csrc/gather_tile.cuh``, shared with the
+band kernel) streams a tile's source window (32 columns by 16 rows of
+output) through a double-buffered ``cp.async`` ring of source rows in
+shared memory, frames side by side; a thread owns one column, 2 rows and up
+to 8 frames (``FRAMES``, chosen from F by ``choose_ring``), loads each
+staged row's source values once for both of its rows, and reads each row's
+weights as one linear stream of 16-byte loads through its block, two
+chunks ahead: one load serves 4 taps times its frames. At one frame a
+launch that stream is the whole cost: 33,856 bytes a pixel at fs 92, 48.8
+GB a frame at 3840x2160 -> 1366x768 tap 16 (23.8 ms on an H100).
+
+The class-grouped kernel (``gather_interior_grouped``) reads each weight
+for several rows: a block depends only on (row class, column class), and a
+row class recurs every few rows (46 luma and 22 chroma rows a class at
+that geometry). ``row_groups`` cuts the interior rows, in class order, into
+groups of at most K rows of one class (``group_size`` takes K in
+``GROUP_ROWS`` from the rows a class has); a block takes one group and
+``GROUP_COLS`` columns, stages tap row ly of its K rows at a time, and a
+thread's 16-byte weight load feeds 4 taps of all K rows. On an H100 at one
+frame it takes 2.98 ms on that luma plane (K 16) and 1.08 on each chroma
+plane (K 8), against 16.19 and 3.77 for the tile kernel; what bounds it
+now is the SM's load/store pipe (two-way bank conflicts of the scalar
+source reads at that downscale, and 32 lines a warp's weight load
+touches). ``gather_interior`` takes it where ``takes_grouped``: the
+tables have row groups (some class has 2 rows or more) and 2 F <= K. With
+more frames the tile kernel's weight loads serve enough of them, and its
+source reads, each serving 2 rows, make it the faster one. Tried on the
+card and dropped: 128-column blocks, a double-buffered stage, and a branch
+that skips a group's idle row slots (``csrc/gather_interior.cu`` gives
+the times).
+
+Per pixel and frame both kernels sum an ``fmaf`` chain along each tap row,
+the row sums added in ly order (more accurate than one running sum over
+fs**2 taps); the plain form sums alike, so the kernels and the plain form
+agree bit for bit.
 
 Weights: the kernel reads the compact dictionary as ``padded_blocks``,
 ``[cy, cx, ly, lx]`` with each tap row padded to a multiple of 4 floats
@@ -39,7 +65,9 @@ GB on 1080p -> 3740x2104) and was measured and rejected.
 
 The envelope: a non-empty dictionary, a non-empty interior and one staged
 source row of a tile (its window columns times one frame, two ring stages)
-within the 227 KB of shared memory -- any filter size.
+within the 227 KB of shared memory -- any filter size. Row groups are kept
+only where one grouped stage (K window rows of ``GROUP_COLS`` columns)
+fits too (``group_fits``), with a smaller K or none otherwise.
 
 TPU workarounds of the Pallas kernel that this one drops:
 
@@ -100,6 +128,18 @@ FRAMES = (1, 2, 4, 8)
 # this many bytes, so that several blocks share an SM.
 MAX_STAGE_ROWS = 8
 RING_BYTES = 48 * 1024
+# The class-grouped kernel (csrc/gather_interior.cu gather_class_kernel):
+# columns of a block (kGCols), the rows a group may hold (its instances, K),
+# and the most rows times frames a thread carries.
+GROUP_COLS = 64
+GROUP_ROWS = (4, 8, 16)
+MAX_ROW_FRAMES = 32
+GROUP_SMEM_BYTES = MAX_SMEM_BYTES - 1024  # room for its static arrays
+# What a group's weight loads cost beside its FMAs, in rows of FMAs: a
+# group of K rows takes about as long as K + WEIGHT_ROWS rows would without
+# them (fitted to the fs-92 luma plane of 3840x2160 -> 1366x768 on an H100
+# at one frame: 4.11, 3.41 and 3.00 ms at K = 4, 8 and 16).
+WEIGHT_ROWS = 2
 
 
 @dataclass(frozen=True)
@@ -152,6 +192,56 @@ def choose_ring(span_w: int, n_frames: int) -> Ring:
         frames //= 2
 
 
+def class_rows(cy: np.ndarray) -> int:
+    """The most interior rows that one row class holds (0 without rows)."""
+    return int(np.bincount(np.asarray(cy)).max()) if len(cy) else 0
+
+
+def group_size(cy: np.ndarray) -> int:
+    """K, the rows a group of the class-grouped kernel holds: 1 (the tile
+    kernel) where no row class has 2 rows, else the one of ``GROUP_ROWS``
+    whose groups take the least time: every class cut into ceil(n / K)
+    groups of K slots (``row_groups``; a slot past a group's rows is summed
+    too), each slot costing 1 + ``WEIGHT_ROWS`` / K rows."""
+    if class_rows(cy) < 2:
+        return 1
+    n = np.bincount(np.asarray(cy))
+    n = n[n > 0]
+    return min(GROUP_ROWS, key=lambda k: (-(-n // k) * k).sum() * (k + WEIGHT_ROWS) / k)
+
+
+def row_groups(cy: np.ndarray, k: int) -> np.ndarray:
+    """The interior rows in class order, each class cut as evenly as it goes
+    into groups of at most ``k`` rows: (n_groups, k) int32 row indices, each
+    group's rows ascending and packed first, -1 after them. Groups run in
+    class order, so one class's weights serve its groups back to back."""
+    cy = np.asarray(cy)
+    order = np.argsort(cy, kind="stable")
+    bounds = np.cumsum(np.bincount(cy))
+    groups = []
+    for rows in np.split(order, bounds[:-1]):
+        for part in np.array_split(rows, -(-len(rows) // k)) if len(rows) else ():
+            groups.append(np.pad(part, (0, k - len(part)), constant_values=-1))
+    return np.asarray(groups, dtype=np.int32).reshape(-1, k)
+
+
+def group_ring(span_w: int, k: int, n_frames: int) -> Ring:
+    """The shared memory of a grouped launch over ``n_frames`` for windows
+    at most ``span_w`` columns wide: one stage of one tap row of ``k``
+    source rows (``ch`` = k), at most ``MAX_ROW_FRAMES // k`` frames a
+    thread, halved until it fits ``GROUP_SMEM_BYTES`` or down to 1."""
+    swp = -(-span_w // 4) * 4
+    frames = min(frames_per_thread(n_frames), MAX_ROW_FRAMES // k)
+    while frames > 1 and k * swp * frames * 4 > GROUP_SMEM_BYTES:
+        frames //= 2
+    return Ring(frames, swp, k, k * swp * frames * 4)
+
+
+def group_fits(span_w: int, k: int) -> bool:
+    """One frame's grouped stage fits the shared memory."""
+    return group_ring(span_w, k, 1).smem_bytes <= GROUP_SMEM_BYTES
+
+
 def fsp_of(fs: int) -> int:
     """Floats of a padded tap row of the device dictionary."""
     return -(-fs // 4) * 4
@@ -184,6 +274,9 @@ class GatherInterior:
     src_width: int
     fs: int
     span_w: int  # widest tile window (tile_span of start_x)
+    group_rows: int = 1  # K of the grouped kernel; 1: the tile kernel
+    groups: torch.Tensor | None = None  # (n_groups, K) int32 row_groups
+    group_span: int = 0  # widest window of GROUP_COLS columns
 
     @property
     def out_shape(self) -> tuple[int, int]:
@@ -233,19 +326,27 @@ def make_gather_interior(
     check_window_starts(sy, op.src_height, fs, "make_gather_interior rows")
     check_window_starts(sx, op.src_width, fs, "make_gather_interior columns")
 
+    cy = op.cy_idx[op.y_lo : op.y_hi]
+    k, span = group_size(cy), tile_span(sx, GROUP_COLS, fs)
+    while k > 1 and not group_fits(span, k):
+        k = max([g for g in GROUP_ROWS if g < k], default=1)
+
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device)
 
     return GatherInterior(
         blocks=padded_blocks(op.pair_blocks, device),
         start_y=t(sy),
-        cy_idx=t(op.cy_idx[op.y_lo : op.y_hi]),
+        cy_idx=t(cy),
         start_x=t(sx),
         cx_idx=t(op.cx_idx[op.x_lo : op.x_hi]),
         src_height=op.src_height,
         src_width=op.src_width,
         fs=fs,
         span_w=interior_span(op),
+        group_rows=k,
+        groups=t(row_groups(cy, k)) if k > 1 else None,
+        group_span=span if k > 1 else 0,
     )
 
 
@@ -281,44 +382,108 @@ def gather_interior_plain(gi: GatherInterior, src_f: torch.Tensor) -> torch.Tens
     )
 
 
+def _output(gi: GatherInterior, src_f: torch.Tensor, name: str) -> torch.Tensor:
+    """The (F, nyi, nxi) output of a launch on CUDA ``src_f``, after checking
+    the source against the tables."""
+    if src_f.device.type != "cuda":
+        raise RuntimeError(f"{name}: unsupported device {src_f.device}")
+    if src_f.dtype != torch.float32 or src_f.dim() != 3 or not src_f.is_contiguous():
+        raise ValueError(f"{name}: src must be a contiguous (F, H, W) float32 tensor")
+    F, H, W = src_f.shape
+    if (H, W) != (gi.src_height, gi.src_width):
+        raise ValueError(f"{name}: source {W}x{H} does not match the operator")
+    if gi.blocks.device != src_f.device:
+        raise ValueError(f"{name}: operator and source on different devices")
+    return torch.empty((F,) + gi.out_shape, dtype=torch.float32, device=src_f.device)
+
+
+def takes_grouped(gi: GatherInterior, n_frames: int) -> bool:
+    """Whether a launch over ``n_frames`` runs the class-grouped kernel:
+    where the tables have row groups and a weight load of the grouped kernel
+    serves at least twice as many rows as one of the tile kernel serves
+    frames (2 F <= K). The grouped kernel reads a staged source value for
+    each of its rows (rows of one class share no source row), the tile
+    kernel one for its 2 adjacent rows, so it wins only while the weight
+    stream it saves outweighs those reads. On an H100 at F = 1..8 the
+    faster kernel is the one this picks on the chroma plane of 3840x2160 ->
+    1366x768 tap 16 (K 8) and the tap-8 1080p -> 3740x2104 luma plane
+    (K 8); on the fs-92 luma plane (K 16) the tile kernel is 12% faster at
+    F = 7 and 8 (``chip_smoke.py``'s gather row prints both)."""
+    return gi.groups is not None and 2 * n_frames <= gi.group_rows
+
+
 def gather_interior(gi: GatherInterior, src_f: torch.Tensor) -> torch.Tensor:
     """Gather interior of ``src_f`` (F, H, W) float32: (F, nyi, nxi).
 
     On a CPU tensor this is ``gather_interior_plain``. On a CUDA tensor it
-    launches ``csrc/gather_interior.cu`` (counted in
-    ``gather_interior.launches`` and the counter ``gather_launches``) or
-    raises; it never falls back.
+    is ``gather_interior_grouped`` where ``takes_grouped``, else
+    ``gather_interior_tile``; it never falls back.
     """
     if src_f.device.type == "cpu":
         return gather_interior_plain(gi, src_f)
-    if src_f.device.type != "cuda":
-        raise RuntimeError(f"gather_interior: unsupported device {src_f.device}")
-    if src_f.dtype != torch.float32 or src_f.dim() != 3 or not src_f.is_contiguous():
-        raise ValueError("gather_interior: src must be a contiguous (F, H, W) float32 tensor")
+    if src_f.dim() == 3 and takes_grouped(gi, src_f.shape[0]):
+        return gather_interior_grouped(gi, src_f)
+    return gather_interior_tile(gi, src_f)
+
+
+def gather_interior_tile(gi: GatherInterior, src_f: torch.Tensor) -> torch.Tensor:
+    """The tile kernel on any tables and frames: ``gather_interior``'s
+    result, bit for bit. On a CPU tensor this is ``gather_interior_plain``.
+    A launch counts in ``gather_interior_tile.launches`` and the counter
+    ``gather_launches``, after it."""
+    if src_f.device.type == "cpu":
+        return gather_interior_plain(gi, src_f)
+    out = _output(gi, src_f, "gather_interior_tile")
     F, H, W = src_f.shape
-    if (H, W) != (gi.src_height, gi.src_width):
-        raise ValueError(f"gather_interior: source {W}x{H} does not match the operator")
-    if gi.blocks.device != src_f.device:
-        raise ValueError("gather_interior: operator and source on different devices")
-    nyi, nxi = gi.out_shape
-    out = torch.empty((F, nyi, nxi), dtype=torch.float32, device=src_f.device)
     if F == 0:
         return out
     ring = choose_ring(gi.span_w, F)
     with torch.cuda.device(src_f.device):
         rc = _build.library().jt_gather_interior(
             src_f.data_ptr(), gi.blocks.data_ptr(), gi.start_y.data_ptr(), gi.cy_idx.data_ptr(),
-            gi.start_x.data_ptr(), gi.cx_idx.data_ptr(), out.data_ptr(), F, H, W, nyi, nxi,
+            gi.start_x.data_ptr(), gi.cx_idx.data_ptr(), out.data_ptr(), F, H, W, *gi.out_shape,
             gi.blocks.shape[1], gi.fs, gi.blocks.shape[3], ring.frames, ring.swp, ring.ch,
             _build.stream_of(src_f),
         )  # fmt: skip
     _build.check(rc, "jt_gather_interior")
-    gather_interior.launches += 1
+    gather_interior_tile.launches += 1
     metrics.count("gather_launches")
     return out
 
 
-gather_interior.launches = 0
+gather_interior_tile.launches = 0
+
+
+def gather_interior_grouped(gi: GatherInterior, src_f: torch.Tensor) -> torch.Tensor:
+    """The class-grouped kernel on any number of frames, for tables with row
+    groups: ``gather_interior``'s result, bit for bit. On a CPU tensor this
+    is ``gather_interior_plain``. A launch counts in
+    ``gather_interior_grouped.launches`` and in the counters
+    ``gather_launches`` and ``gather_grouped_launches``, after it."""
+    if gi.groups is None:
+        raise ValueError("gather_interior_grouped: the tables have no row groups")
+    if src_f.device.type == "cpu":
+        return gather_interior_plain(gi, src_f)
+    out = _output(gi, src_f, "gather_interior_grouped")
+    F, H, W = src_f.shape
+    if F == 0:
+        return out
+    ring = group_ring(gi.group_span, gi.group_rows, F)
+    with torch.cuda.device(src_f.device):
+        rc = _build.library().jt_gather_interior_grouped(
+            src_f.data_ptr(), gi.blocks.data_ptr(), gi.groups.data_ptr(), gi.start_y.data_ptr(),
+            gi.cy_idx.data_ptr(), gi.start_x.data_ptr(), gi.cx_idx.data_ptr(), out.data_ptr(),
+            F, H, W, *gi.out_shape, gi.groups.shape[0], gi.blocks.shape[1], gi.fs,
+            gi.blocks.shape[3], gi.group_rows, ring.frames, ring.swp, _build.stream_of(src_f),
+        )  # fmt: skip
+    _build.check(rc, "jt_gather_interior_grouped")
+    gather_interior_grouped.launches += 1
+    metrics.count("gather_launches")
+    metrics.count("gather_grouped_launches")
+    return out
+
+
+gather_interior_grouped.launches = 0
 
 
 @dataclass(frozen=True)

@@ -18,9 +18,11 @@ What the calls' exception-line fixups (``kernels.lines.exc_lines``) do:
 ``exception_launches`` (launches of the kernel on the card, one a plane
 call that has exception lines; its plain form on the CPU launches nothing)
 and ``exception_lines`` (the exception columns and rows computed, by either
-form). What the gather engine does: ``gather_launches`` (launches of the
-gather interior kernel, ``kernels.gather.gather_interior``, on the card, one
-a plane call; its plain form on the CPU launches nothing). What the engines
+form). What the gather engine does: ``gather_launches`` (launches of
+either gather interior kernel, ``kernels.gather.gather_interior_tile`` or
+``gather_interior_grouped``, on the card, one a plane call; its plain form
+on the CPU launches nothing) and ``gather_grouped_launches`` (those of them
+that ran the class-grouped kernel, after each such launch). What the engines
 hold: ``engine_bytes`` (bytes of the device tables that each
 ``JincResizer._init_engines`` left in its appliers and device operators --
 dictionaries, padded blocks, weight splits, strip blocks, index tables --
@@ -65,6 +67,7 @@ _COUNTERS = {
     "exception_launches": 0,
     "exception_lines": 0,
     "gather_launches": 0,
+    "gather_grouped_launches": 0,
     "engine_bytes": 0,
 }
 

@@ -319,7 +319,204 @@ def test_wrapper_never_falls_back_off_cpu(ops):
     op = ops["aperiodic-up"]
     gi = gather.make_gather_interior(op)
     src = torch.empty((1, op.src_height, op.src_width), device="meta")
-    before = gather.gather_interior.launches
+    before = gather.gather_interior_tile.launches, gather.gather_interior_grouped.launches
     with pytest.raises(RuntimeError, match="unsupported device"):
         gather.gather_interior(gi, src)
-    assert gather.gather_interior.launches == before == 0
+    with pytest.raises(RuntimeError, match="unsupported device"):
+        gather.gather_interior_tile(gi, src)
+    assert (gather.gather_interior_tile.launches,
+            gather.gather_interior_grouped.launches) == before == (0, 0)  # fmt: skip
+
+
+# ---- The class-grouped kernel's row groups (csrc/gather_interior.cu
+# gather_class_kernel): full-size interiors from the axis geometry alone
+# (no dictionary is built), and the stand-in of the benchmark's gather cell.
+FULL_PLANES = {
+    # 3840x2160 -> 1366x768 tap 16, MPEG2 chroma: 16 row classes, 46 luma
+    # and 22 chroma rows each (the benchmark's gather cell).
+    "uhd-768p-luma": ((3840, 2160, 1366, 768, 16), False),
+    "uhd-768p-chroma": ((3840, 2160, 1366, 768, 16), True),
+    # 1920x1080 -> 3740x2104 tap 8: 256 row classes of 7 to 9 rows.
+    "1080p-3740-luma": ((1920, 1080, 3740, 2104, 8), False),
+    "1080p-3740-chroma": ((1920, 1080, 3740, 2104, 8), True),
+}
+STANDIN_PLANES = {
+    # The gather cell's CPU stand-in, 384x216 -> 137x77: one row a class.
+    "standin-luma": ((384, 216, 137, 77, 16), False),
+    "standin-chroma": ((384, 216, 137, 77, 16), True),
+}
+
+
+def interior_rows(geo, chroma):
+    """(start_y, cy_idx, start_x, fs) of a plane's interior rectangle, as
+    ``build_plane_operator`` makes them, from its axis geometry."""
+    from jincresize_tpu_torch.geometry import build_plane_geometry, chroma_crop
+    from jincresize_tpu_torch.operator import _contiguous_border
+
+    sw, sh, dw, dh, tap = geo
+    crop = (0.0, 0.0, float(sw), float(sh))
+    if chroma:
+        crop = chroma_crop("mpeg2", sw, sh, dw, dh, *crop, 1, 1)
+        sw, sh, dw, dh = sw >> 1, sh >> 1, dw >> 1, dh >> 1
+    g = build_plane_geometry(sw, sh, dw, dh, radius_for_tap(tap), *crop, 256, 256, dists=False)
+    y_lo, y_hi = _contiguous_border(g.y.border)
+    x_lo, x_hi = _contiguous_border(g.x.border)
+    cy = np.unique(g.y.qclass[y_lo:y_hi], return_inverse=True)[1].astype(np.int32)
+    return g.y.start[y_lo:y_hi], cy, g.x.start[x_lo:x_hi], g.filter_size
+
+
+@pytest.mark.parametrize("name", list(FULL_PLANES))
+def test_row_groups_cover_the_interior_once_by_class(name):
+    sy, cy, sx, fs = interior_rows(*FULL_PLANES[name])
+    k = gather.group_size(cy)
+    groups = gather.row_groups(cy, k)
+    assert groups.dtype == np.int32 and groups.shape[1] == k
+    rows = groups[groups >= 0]
+    np.testing.assert_array_equal(np.sort(rows), np.arange(len(cy)))  # every row once
+    sizes = (groups >= 0).sum(axis=1)
+    assert sizes.min() >= 1 and sizes.max() <= k
+    for g, n in zip(groups, sizes, strict=True):
+        assert (g[:n] >= 0).all() and (g[n:] == -1).all()  # packed first
+        assert len(set(cy[g[:n]].tolist())) == 1  # one class
+        assert (np.diff(g[:n]) > 0).all()
+    classes = cy[groups[:, 0]]
+    assert (np.diff(classes) >= 0).all()  # class order
+    for c in np.unique(classes):  # each class cut as evenly as it goes
+        s = sizes[classes == c]
+        assert s.max() - s.min() <= 1 and s.sum() == (cy == c).sum()
+    assert gather.group_fits(gather.tile_span(sx, gather.GROUP_COLS, fs), k)
+
+
+@pytest.mark.parametrize(
+    "name,rows_a_class,k",
+    [("uhd-768p-luma", 46, 16), ("uhd-768p-chroma", 22, 8), ("1080p-3740-luma", 9, 8),
+     ("1080p-3740-chroma", 5, 4), ("standin-luma", 1, 1), ("standin-chroma", 1, 1)],
+)  # fmt: skip
+def test_group_size_follows_the_rows_a_class(name, rows_a_class, k):
+    """K from the operator: 1 (the tile kernel) where no row class has two
+    rows, as at the gather cell's stand-in; above 1 at full size, where the
+    fewest slots weighed by their weight loads choose it: 46 luma rows a
+    class fill three groups of 16 (two slots idle), 22 chroma rows three of
+    8 rather than two of 16 (ten idle)."""
+    _, cy, _, _ = interior_rows(*{**FULL_PLANES, **STANDIN_PLANES}[name])
+    assert gather.class_rows(cy) == rows_a_class
+    assert gather.group_size(cy) == k
+    assert k == 1 or gather.row_groups(cy, k).shape[0] < len(cy)
+
+
+@pytest.mark.parametrize(
+    "rows,k,want",
+    [([0] * 46, 8, [8, 8, 8, 8, 7, 7]), ([0] * 22, 8, [8, 7, 7]), ([0] * 3, 4, [3]),
+     ([1, 0, 1, 0, 2], 4, [2, 2, 1])],
+)  # fmt: skip
+def test_row_groups_cut_each_class_evenly(rows, k, want):
+    groups = gather.row_groups(np.asarray(rows, dtype=np.int32), k)
+    assert (groups >= 0).sum(axis=1).tolist() == want
+
+
+@pytest.mark.parametrize(
+    "span_w,k,n_frames,want",
+    [
+        # The gather cell: 270 window columns a 64-column block.
+        (270, 16, 1, gather.Ring(1, 272, 16, 17408)),
+        (270, 16, 8, gather.Ring(2, 272, 16, 34816)),  # K x frames <= 32
+        (270, 8, 8, gather.Ring(4, 272, 8, 34816)),
+        (50, 4, 8, gather.Ring(8, 52, 4, 6656)),
+        # Wide windows: fewer frames until the stage fits.
+        (3000, 8, 8, gather.Ring(2, 3000, 8, 192000)),
+        (3000, 16, 8, gather.Ring(1, 3000, 16, 192000)),
+    ],
+)
+def test_group_ring(span_w, k, n_frames, want):
+    ring = gather.group_ring(span_w, k, n_frames)
+    assert ring == want and ring.smem_bytes <= gather.GROUP_SMEM_BYTES < fused.MAX_SMEM_BYTES
+    assert gather.group_fits(span_w, k)
+    assert not gather.group_fits(3700, 16) and gather.group_fits(3600, 16)
+
+
+def test_make_takes_smaller_groups_where_the_ring_does_not_fit(deep_op):
+    """A window too wide for K rows a stage takes a smaller K, down to the
+    tile kernel."""
+    gi = gather.make_gather_interior(deep_op)
+    assert gi.group_rows == 4 and gi.groups.shape == (16, 4)
+    wide = dataclasses.replace(deep_op, start_x=np.arange(deep_op.dst_width, dtype=np.int32) * 300)
+    wide = dataclasses.replace(wide, src_width=int(wide.start_x.max()) + deep_op.filter_size)
+    assert not gather.group_fits(gather.tile_span(wide.start_x[wide.x_lo : wide.x_hi],
+                                                  gather.GROUP_COLS, wide.filter_size), 4)  # fmt: skip
+    assert gather.make_gather_interior(wide).groups is None
+
+
+def test_grouped_interior_on_the_cpu_is_the_plain_form(deep_op):
+    """With row groups (K 4 at the fs-92 plane) the CPU wrapper still returns
+    ``window_sum_plain`` bit for bit and launches nothing: neither launch
+    count nor counter moves."""
+    from jincresize_tpu_torch import metrics
+
+    gi = gather.make_gather_interior(deep_op)
+    assert gi.groups is not None
+    src = torch.from_numpy(_src(deep_op, np.float32, seed=23, frames=3))
+    launches = gather.gather_interior_tile.launches, gather.gather_interior_grouped.launches
+    before = metrics.counters()
+    got = gather.gather_interior(gi, src)
+    after = metrics.counters()
+    want = gather.window_sum_plain(src, gi.start_y, gi.cy_idx, gi.start_x, gi.cx_idx,
+                                   gather.class_minor_view(gi.blocks))  # fmt: skip
+    assert torch.equal(got, want)
+    assert torch.equal(gather.gather_interior_tile(gi, src), want)
+    assert torch.equal(gather.gather_interior_grouped(gi, src), want)
+    assert after["gather_grouped_launches"] == before["gather_grouped_launches"]
+    assert after["gather_launches"] == before["gather_launches"]
+    assert (gather.gather_interior_tile.launches,
+            gather.gather_interior_grouped.launches) == launches == (0, 0)  # fmt: skip
+    with pytest.raises(ValueError, match="no row groups"):
+        gather.gather_interior_grouped(dataclasses.replace(gi, groups=None), src)
+
+
+@pytest.mark.parametrize(
+    "k,grouped_frames", [(1, 0), (4, 2), (8, 4), (16, 8)]
+)  # fmt: skip
+def test_takes_grouped_while_twice_the_frames_are_at_most_k(deep_op, k, grouped_frames):
+    """The grouped kernel takes launches of 2 F <= K frames and the tile
+    kernel the rest; tables without row groups (K 1) always the tile one."""
+    gi = gather.make_gather_interior(deep_op)
+    if k == 1:
+        gi = dataclasses.replace(gi, group_rows=1, groups=None, group_span=0)
+    else:
+        gi = dataclasses.replace(gi, group_rows=k)
+    picks = [gather.takes_grouped(gi, f) for f in range(1, 17)]
+    assert picks == [True] * grouped_frames + [False] * (16 - grouped_frames)
+
+
+def test_resizer_logs_its_row_groups(caplog):
+    """The ``resizer built:`` line gives each gather plane's rows a group
+    and the rows a class that chose them."""
+    import logging
+
+    from jincresize_tpu_torch.api import JincConfig, JincResizer
+    from jincresize_tpu_torch.clip import yuv420p
+
+    cfg = JincConfig(target_width=171, target_height=96, tap=3, impl="gather", operator_cache=False)
+    with caplog.at_level(logging.INFO, logger="jincresize_tpu_torch"):
+        r = JincResizer(yuv420p(8), 480, 270, cfg, device="cpu")
+    (luma, n_luma), (chroma, n_chroma) = (
+        (a.gi, gather.class_rows(a.op.cy_idx[a.op.y_lo : a.op.y_hi]))
+        for a in (r._applier_luma, r._applier_chroma)
+    )
+    assert luma.group_rows > 1 and chroma.group_rows > 1
+    line = [m for m in caplog.messages if m.startswith("resizer built:")][-1]
+    assert line.endswith(
+        f"builds, gather luma {luma.group_rows} rows a group ({n_luma} a class), "
+        f"gather chroma {chroma.group_rows} rows a group ({n_chroma} a class)"
+    )
+
+
+def test_grouped_kernel_is_built_and_bound():
+    """The class-grouped kernel's C entry point is bound with eight pointers
+    (the row groups after the dictionary), twelve sizes (the groups, K, the
+    frames a thread and the staged row width among them) and the stream, the
+    arguments ``gather_interior_grouped`` passes."""
+    from jincresize_tpu_torch.kernels import _build
+
+    assert _build._SIGNATURES["jt_gather_interior_grouped"] == (
+        [_build._P] * 8 + [_build._I] * 12 + [_build._P]
+    )
