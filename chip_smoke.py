@@ -98,8 +98,8 @@ Phases (each raises on failure; nothing catches it):
    ``kernels.fused.bf16_lsb`` of the fp32 run; two frames of the drifted
    clip in yuv420p16 (the seg kernel's fp32 mode, <= 1 LSB against the
    plain engine). On every yuv420p8 path each fused and seg plane (every
-   shard of the sharded runs) is asserted to run the mode the appliers'
-   ``KERNEL_PRECISION`` gives u8 planes (``'wsplit3'``) and to report
+   shard of the sharded runs) is asserted to run the mode
+   ``kernels.fused.KERNEL_PRECISION`` gives u8 planes (``'wsplit3'``) and to report
    ``effective_precision='fp32_u8src'``, and the kernel modes launched are
    counted path by path (``mode_launches``); every mode of both kernels
    must have been launched over the phase. ``fused_interior_plain`` and
@@ -509,7 +509,7 @@ def exc_lines_row(card: str, periodic=None) -> dict:
     row = {"ms": {}, "plain_ms": {}, "bound_ms": {}, "max_abs_err": 0.0}
     for plane, op, app in (("luma", r.op_luma, r._applier_luma),
                            ("chroma", r.op_chroma, r._applier_chroma)):  # fmt: skip
-        spec = app.lines
+        spec = app.canvas.lines
         assert spec is not None and spec.n_lines == 2, spec
         H, W = op.src_height, op.src_width
         src = torch.from_numpy(rng.random((TIMING_FRAMES, H, W), dtype=np.float32)).to(dev)
@@ -586,7 +586,7 @@ def exc_lines_row(card: str, periodic=None) -> dict:
     row["call_launches"] = n
     if periodic is not None:
         pr, pclip = periodic
-        assert pr._applier_luma.lines is None and pr._applier_chroma.lines is None
+        assert pr._applier_luma.canvas.lines is None and pr._applier_chroma.canvas.lines is None
         before = metrics.counters()
         pr(pclip)
         after = metrics.counters()
@@ -842,7 +842,6 @@ def main() -> int:
     from jincresize_tpu_torch.phase import plan_phases, plan_phases_seg
     from jincresize_tpu_torch.api import ChainResizer, JincConfig, JincResizer, jinc_resize
     from jincresize_tpu_torch.api import jinc_resize_chain
-    from jincresize_tpu_torch import apply_conv, apply_conv_seg
     from jincresize_tpu_torch.apply_conv import ConvApplier
     from jincresize_tpu_torch.apply_conv_seg import SegConvApplier
     from jincresize_tpu_torch.apply_gather import GatherApplier
@@ -1510,16 +1509,17 @@ def main() -> int:
         """The kernel modes a call of the yuv420p8 resizer ``r`` launches:
         each fused or seg plane (one card, or every shard of a mesh) must
         run the mode the appliers' mapping gives u8 planes
-        (``KERNEL_PRECISION['fp32_u8src']``) and report it as its
-        ``effective_precision``. Returns {'<kernel>_<mode>': launches}."""
+        (``kernels.fused.KERNEL_PRECISION['fp32_u8src']``) and report it as
+        its ``effective_precision``. Returns {'<kernel>_<mode>': launches}."""
         want = {}
+        mode = fused_k.KERNEL_PRECISION["fp32_u8src"]
         for n in fmt.plane_names:
             ap = r._applier_chroma if n in ("U", "V") else r._applier_luma
             interior = getattr(ap, "interior", None)
             if isinstance(ap, ConvApplier) or interior == "conv-fused":
-                kind, mode = "fused", apply_conv.KERNEL_PRECISION["fp32_u8src"]
+                kind = "fused"
             elif isinstance(ap, SegConvApplier) or interior == "seg":
-                kind, mode = "seg", apply_conv_seg.KERNEL_PRECISION["fp32_u8src"]
+                kind = "seg"
             else:
                 assert ap is None or ap.effective_precision == "fp32", (n, ap)
                 continue

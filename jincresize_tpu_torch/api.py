@@ -407,9 +407,9 @@ class JincResizer:
         self._applier_chroma = None
         self.engines: dict[str, str] = {}
         # u8 planes are bf16-exact: both packages run their fused and seg
-        # interiors in the three-pass weight split for them (the appliers'
-        # KERNEL_PRECISION). 'bf16' stays 'bf16' at every bit depth, and no
-        # engine choice depends on the precision.
+        # interiors in the three-pass weight split for them
+        # (kernels.fused.KERNEL_PRECISION). 'bf16' stays 'bf16' at every bit
+        # depth, and no engine choice depends on the precision.
         prec = cfg.precision
         if prec == "fp32" and fmt.bits == 8:
             prec = "fp32_u8src"

@@ -54,7 +54,7 @@ FMA order) within ``tc_sum_bound``, not bit for bit.
 
 ``precision='wsplit3'`` is the Pallas kernel's weight split
 (``pallas_fused.py:383-393``, 3 DEFAULT dots a pack at :236-251), the
-mode u8 planes take (``apply_conv.KERNEL_PRECISION['fp32_u8src']``). The
+mode u8 planes take (``KERNEL_PRECISION['fp32_u8src']``). The
 host splits each unrounded fp32 kernel value into three bfloat16 parts,
 ``K == c0 + c1 + c2`` exactly (``split_bf16x3``, checked bit for bit at
 the build). A u8 source value has 8 significant bits, as a bfloat16 part
@@ -128,8 +128,19 @@ CHUNK = 8  # taps of a register window (csrc/fused_interior.cu kChunk)
 PRECISIONS = ("fp32", "bf16", "wsplit3")
 # bfloat16 parts of the weights a tensor-core mode multiplies.
 TC_PARTS = {"bf16": 1, "wsplit3": 3}
+# The fused and seg interiors' kernel mode for each applier precision: the
+# JAX package's mapping (jincresize_tpu/apply_conv.py:656-660,
+# jincresize_tpu/apply_conv_seg.py:72-76), read by both appliers and the
+# sharded engine. u8 planes ('fp32_u8src', bf16-exact sources) take the
+# three-pass weight split on the tensor cores, exact products at a third of
+# an fp32 dot's passes. On an H100 80GB HBM3 at 700 W (chip_smoke.py phase
+# 4, 8-frame u8 luma batches): the fused kernel 0.460 ms/frame at 4K->8K
+# tap 8 against its fp32 FMA form's 0.670; the seg kernel 0.184 at
+# 1440p->4K tap 8 against 0.239, and at 1440p->1080p tap 16 (fs 44, one
+# frame a block beside the float32 blocks) 0.558 against 0.436, slower.
+KERNEL_PRECISION = {"fp32": "fp32", "bf16": "bf16", "fp32_u8src": "wsplit3"}
 # The appliers' precision each kernel mode reports as ``effective_precision``
-# (the appliers' KERNEL_PRECISION maps them the other way).
+# (KERNEL_PRECISION the other way).
 APPLIER_PRECISION = {"fp32": "fp32", "bf16": "bf16", "wsplit3": "fp32_u8src"}
 # Shared memory a block aims to stay under: a window that does not fit
 # whole streams through the ring in stages of a few rows, so that one

@@ -84,7 +84,7 @@ first) within ``fused.tc_sum_bound``, not bit for bit.
 
 ``precision='wsplit3'`` is the Pallas kernel's ``wsplit3_vmem`` mode
 (``pallas_fused_seg.py:371-389``), the mode u8 planes take
-(``apply_conv_seg.KERNEL_PRECISION['fp32_u8src']``): the same tensor-core
+(``fused.KERNEL_PRECISION['fp32_u8src']``): the same tensor-core
 kernel on the fp32 mode's own blocks (``blocks``, tap rows of
 ``fsp_of(fs)`` floats; ``tc_blocks`` is None), each B fragment split at
 its load into three bfloat16 parts, ``w == hi + mid + lo``

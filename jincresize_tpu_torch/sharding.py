@@ -74,8 +74,6 @@ from .phase import (
     plan_phases_seg,
 )
 
-from .apply_conv import KERNEL_PRECISION as CONV_KERNEL_PRECISION
-from .apply_conv_seg import KERNEL_PRECISION as SEG_KERNEL_PRECISION
 from .apply_xla import finalize, source_f32
 from .kernels import fused as fused_k
 from .kernels import gather as gather_k
@@ -859,7 +857,7 @@ def make_sharded_apply_conv(
         return None
     # The applier's mapping (the JAX package's, sharding.py:1103-1107): u8
     # planes take the weight-split mode where its parts fit.
-    kprec = fused_k.kernel_precision(op, plan_local, CONV_KERNEL_PRECISION[precision])
+    kprec = fused_k.kernel_precision(op, plan_local, fused_k.KERNEL_PRECISION[precision])
     tables_on = functools.cache(
         lambda dev: fused_k.make_fused_interior(op, plan_local, dev, kprec)
     )
@@ -965,7 +963,7 @@ def make_sharded_apply_seg(
     # The applier's mapping (the JAX package's, sharding.py:747-751), one
     # mode for every shard: the weight split only where every shard's blocks
     # fit it.
-    kprec = SEG_KERNEL_PRECISION[precision]
+    kprec = fused_k.KERNEL_PRECISION[precision]
     if any(seg_k.kernel_precision(op_band, local_plan(d), kprec) != kprec for d in shard_blocks):
         kprec = "fp32"
     bid, blocks_on = _uniform_on(op)
@@ -1013,15 +1011,14 @@ def make_sharded_apply(
     runs the band kernel, or the scan-gather where its envelope declines, as
     in the JAX package. ``precision`` is the fused and seg interiors'
     (``'fp32'``, ``'fp32_u8src'`` or ``'bf16'``), mapped onto their kernel
-    modes as the single-card appliers map it (``apply_conv.KERNEL_PRECISION``,
-    ``apply_conv_seg.KERNEL_PRECISION``: u8 planes take the weight split on
-    the tensor cores); ``info['precision']`` reports the mode that runs in
-    the appliers' names. The gather interiors and every patch are fp32.
+    modes as the single-card appliers map it (``kernels.fused.KERNEL_PRECISION``:
+    u8 planes take the weight split on the tensor cores); ``info['precision']``
+    reports the mode that runs in the appliers' names. The gather interiors and every patch are fp32.
     ``apply_fn.info['interior']`` records which interior was built.
     """
     if impl not in ("auto", "conv", "seg", "gather"):
         raise ValueError(f"make_sharded_apply: unknown impl {impl!r}")
-    if precision not in CONV_KERNEL_PRECISION:
+    if precision not in fused_k.KERNEL_PRECISION:
         raise ValueError(f"make_sharded_apply: unknown precision {precision!r}")
     if impl in ("auto", "conv"):
         r = make_sharded_apply_conv(op, mesh, data_axis, precision)

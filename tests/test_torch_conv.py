@@ -82,7 +82,7 @@ def test_conv_applier_matches_jax_fused_and_golden(name, g, dtype, peak):
     assert _maxdiff(got, want) <= tol
     assert _maxdiff(got, golden) <= tol
     # Same assembly route: one concatenate exactly when the JAX applier uses one.
-    assert ap._concat == jap._concat
+    assert ap.canvas.concat == (jap._concat is not None)
     # Where the Pallas strip kernel engages, the port's does too.
     if jap._strips_kfn_spec is not None:
         assert ap.strips_spec is not None
@@ -91,10 +91,11 @@ def test_conv_applier_matches_jax_fused_and_golden(name, g, dtype, peak):
 def test_exceptions_take_concat_assembly():
     """160x120 -> 400x300 (5/2) has x- and y-exceptions and takes the
     one-concatenate assembly; 320x180 -> 480x270 takes the paste path."""
-    ap = apply_conv.ConvApplier(_op((160, 120, 400, 300, 3)), device="cpu")
-    assert ap._concat is not None
-    assert ap.cop.exc_x.shape[0] and ap.cop.exc_y.shape[0]
-    assert apply_conv.ConvApplier(_op((320, 180, 480, 270, 3)), device="cpu")._concat is None
+    op = _op((160, 120, 400, 300, 3))
+    plan = plan_phases(op)
+    assert apply_conv.ConvApplier(op, plan=plan, device="cpu").canvas.concat
+    assert len(plan.x.exceptions) and len(plan.y.exceptions)
+    assert not apply_conv.ConvApplier(_op((320, 180, 480, 270, 3)), device="cpu").canvas.concat
 
 
 @pytest.mark.parametrize(
@@ -103,29 +104,33 @@ def test_exceptions_take_concat_assembly():
     ids=["2x-tap8", "5/2-exceptions", "3/2-drift"],
 )
 def test_build_conv_operator_fields_match_jax(g):
-    """State carries across: every operator field equals the JAX one."""
+    """State carries across: the applier's device operator, phase kernels,
+    interior rectangle and exception lines equal those of the JAX
+    package's ``build_conv_operator``."""
     from jincresize_tpu import apply_conv as japply
 
     op = _op(g)
-    cop = apply_conv.build_conv_operator(op, device="cpu")
+    plan = plan_phases(op)
+    ap = apply_conv.ConvApplier(op, plan=plan, device="cpu")
     jcop = japply.build_conv_operator(_jop(g))
-    for f in ("kernels", "exc_x", "exc_y"):
-        np.testing.assert_array_equal(getattr(cop, f).numpy(), np.asarray(getattr(jcop, f)))
-    assert cop.meta == jcop.meta
-    assert cop.phase_offsets == jcop.phase_offsets
+    np.testing.assert_array_equal(ap.fi.kernels.numpy(), np.asarray(jcop.kernels)[:, 0])
+    np.testing.assert_array_equal(plan.x.exceptions, np.asarray(jcop.exc_x))
+    np.testing.assert_array_equal(plan.y.exceptions, np.asarray(jcop.exc_y))
+    ylo, xlo, py, px, _, _, _, _, nyb, nxb = jcop.meta[:10]
+    assert ap.canvas.rect == (ylo, ylo + py * nyb, xlo, xlo + px * nxb)
     for f in ("start_x", "start_y", "cx_idx", "cy_idx", "pair_blocks"):
         np.testing.assert_array_equal(
-            getattr(cop.dop, f).numpy(), np.asarray(getattr(jcop.dop, f))
+            getattr(ap._dop, f).numpy(), np.asarray(getattr(jcop.dop, f))
         )
-    for s, js in zip(cop.dop.strips, jcop.dop.strips, strict=True):
+    for s, js in zip(ap._dop.strips, jcop.dop.strips, strict=True):
         assert (s.y0, s.y1, s.x0, s.x1) == (js.y0, js.y1, js.x0, js.x1)
         np.testing.assert_array_equal(s.blocks.numpy(), np.asarray(js.blocks))
 
 
 def test_build_conv_operator_aperiodic_is_none():
+    """No phase plan: the fused applier declines the geometry."""
     op = build_plane_operator(48, 32, 72, 50, radius_for_tap(3))
     assert plan_phases(op) is None
-    assert apply_conv.build_conv_operator(op, device="cpu") is None
     with pytest.raises(ValueError, match="aperiodic"):
         apply_conv.ConvApplier(op, device="cpu")
 
@@ -171,8 +176,9 @@ def test_precision_modes():
     assert (c.int() - a.int()).abs().max() <= 2
     with pytest.raises(ValueError, match="unknown precision"):
         apply_conv.ConvApplier(op, precision="fp16", device="cpu")
-    with pytest.raises(NotImplementedError, match="shift"):
-        apply_conv.ConvApplier(op, interior="shift", device="cpu")
+    # The fused kernel is the only interior: the applier takes no choice of one.
+    with pytest.raises(TypeError, match="interior"):
+        apply_conv.ConvApplier(op, interior="fused", device="cpu")
 
 
 def test_anchor_blocks_declined_takes_the_value_path():
@@ -223,5 +229,5 @@ def test_deep_tap_applier_matches_jax_fused(name, g, dtype, peak):
     jap = JaxConvApplier(_jop(g), interior="fused")
     got = ap(torch.from_numpy(src), out_dtype=dtype, peak=peak).numpy()
     want = np.asarray(jap(jnp.asarray(src), out_dtype=dtype, peak=peak))
-    assert ap._concat == jap._concat and ap._concat is not None
+    assert ap.canvas.concat and jap._concat is not None
     assert _maxdiff(got, want) <= (4e-6 if dtype == np.float32 else 1)

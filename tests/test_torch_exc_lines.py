@@ -151,7 +151,7 @@ APPLIER_CASES = [
 def test_appliers_with_lines_meet_the_golden(name, cls, dtype, peak, planes):
     op, plan = planes(name)
     ap = cls(op, plan=plan, device="cpu")
-    assert ap.lines is not None
+    assert ap.canvas.lines is not None
     src = _src(op, dtype, peak, seed=7)
     got = ap(torch.from_numpy(src), out_dtype=dtype, peak=peak).numpy()
     golden = np.stack([apply_plane_numpy(op, s, out_dtype=dtype, peak=peak) for s in src])
@@ -178,7 +178,7 @@ def test_a_crossing_pixel_is_written_once_by_its_row(name, planes):
     op, plan = planes(name)
     ex, ey = plan.x.exceptions, plan.y.exceptions
     if name == "5/2-exceptions":
-        spec = ConvApplier(op, plan=plan, device="cpu").lines
+        spec = ConvApplier(op, plan=plan, device="cpu").canvas.lines
         ylo, xlo, yhi, xhi = 8, 8, 293, 393
         assert spec.origin == (ylo, 0)
     else:
@@ -226,7 +226,7 @@ def test_exception_counters_count_a_launch_a_plane_call(name, cls, has_lines, pl
         op, plan = planes(name)
         ap = cls(op, plan=plan, device="cpu")
         n_lines = len(plan.x.exceptions) + len(plan.y.exceptions)
-    assert (ap.lines is not None) == has_lines and (n_lines > 0) == has_lines
+    assert (ap.canvas.lines is not None) == has_lines and (n_lines > 0) == has_lines
     src = torch.from_numpy(_src(op, seed=1, frames=3))
     before, launches = metrics.counters(), lines.exc_lines.launches
     ap(src)

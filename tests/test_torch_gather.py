@@ -125,7 +125,7 @@ def test_gather_applier_matches_jax_and_golden(dtype, peak, ops, jax_applier_out
     op = ops["aperiodic-up"]
     src, want = jax_applier_outputs[np.dtype(dtype).name]
     ap = GatherApplier(op, device="cpu")
-    assert ap._concat == jax_applier_outputs["concat"]
+    assert ap.canvas.concat == jax_applier_outputs["concat"]
     got = ap(torch.from_numpy(src), out_dtype=dtype, peak=peak).numpy()
     golden = np.stack([apply_plane_numpy(op, s, out_dtype=dtype, peak=peak) for s in src])
     assert got.dtype == np.dtype(dtype)

@@ -6,7 +6,7 @@ cut to 384x216 -> 137x77, fs 92 on luma and 93 on chroma, no phase plan and
 no seg plan). ``impl='pallas'`` takes the engines in the order ``'auto'``
 takes them on a card, so every plane runs ``GatherApplier``: the gather
 interior's plain form, the per-pixel strips and ``einsum64`` of
-``apply_conv.banded_strip_values``, and ``concat``/``assemble``. Also the
+``apply_strips_fast.banded_strip_values``, and ``canvas.Canvas``. Also the
 engine counters ``gather_launches`` and ``engine_bytes``.
 
 The mismatch limit is the configuration's own ``checks`` (5000 per million

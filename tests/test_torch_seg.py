@@ -25,7 +25,8 @@ from jincresize_tpu import phase as jphase
 from jincresize_tpu_torch.golden import apply_plane_numpy
 from jincresize_tpu_torch.operator import build_plane_operator, radius_for_tap
 from jincresize_tpu_torch.phase import plan_phases, plan_phases_seg
-from jincresize_tpu_torch.apply_conv import _strip_values, _strip_values_banded, strip_row_bands
+from jincresize_tpu_torch.apply_strips_fast import (_strip_values, _strip_values_banded,
+                                                   strip_row_bands)
 from jincresize_tpu_torch.apply_conv_seg import SegConvApplier
 from jincresize_tpu_torch.apply_xla import to_device
 from jincresize_tpu_torch.kernels import fused, gather, seg
@@ -143,7 +144,7 @@ def test_seg_applier_matches_jax_and_golden(dtype, peak, ops, jax_applier_output
     src, want = jax_applier_outputs[np.dtype(dtype).name]
     ap = SegConvApplier(op, device="cpu")
     assert ap.interior == "fused-seg"
-    assert ap._concat == jax_applier_outputs["concat"]
+    assert ap.canvas.concat == jax_applier_outputs["concat"]
     got = ap(torch.from_numpy(src), out_dtype=dtype, peak=peak).numpy()
     golden = np.stack([apply_plane_numpy(op, s, out_dtype=dtype, peak=peak) for s in src])
     assert got.dtype == np.dtype(dtype)
@@ -161,7 +162,7 @@ def test_seg_exception_case_matches_golden(dtype, ops):
     plan = plan_phases_seg(op)
     assert len(plan.x.exceptions) > 0
     ap = SegConvApplier(op, plan=plan, device="cpu")
-    assert not ap._concat
+    assert not ap.canvas.concat
     peak = 255.0 if dtype == np.uint8 else 1023.0
     src = _src(op, dtype, seed=3)
     got = ap(torch.from_numpy(src), out_dtype=dtype, peak=peak).numpy()
@@ -223,13 +224,12 @@ def test_strip_values_banded_equals_strip_values(ops):
 
 def test_strip_row_bands_equal_jax(ops):
     from jincresize_tpu import apply_conv as japply
-    from jincresize_tpu_torch import apply_conv
 
     for name, op in ops.items():
-        assert apply_conv.strip_row_bands(op) == japply.strip_row_bands(_jop(name))
+        assert strip_row_bands(op) == japply.strip_row_bands(_jop(name))
     tiny = build_plane_operator(6, 6, 12, 12, radius_for_tap(8))
     with pytest.raises(ValueError, match="smaller than filter_size"):
-        apply_conv.strip_row_bands(tiny)
+        strip_row_bands(tiny)
 
 
 def test_is_supported_declines_deep_tap(monkeypatch):

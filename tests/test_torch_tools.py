@@ -192,13 +192,13 @@ def _no_card(monkeypatch):
     "build",
     [
         lambda op: apply_conv.ConvApplier(op),
-        lambda op: apply_conv.build_conv_operator(op),
+        lambda op: apply_conv.ConvApplier(op, plan=plan_phases(op)),
         lambda op: apply_gather.GatherApplier(op),
         lambda op: apply_xla.to_device(op),
         lambda op: apply_conv_seg.SegConvApplier(op),
         lambda op: apply_conv.ConvApplier(op, device="cuda"),
     ],
-    ids=["ConvApplier", "build_conv_operator", "GatherApplier", "to_device", "SegConvApplier",
+    ids=["ConvApplier", "ConvApplier-plan", "GatherApplier", "to_device", "SegConvApplier",
          "ConvApplier-cuda"],
 )  # fmt: skip
 def test_default_constructors_run_on_the_card_or_raise(build, monkeypatch):

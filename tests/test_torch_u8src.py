@@ -24,7 +24,7 @@ This module holds
   of the exact sum (the JAX kernel's and the emulation's round to
   nearest, within gamma_3n(u) each, which ``tc_sum_bound``'s
   gamma_3n(2u) covers for both);
-* the routing: the appliers' ``KERNEL_PRECISION`` beside the kernel mode
+* the routing: ``kernels.fused.KERNEL_PRECISION`` beside the kernel mode
   the JAX appliers ask for, the modes the port's appliers and its sharded
   applier build on the CPU, and the envelope past which a plan runs the
   fp32 kernel;
@@ -44,7 +44,7 @@ from jincresize_tpu import api as japi
 from jincresize_tpu import clip as jclip
 from jincresize_tpu import operator as joperator
 from jincresize_tpu import phase as jphase
-from jincresize_tpu_torch import api, apply_conv, apply_conv_seg, sharding
+from jincresize_tpu_torch import api, sharding
 from jincresize_tpu_torch.apply_conv import ConvApplier
 from jincresize_tpu_torch.apply_conv_seg import SegConvApplier
 from jincresize_tpu_torch.clip import Clip, random_frame, yuv420p
@@ -294,8 +294,8 @@ def test_wsplit3_bound_covers_three_tensor_core_sums_and_the_plain_chain(n):
 
 
 def test_kernel_precision_mirrors_the_jax_mapping(monkeypatch):
-    """``apply_conv.KERNEL_PRECISION`` and ``apply_conv_seg.KERNEL_PRECISION``
-    beside the kernel precision the JAX package's ``ConvApplier`` and
+    """``kernels.fused.KERNEL_PRECISION``, which the fused and seg appliers
+    read, beside the kernel precision the JAX package's ``ConvApplier`` and
     ``SegConvApplier`` ask their Pallas builds for (recorded, the build
     then stopped): the same mode for every applier precision."""
     from jincresize_tpu import apply_conv as japply_conv
@@ -313,18 +313,15 @@ def test_kernel_precision_mirrors_the_jax_mapping(monkeypatch):
     monkeypatch.delenv("JINCRESIZE_FUSED_PRECISION", raising=False)
     monkeypatch.delenv("JINCRESIZE_SEG_DOT", raising=False)
     jop = _jop(SEG_GEOMS["1.5x-tap3"][0])
-    assert set(apply_conv.KERNEL_PRECISION) == set(apply_conv_seg.KERNEL_PRECISION)
-    for prec in apply_conv.KERNEL_PRECISION:
-        for make, ours in (
-            (lambda: japply_conv.ConvApplier(jop, interior="fused", precision=prec),
-             apply_conv.KERNEL_PRECISION),
-            (lambda: japply_seg.SegConvApplier(jop, precision=prec, interpret=True),
-             apply_conv_seg.KERNEL_PRECISION),
-        ):  # fmt: skip
+    for prec in fused.KERNEL_PRECISION:
+        for make in (
+            lambda: japply_conv.ConvApplier(jop, interior="fused", precision=prec),
+            lambda: japply_seg.SegConvApplier(jop, precision=prec, interpret=True),
+        ):
             with pytest.raises(Asked) as asked:
                 make()
-            assert JAX_KERNEL_MODES[asked.value.args[0]] == ours[prec], prec
-    assert apply_conv.KERNEL_PRECISION["fp32_u8src"] == "wsplit3"
+            assert JAX_KERNEL_MODES[asked.value.args[0]] == fused.KERNEL_PRECISION[prec], prec
+    assert fused.KERNEL_PRECISION["fp32_u8src"] == "wsplit3"
 
 
 @pytest.mark.parametrize("prec,mode", [("fp32", "fp32"), ("fp32_u8src", "wsplit3"), ("bf16", "bf16")])
@@ -337,7 +334,7 @@ def test_appliers_build_the_mapped_mode(prec, mode):
     src = torch.from_numpy(_u8(op, 3, 1))
     for App, kmode, tables in (
         (ConvApplier, mode, "fi"),
-        (SegConvApplier, apply_conv_seg.KERNEL_PRECISION[prec], "si"),
+        (SegConvApplier, fused.KERNEL_PRECISION[prec], "si"),
     ):
         ap = App(op, precision=prec, device="cpu")
         assert getattr(ap, tables).precision == kmode
