@@ -163,7 +163,15 @@ Phases (each raises on failure; nothing catches it):
    picks, the cell's launch (luma, one frame) beside its bound and the plain
    form, and one one-frame call's
    ``gather_launches`` / ``gather_grouped_launches`` (3 each;
-   ``gather_grouped_row``);
+   ``gather_grouped_row``); the band-strips kernel (``kernels/band_strips.py``)
+   on the gather deployment's luma (fs 92) and chroma (fs 93) planes and the
+   tap-16 1440p -> 1080p luma plane (fs 44, ``fused-seg``) at F = 1 and 3
+   against its plain form (within one float32 ulp of each sample, the
+   samples that differ at all counted), timed at one frame beside its bound
+   (the blocks' bytes at 3.35 TB/s), and one one-frame ``JincResizer`` call of
+   each deployment with ``band_strips.launches`` and the counter
+   ``strips_band_launches`` read before and after (3 each, one a plane;
+   ``band_strips_row``);
 5. two processes -- ``python3 chip_smoke.py --dist-worker <port> <rank>``,
    twice, joined by a gloo group (``distributed.init_distributed``; NCCL
    refuses two ranks on one card, so the halos cross through host buffers),
@@ -681,6 +689,90 @@ def gather_grouped_row(card: str, deep=None, aperiodic=None) -> dict:
     print(f"[4] one JincResizer call ({sw}x{sh}->{dw}x{dh} tap{DEEP_TAP} yuv420p8, 1 frame, 3 "
           f"planes): counters {d} [{card}]")
     assert d == {"gather_launches": 3, "gather_grouped_launches": 3}, d
+    return row
+
+
+def band_strips_row(card: str, deep=None, drift=None) -> dict:
+    """Phase 4's row of the band-strips kernel: on the luma (fs 92) and
+    chroma (fs 93) planes of the benchmark's gather deployment
+    (``DEEP_APERIODIC``, ``deep``) and the luma plane (fs 44) of its tap-16
+    1440p -> 1080p one (``DEEP_DRIFT``, ``fused-seg``, ``drift``), each a
+    ``JincResizer`` built with the operator cache when not given: the kernel
+    against its plain form (a float64 einsum on the card) at F = 1 and 3,
+    every sample within one float32 ulp, the samples that differ at all
+    counted; its CUDA-event median at one frame beside its bound, the blocks'
+    bytes at 3.35 TB/s; then one one-frame call of each resizer with
+    ``band_strips.launches`` and the counter ``strips_band_launches`` read
+    before and after (3 each, one a plane). Returns the row at the gather
+    cell's luma launch: ``ms``, ``plain_ms``, ``bound_ms``, ``bound_by``,
+    ``max_ulp``, ``max_abs_err``, ``differing`` (over every check) and
+    ``launches``."""
+    import numpy as np
+    import torch
+
+    from jincresize_tpu_torch import metrics
+    from jincresize_tpu_torch.api import JincConfig, JincResizer
+    from jincresize_tpu_torch.clip import Clip, random_frame, yuv420p
+    from jincresize_tpu_torch.kernels import band_strips as band_k
+
+    dev = torch.device(DEVICE)
+    fmt = yuv420p(8)
+    resizers = {}
+    for name, geo, r in (("gather", DEEP_APERIODIC, deep), ("fused-seg", DEEP_DRIFT, drift)):
+        sw, sh, dw, dh = geo
+        clip = Clip.from_frames([random_frame(fmt, sw, sh, seed=2400)])
+        if r is None:
+            r = JincResizer(fmt, sw, sh, JincConfig(dw, dh, tap=DEEP_TAP), frame0=clip.frames[0],
+                            device=dev)  # fmt: skip
+        assert set(r.engines.values()) == {name}, r.engines
+        resizers[f"{sw}x{sh}->{dw}x{dh} tap{DEEP_TAP}"] = (r, clip)
+    (aper, (deep_r, _)), (drifted, (drift_r, _)) = resizers.items()
+    cell_luma = f"{aper} luma"
+    planes = {cell_luma: deep_r._applier_luma, f"{aper} chroma": deep_r._applier_chroma,
+              f"{drifted} luma": drift_r._applier_luma}  # fmt: skip
+    rng = np.random.default_rng(2401)
+    row = {"max_ulp": 0.0, "differing": 0, "max_abs_err": 0.0}
+    for name, app in planes.items():
+        spec = app.band_spec
+        nbytes = sum(b.numel() * b.element_size() for b in spec.blocks)
+        src = torch.from_numpy(rng.random((3, spec.src_height, spec.src_width),
+                                          dtype=np.float32)).to(dev)  # fmt: skip
+        for F in (1, 3):
+            x = src[:F].contiguous()
+            got = torch.cat([v.reshape(F, -1) for v in band_k.band_strips(spec, x).values()], 1)
+            want = torch.cat([v.reshape(F, -1) for v in band_k.band_strips_plain(spec, x).values()], 1)
+            torch.cuda.synchronize()
+            ulp = torch.nextafter(want.abs(), torch.tensor(float("inf"), device=dev)) - want.abs()
+            ulps = float(((got - want).abs() / ulp).max())
+            differing = int((got != want).sum())
+            print(f"[4] band strips {name} (fs {spec.fs}) F={F}: {spec.groups.shape[0]} groups, "
+                  f"{spec.n_out} pixels; |kernel - plain form| at most {ulps:.3g} float32 ulp, "
+                  f"{differing} of {got.numel()} samples differ [{card}]")
+            assert ulps <= 1.0 and not got.isnan().any(), (name, F, ulps)
+            row["max_ulp"] = max(row["max_ulp"], ulps)
+            row["max_abs_err"] = max(row["max_abs_err"], float((got - want).abs().max()))
+            row["differing"] += differing
+        x = src[:1].contiguous()
+        ms = cuda_ms(lambda: band_k.band_strips(spec, x), 20)
+        b_ms, by = bound_ms(0, nbytes)
+        print(f"[4] band strips {name} F=1: {ms:.4f} ms; bound {b_ms:.4f} ms ({by}: "
+              f"{nbytes / 1e9:.3f} GB of blocks at 3.35 TB/s), the kernel at {b_ms / ms:.1%} of it, "
+              f"{nbytes / ms / 1e6:.0f} GB/s [{card}]")
+        if name == cell_luma:
+            plain_ms = cuda_ms(lambda: band_k.band_strips_plain(spec, x), 1, warmup=0)
+            row.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by)
+        del src, x, got, want, ulp
+    for geo, (r, clip) in resizers.items():
+        r(clip)  # warm
+        before, launches = metrics.counters(), band_k.band_strips.launches
+        r(clip)
+        torch.cuda.synchronize()
+        d = metrics.counters()["strips_band_launches"] - before["strips_band_launches"]
+        n = band_k.band_strips.launches - launches
+        print(f"[4] one JincResizer call ({geo} yuv420p8, 1 frame, 3 planes): {n} band-strips "
+              f"launches, counter strips_band_launches +{d} [{card}]")
+        assert n == d == 3, (geo, n, d)
+        row["launches"] = row.get("launches", 0) + n
     return row
 
 
@@ -2620,6 +2712,9 @@ def main() -> int:
     # The class-grouped gather kernel on the gather cell's planes and the
     # tap-8 aperiodic luma plane, and one call's counters.
     grouped_row = gather_grouped_row(card, deep_aper_r, aper_r._applier_luma)
+    # The band-strips kernel on the gather deployment's planes and the
+    # tap-16 1440p -> 1080p luma plane, and one call's launches of each.
+    band_row = band_strips_row(card, deep_aper_r, deep_drift_r)
 
     print(f"[4] phases 1-4 took {time.perf_counter() - t_start:.1f} s")
 
@@ -2771,6 +2866,21 @@ def main() -> int:
             "plain_ms": exc_row["plain_ms"]["luma"],
             "bound_ms": exc_row["bound_ms"]["luma"][0],
             "bound_by": exc_row["bound_ms"]["luma"][1],
+            "library_ms": None,
+        },
+        {
+            "name": "band_strips",
+            "route": "cuda",
+            "source": "jincresize_tpu_torch/csrc/band_strips.cu",
+            "replaces": None,  # the JAX package's strips are XLA ops, no pallas_call
+            "launches": band_row["launches"],
+            "max_abs_err": band_row["max_abs_err"],
+            "max_ulp": band_row["max_ulp"],
+            "differing": band_row["differing"],
+            "ms": band_row["ms"],
+            "plain_ms": band_row["plain_ms"],
+            "bound_ms": band_row["bound_ms"],
+            "bound_by": band_row["bound_by"],
             "library_ms": None,
         },
         {

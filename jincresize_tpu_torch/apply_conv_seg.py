@@ -2,8 +2,8 @@
 
 Port of ``jincresize_tpu/apply_conv_seg.py``. Pairs the shared planner
 ``phase.plan_phases_seg`` with ``kernels/seg.py``: the kernel computes the
-plan-covered interior rectangle; border strips come from each strip's
-source row band (``apply_strips_fast.banded_strip_values``).
+plan-covered interior rectangle; the border strips run on
+``kernels/band_strips.py``.
 ``canvas.Canvas`` assembles the plane and writes the exception rows and
 columns (start-offset outliers and partial trailing periods) with
 ``kernels/lines.py``.
@@ -14,9 +14,9 @@ from __future__ import annotations
 from .operator import PlaneOperator
 from .phase import SegPhasePlan, plan_phases_seg
 
-from .apply_strips_fast import banded_strip_values, strip_row_bands
 from .apply_xla import resolve_device, to_device
 from .canvas import Canvas, PlaneApplier
+from .kernels import band_strips as band_k
 from .kernels import fused as fused_k
 from .kernels import seg as seg_k
 
@@ -61,7 +61,7 @@ class SegConvApplier(PlaneApplier):
         )
         self.effective_precision = fused_k.APPLIER_PRECISION[self.si.precision]
         self._dop = to_device(op, self.device)
-        self._strip_bands = strip_row_bands(op)
+        self.band_spec = band_k.make_band_strips(op, self._dop)
         rect = (plan.y.lo, plan.y.hi, plan.x.lo, plan.x.hi)
         self.canvas = Canvas.make(self._dop, rect, plan.x.exceptions, plan.y.exceptions)
 
@@ -69,4 +69,4 @@ class SegConvApplier(PlaneApplier):
         return seg_k.seg_interior(self.si, src_f)
 
     def _strips(self, src_f):
-        return banded_strip_values(self._dop, self._strip_bands, src_f)
+        return band_k.band_strips(self.band_spec, src_f)

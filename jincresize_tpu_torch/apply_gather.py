@@ -2,9 +2,8 @@
 
 Port of ``jincresize_tpu/apply_gather.py``. The execution engine for
 aperiodic geometry (no phase plan, no segment-periodic plan): the interior
-rectangle ``[y_lo, y_hi) x [x_lo, x_hi)`` runs on ``kernels/gather.py``;
-the border strips come from each strip's source row band
-(``apply_strips_fast.banded_strip_values``), and ``canvas.Canvas``
+rectangle ``[y_lo, y_hi) x [x_lo, x_hi)`` runs on ``kernels/gather.py``,
+the border strips on ``kernels/band_strips.py``, and ``canvas.Canvas``
 assembles the plane.
 """
 
@@ -12,14 +11,14 @@ from __future__ import annotations
 
 from .operator import PlaneOperator
 
-from .apply_strips_fast import banded_strip_values, strip_row_bands
 from .apply_xla import resolve_device, to_device
 from .canvas import Canvas, PlaneApplier
+from .kernels import band_strips as band_k
 from .kernels import gather as gather_k
 
 
 class GatherApplier(PlaneApplier):
-    """Aperiodic-geometry applier: gather-kernel interior, banded strips.
+    """Aperiodic-geometry applier: gather-kernel interior, band-strips kernel.
 
     Interface-compatible with ``apply_conv.ConvApplier``: call with (H, W) or
     (F, H, W) sources, get finalized planes back. Raises ValueError when the
@@ -35,11 +34,11 @@ class GatherApplier(PlaneApplier):
         self.effective_precision = "fp32"  # fp32 FMA throughout, no precision modes
         self.gi = gather_k.make_gather_interior(op, self.device)
         self._dop = to_device(op, self.device)
-        self._strip_bands = strip_row_bands(op)
+        self.band_spec = band_k.make_band_strips(op, self._dop)
         self.canvas = Canvas.make(self._dop, (op.y_lo, op.y_hi, op.x_lo, op.x_hi))
 
     def _interior(self, src_f):
         return gather_k.gather_interior(self.gi, src_f)
 
     def _strips(self, src_f):
-        return banded_strip_values(self._dop, self._strip_bands, src_f)
+        return band_k.band_strips(self.band_spec, src_f)

@@ -13,11 +13,11 @@ gives the strip.
 In the fused engine the top/bottom strips run on ``kernels/strips.py``; this
 module computes the left/right strips (and any strip the kernel declines).
 
-It also holds the strips' per-pixel forms, which need no periodic plan:
+It also holds the strips' per-pixel form, which needs no periodic plan:
 ``_strip_values`` gathers each strip's windows from a full-height im2col
-(the fused engine's strips where ``plan_strips`` declines), and
-``banded_strip_values`` from each strip's source row band
-(``strip_row_bands``), the segment-periodic and gather engines' strips.
+(the fused engine's strips where ``plan_strips`` declines). The
+segment-periodic and gather engines' strips run on
+``kernels/band_strips.py``.
 """
 
 from __future__ import annotations
@@ -28,7 +28,6 @@ import numpy as np
 import torch
 
 from .apply_xla import DevicePlaneOperator, einsum64
-from .operator import PlaneOperator
 
 
 @dataclass(frozen=True)
@@ -185,67 +184,3 @@ def _strip_values(dop: DevicePlaneOperator, src_f, s) -> torch.Tensor:
     rows = torch.clamp(dop.start_y[s.y0 : s.y1][:, None] + taps[None, :], 0, H - 1)
     G = P[:, rows]  # (F, ny, k, nx, l)
     return (G.permute(0, 1, 3, 2, 4) * s.blocks).sum((-2, -1))
-
-
-def _strip_values_banded(
-    dop: DevicePlaneOperator,
-    src_f,
-    s,
-    y_min: int,
-    band_h: int,
-    const_sy: bool = False,
-) -> torch.Tensor:
-    """``_strip_values`` over the strip's source row band: (F, ny, nx).
-
-    ``_strip_values`` gathers a full-height (F, H, nx, fs) im2col, although a
-    strip's windows touch only the ``band_h`` rows from ``y_min`` on
-    (``strip_row_bands``, from the host operator's start_y). Here the
-    horizontal im2col is taken from that band alone: the windows are
-    ``unfold`` views of the band, gathered at the strip's column starts.
-    """
-    fs = dop.filter_size
-    H = src_f.shape[1]
-    band_h = min(band_h, H - y_min)
-    band = src_f[:, y_min : y_min + band_h]
-    # Builder-clamped begins satisfy 0 <= start <= W - fs (strip_row_bands
-    # checks src >= fs), so every window is a whole unfold view.
-    P = band.unfold(2, fs, 1)[:, :, dop.start_x[s.x0 : s.x1]]  # (F, band_h, nx, fs)
-    if const_sy:
-        # Every strip row shares one window start (the clamped top/bottom
-        # border strips): the vertical taps are a static slice.
-        return einsum64("fkxl,yxkl->fyx", P[:, :fs], s.blocks)
-    taps = torch.arange(fs, device=src_f.device)
-    rows = (dop.start_y[s.y0 : s.y1] - y_min)[:, None] + taps[None, :]
-    G = P[:, rows]  # (F, ny, k, nx, l)
-    return (G.permute(0, 1, 3, 2, 4) * s.blocks).sum((-2, -1))
-
-
-def banded_strip_values(dop: DevicePlaneOperator, bands: dict, src_f) -> dict:
-    """{(y0, y1, x0, x1): (F, ny, nx) values} of every strip, from its row
-    band in ``bands`` (``strip_row_bands``)."""
-    return {
-        (s.y0, s.y1, s.x0, s.x1): _strip_values_banded(
-            dop, src_f, s, *bands[(s.y0, s.y1, s.x0, s.x1)]
-        )
-        for s in dop.strips
-    }
-
-
-def strip_row_bands(op: PlaneOperator) -> dict:
-    """Static (y_min, band_h, const_sy) per strip rect, from host start_y."""
-    fs = op.filter_size
-    if op.src_height < fs or op.src_width < fs:
-        raise ValueError(
-            f"strip_row_bands: source {op.src_width}x{op.src_height} smaller "
-            f"than filter_size {fs} -- window slices would be out of bounds"
-        )
-    out = {}
-    for s in op.strips:
-        sy = np.asarray(op.start_y[s.y0 : s.y1], dtype=np.int64)
-        y_min = int(sy.min())
-        out[(s.y0, s.y1, s.x0, s.x1)] = (
-            y_min,
-            int(sy.max()) - y_min + fs,
-            bool((sy == sy[0]).all()),
-        )
-    return out

@@ -43,6 +43,7 @@ _SIGNATURES = {
     "jt_seg_interior_bf16": [_P] * 12 + [_I] * 16 + [_P],
     "jt_seg_interior_wsplit3": [_P] * 12 + [_I] * 17 + [_P],
     "jt_exc_lines": [_P] * 8 + [_I] * 12 + [_P],
+    "jt_band_strips": [_P] * 8 + [_I] * 12 + [_P],
 }
 
 _lib = None

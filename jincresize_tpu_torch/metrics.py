@@ -22,8 +22,11 @@ form). What the gather engine does: ``gather_launches`` (launches of
 either gather interior kernel, ``kernels.gather.gather_interior_tile`` or
 ``gather_interior_grouped``, on the card, one a plane call; its plain form
 on the CPU launches nothing) and ``gather_grouped_launches`` (those of them
-that ran the class-grouped kernel, after each such launch). What the engines
-hold: ``engine_bytes`` (bytes of the device tables that each
+that ran the class-grouped kernel, after each such launch). What the gather
+and fused-seg engines' border strips do: ``strips_band_launches`` (launches
+of ``kernels.band_strips.band_strips`` on the card, one a plane call,
+counted after each; its plain form on the CPU launches nothing). What the
+engines hold: ``engine_bytes`` (bytes of the device tables that each
 ``JincResizer._init_engines`` left in its appliers and device operators --
 dictionaries, padded blocks, weight splits, strip blocks, index tables --
 as ``held_bytes`` counts them).
@@ -68,6 +71,7 @@ _COUNTERS = {
     "exception_lines": 0,
     "gather_launches": 0,
     "gather_grouped_launches": 0,
+    "strips_band_launches": 0,
     "engine_bytes": 0,
 }
 

@@ -5,8 +5,8 @@ jinc_tap16_2160p_to_768p_yuv420p8.json``: 3840x2160 -> 1366x768 at tap 16,
 cut to 384x216 -> 137x77, fs 92 on luma and 93 on chroma, no phase plan and
 no seg plan). ``impl='pallas'`` takes the engines in the order ``'auto'``
 takes them on a card, so every plane runs ``GatherApplier``: the gather
-interior's plain form, the per-pixel strips and ``einsum64`` of
-``apply_strips_fast.banded_strip_values``, and ``canvas.Canvas``. Also the
+interior's plain form, the per-pixel strips' plain form
+(``kernels.band_strips.band_strips_plain``), and ``canvas.Canvas``. Also the
 engine counters ``gather_launches`` and ``engine_bytes``.
 
 The mismatch limit is the configuration's own ``checks`` (5000 per million
@@ -139,20 +139,22 @@ def test_the_quant_control_reads_above_the_limit():
 def test_engine_bytes_count_the_appliers_tensors(program):
     """``engine_bytes`` grows at construction by the ``nbytes`` of every
     tensor the two gather appliers hold: the dictionary twice (the device
-    operator's and the kernel's padded copy), the strip blocks and the
-    index tables (606 MB at the stand-in, where the 4,725 luma blocks of
-    fs 92 lead; at full size the strip blocks do)."""
+    operator's and the kernel's padded copy), the strip blocks, the index
+    tables and the strips' window groups (606 MB at the stand-in, where the
+    4,725 luma blocks of fs 92 lead; at full size the strip blocks do). The
+    strips' spec holds the device operator's blocks, no copy of them."""
     _, r, built = program
 
     def tensors(app):
-        gi, dop = app.gi, app._dop
+        gi, dop, spec = app.gi, app._dop, app.band_spec
         yield from (gi.blocks, gi.start_y, gi.cy_idx, gi.start_x, gi.cx_idx)
         yield from (dop.start_x, dop.start_y, dop.cx_idx, dop.cy_idx, dop.pair_blocks)
         yield from (s.blocks for s in dop.strips)
+        yield from (spec.groups, spec.members)
 
     want = sum(t.nbytes for app in (r._applier_luma, r._applier_chroma) for t in tensors(app))
     assert built["engine_bytes"] == want == r.engine_bytes()
-    assert built["gather_launches"] == 0
+    assert built["gather_launches"] == 0 and built["strips_band_launches"] == 0
 
 
 @dataclass

@@ -25,11 +25,10 @@ from jincresize_tpu import phase as jphase
 from jincresize_tpu_torch.golden import apply_plane_numpy
 from jincresize_tpu_torch.operator import build_plane_operator, radius_for_tap
 from jincresize_tpu_torch.phase import plan_phases, plan_phases_seg
-from jincresize_tpu_torch.apply_strips_fast import (_strip_values, _strip_values_banded,
-                                                   strip_row_bands)
+from jincresize_tpu_torch.apply_strips_fast import _strip_values
 from jincresize_tpu_torch.apply_conv_seg import SegConvApplier
 from jincresize_tpu_torch.apply_xla import to_device
-from jincresize_tpu_torch.kernels import fused, gather, seg
+from jincresize_tpu_torch.kernels import band_strips, fused, gather, seg
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -206,30 +205,51 @@ def test_tile_windows_cover_every_read(name, ops):
 
 
 def test_strip_values_banded_equals_strip_values(ops):
-    """Every strip of a seg geometry: the banded form equals the full-height one."""
+    """Every strip of a seg geometry: the band-strips plain form (the seg
+    engine's strips) equals the full-height per-pixel one."""
     op = ops["1.5x-tap8"]
     dop = to_device(op, "cpu")
-    bands = strip_row_bands(op)
+    spec = band_strips.make_band_strips(op, dop)
     src = torch.from_numpy(_src(op, np.float32, seed=9))
+    vals = band_strips.band_strips_plain(spec, src)
     kinds = set()
     for s in dop.strips:
-        b = bands[(s.y0, s.y1, s.x0, s.x1)]
-        kinds.add(b[2])
-        got = _strip_values_banded(dop, src, s, *b)
+        kinds.add(bool((op.start_y[s.y0 : s.y1] == op.start_y[s.y0]).all()))
+        got = vals[(s.y0, s.y1, s.x0, s.x1)]
         want = _strip_values(dop, src, s)
         assert got.shape == want.shape == (2, s.y1 - s.y0, s.x1 - s.x0)
         assert float((got - want).abs().max()) <= F32_TOL
-    assert kinds == {True, False}  # both the constant-row and the gathered branch
+    assert kinds == {True, False}  # both the constant-row and the per-row strips
 
 
 def test_strip_row_bands_equal_jax(ops):
+    """The band-strips spec's windows against the JAX package's row bands
+    (``apply_conv.strip_row_bands`` of the same geometry): every strip
+    pixel's window starts where the JAX operator starts it, its rows lie in
+    the strip's JAX band, and a strip is constant-row in the JAX sense
+    exactly when all its pixels share one start row; a source below the
+    filter is refused."""
     from jincresize_tpu import apply_conv as japply
 
     for name, op in ops.items():
-        assert strip_row_bands(op) == japply.strip_row_bands(_jop(name))
+        jop = _jop(name)
+        bands = japply.strip_row_bands(jop)
+        spec = band_strips.make_band_strips(op, to_device(op, "cpu"))
+        groups = spec.groups.numpy()
+        owner = np.repeat(np.arange(len(groups)), groups[:, 3] - groups[:, 2])
+        strip, ys, xs = band_strips.pixels(spec)
+        sy = groups[owner, 0]
+        assert (sy == np.asarray(jop.start_y)[ys]).all()
+        assert (groups[owner, 1] == np.asarray(jop.start_x)[xs]).all()
+        assert len(ys) == sum(s.npixels for s in jop.strips)
+        for i, rect in enumerate(spec.rects):
+            y_min, band_h, const_sy = bands[rect]
+            rows = sy[strip == i]
+            assert rows.min() == y_min and rows.max() + op.filter_size == y_min + band_h
+            assert bool((rows == rows[0]).all()) == const_sy
     tiny = build_plane_operator(6, 6, 12, 12, radius_for_tap(8))
     with pytest.raises(ValueError, match="smaller than filter_size"):
-        strip_row_bands(tiny)
+        band_strips.make_band_strips(tiny, to_device(tiny, "cpu"))
 
 
 def test_is_supported_declines_deep_tap(monkeypatch):
