@@ -22,7 +22,8 @@ Phases (each raises on failure; nothing catches it):
    ``tests/test_apply_gather.py`` and ``tests/test_apply_conv_seg.py`` (both
    kernels at F = 1, 2, 3, 4 and 8 frames, every frames-a-thread instance
    and a ragged group) and on the full 2560x1440 -> 3840x2160 and
-   1920x1080 -> 3740x2104 tap-8 luma planes, the 2560x1440 -> 1920x1080
+   1920x1080 -> 3740x2104 tap-8 luma planes (the seg kernel also on the
+   former's 1280x720 -> 1920x1080 chroma plane), the 2560x1440 -> 1920x1080
    tap-16 luma plane (fs 44: seg and gather) and the 3840x2160 -> 1366x768
    tap-16 luma plane (fs 92); the sharded engine's band kernel on every row
    shard of 96x72 -> 160x120 tap 3 (8 shards), a multi-hop and a replicated
@@ -152,10 +153,11 @@ Phases (each raises on failure; nothing catches it):
    (``kernels/lines.py``) on the luma and chroma planes of the tap-16
    2560x1440 -> 1920x1080 yuv420p10 deployment against its plain form at
    F = 1 and 8 (0), timed on 8 frames beside its bound and the plain form,
-   one luma ``SegConvApplier`` call's and one ``JincResizer`` call's device
-   launches with the ``exception_launches`` / ``exception_lines`` counters
-   read before and after (1 and 2 a plane call), and a 4K -> 8K call that
-   leaves both counters unchanged (``exc_lines_row``); the class-grouped
+   one luma ``SegConvApplier`` call and one ``JincResizer`` call with the
+   ``exception_launches`` / ``exception_lines`` / ``seg_launches`` counters
+   read before and after (1, 2 and 1 a plane call; exact, where a one-call
+   device trace can drop its first events), and a 4K -> 8K call that leaves
+   the three counters unchanged (``exc_lines_row``); the class-grouped
    gather kernel on the luma and chroma planes of the 3840x2160 ->
    1366x768 tap-16 deployment and the tap-8 1080p -> 3740x2104 luma plane
    against the plain form and the tile kernel at F = 1, 2, 3, 4 and 8 (0),
@@ -164,9 +166,10 @@ Phases (each raises on failure; nothing catches it):
    form, and one one-frame call's
    ``gather_launches`` / ``gather_grouped_launches`` (3 each;
    ``gather_grouped_row``); the band-strips kernel (``kernels/band_strips.py``)
-   on the gather deployment's luma (fs 92) and chroma (fs 93) planes and the
-   tap-16 1440p -> 1080p luma plane (fs 44, ``fused-seg``) at F = 1 and 3
-   against its plain form (within one float32 ulp of each sample, the
+   on the gather deployment's luma (fs 92) and chroma (fs 93) planes, the
+   tap-16 1440p -> 1080p luma plane (fs 44, ``fused-seg``) and the tap-8
+   1440p -> 2160p upscale's luma and chroma planes (fs 17, ``fused-seg``)
+   at F = 1 and 3 against its plain form (within one float32 ulp of each sample, the
    samples that differ at all counted), timed at one frame beside its bound
    (the blocks' bytes at 3.35 TB/s), and one one-frame ``JincResizer`` call of
    each deployment with ``band_strips.launches`` and the counter
@@ -292,10 +295,6 @@ PREV_BF16_MS_PER_FRAME = {"fused": 0.745, "deep_fused": 0.687, "seg": 0.297}
 # table, H100 80GB HBM3, 700 W), printed beside this run's.
 PREV_WSPLIT3_MS_PER_FRAME = {"fused": 0.4599, "deep_fused": 0.3104, "thirds_fused": 0.4576,
                              "seg": 0.1841, "deep_seg": 0.5584}
-# Device launches a frame of the tap-16 1440p -> 1080p yuv420p10 benchmark
-# cell before the exception lines had a kernel (its traced runs on an H100
-# 80GB HBM3, 700 W), printed beside this run's.
-PREV_TAP16_LAUNCHES_PER_FRAME = 1239
 # The chain: 1080p -> 4K -> 8K tap 3 (2x then 2x), two frames.
 CHAIN = ((1920, 1080), (3840, 2160), (7680, 4320))
 CHAIN_TAP = 3
@@ -486,17 +485,18 @@ def exc_lines_row(card: str, periodic=None) -> dict:
     written where no line lies shows too), its CUDA-event median on an
     8-frame batch beside its bound and the plain form's time; then one luma
     ``SegConvApplier`` call and one whole one-frame ``JincResizer`` call, each
-    with the device launches of a ``metrics.device_trace`` and the
-    ``exception_launches`` / ``exception_lines`` counters read before and
-    after (one launch and two lines a plane call); the row's ``launches`` is
-    ``exc_lines.launches``, set to 0 just before that one ``JincResizer``
-    call (3, one a plane), not what the comparisons and timing loops
-    launched. ``periodic``: a
+    with the ``exception_launches`` / ``exception_lines`` / ``seg_launches``
+    counters read before and after (one launch and two lines a plane call,
+    and one seg interior launch). Those counts are exact; a device trace of
+    one call is not, since a fresh ``torch.profiler`` can drop the call's
+    first device events, so no launch count is taken from one. The row's
+    ``launches`` is ``exc_lines.launches``, set to 0 just before that one
+    ``JincResizer`` call (3, one a plane), not what the comparisons and
+    timing loops launched. ``periodic``: a
     4K -> 8K ``JincResizer`` and a clip, whose appliers must have no
-    exception lines and whose call must leave both counters as they were.
+    exception lines and whose call (``fused``) must leave the three
+    counters as they were.
     Returns the row of the kernels' JSON line."""
-    import tempfile
-
     import numpy as np
     import torch
 
@@ -565,42 +565,36 @@ def exc_lines_row(card: str, periodic=None) -> dict:
               f"{b_ms / row['ms'][plane]:.1%} of it [{card}]")
         del src, out, got, want
 
-    def traced(fn):
-        """(device launches of ``fn()`` in a trace, the counters' change)."""
+    keys = ("exception_launches", "exception_lines", "seg_launches")
+
+    def counted(fn):
+        """The counters' change over ``fn()``."""
         before = metrics.counters()
-        with tempfile.TemporaryDirectory() as d:
-            with metrics.device_trace(d):
-                fn()
-                torch.cuda.synchronize()
-            n = sum(c for _, c in metrics.device_time_by_op(os.path.join(d, "trace.json")).values())
+        fn()
+        torch.cuda.synchronize()
         after = metrics.counters()
-        keys = ("exception_launches", "exception_lines")
-        return n, {k: after[k] - before[k] for k in keys}
+        return {k: after[k] - before[k] for k in keys}
 
     luma = torch.from_numpy(clip.frames[0].planes["Y"][None]).to(dev)
     r._applier_luma(luma, out_dtype=np.uint16, peak=1023.0)  # warm
-    n, d = traced(lambda: r._applier_luma(luma, out_dtype=np.uint16, peak=1023.0))
-    print(f"[4] one luma SegConvApplier call ({geo}, 1 frame): {n} device launches, counters "
-          f"{d} [{card}]")
-    assert d == {"exception_launches": 1, "exception_lines": 2}, d
-    row["applier_launches"] = n
+    d = counted(lambda: r._applier_luma(luma, out_dtype=np.uint16, peak=1023.0))
+    print(f"[4] one luma SegConvApplier call ({geo}, 1 frame): counters {d} [{card}]")
+    assert d == {"exception_launches": 1, "exception_lines": 2, "seg_launches": 1}, d
     r(clip)  # warm
     lines_k.exc_lines.launches = 0
-    n, d = traced(lambda: r(clip))
+    d = counted(lambda: r(clip))
     row["launches"] = lines_k.exc_lines.launches
-    print(f"[4] one JincResizer call ({geo}, 1 frame, 3 planes): {n} device launches (before the "
-          f"exception-line kernel: {PREV_TAP16_LAUNCHES_PER_FRAME} a frame in the traced cell), counters {d} [{card}]")
-    assert d == {"exception_launches": 3, "exception_lines": 6} and row["launches"] == 3, (d, row)
-    row["call_launches"] = n
+    print(f"[4] one JincResizer call ({geo}, 1 frame, 3 planes): counters {d} [{card}]")
+    assert d == {"exception_launches": 3, "exception_lines": 6, "seg_launches": 3} and row["launches"] == 3, (d, row)
     if periodic is not None:
         pr, pclip = periodic
         assert pr._applier_luma.canvas.lines is None and pr._applier_chroma.canvas.lines is None
         before = metrics.counters()
         pr(pclip)
         after = metrics.counters()
-        d = {k: after[k] - before[k] for k in ("exception_launches", "exception_lines")}
-        print(f"[4] one 4K -> 8K JincResizer call: counters {d} (no exception lines)")
-        assert d == {"exception_launches": 0, "exception_lines": 0}, d
+        d = {k: after[k] - before[k] for k in keys}
+        print(f"[4] one 4K -> 8K JincResizer call: counters {d} (no exception lines, no seg)")
+        assert d == {"exception_launches": 0, "exception_lines": 0, "seg_launches": 0}, d
     return row
 
 
@@ -692,21 +686,22 @@ def gather_grouped_row(card: str, deep=None, aperiodic=None) -> dict:
     return row
 
 
-def band_strips_row(card: str, deep=None, drift=None) -> dict:
+def band_strips_row(card: str, deep=None, drift=None, upscale=None) -> dict:
     """Phase 4's row of the band-strips kernel: on the luma (fs 92) and
     chroma (fs 93) planes of the benchmark's gather deployment
-    (``DEEP_APERIODIC``, ``deep``) and the luma plane (fs 44) of its tap-16
-    1440p -> 1080p one (``DEEP_DRIFT``, ``fused-seg``, ``drift``), each a
-    ``JincResizer`` built with the operator cache when not given: the kernel
-    against its plain form (a float64 einsum on the card) at F = 1 and 3,
-    every sample within one float32 ulp, the samples that differ at all
-    counted; its CUDA-event median at one frame beside its bound, the blocks'
-    bytes at 3.35 TB/s; then one one-frame call of each resizer with
-    ``band_strips.launches`` and the counter ``strips_band_launches`` read
-    before and after (3 each, one a plane). Returns the row at the gather
-    cell's luma launch: ``ms``, ``plain_ms``, ``bound_ms``, ``bound_by``,
-    ``max_ulp``, ``max_abs_err``, ``differing`` (over every check) and
-    ``launches``."""
+    (``DEEP_APERIODIC``, ``deep``), the luma plane (fs 44) of its tap-16
+    1440p -> 1080p one (``DEEP_DRIFT``, ``fused-seg``, ``drift``) and the
+    luma and chroma planes (fs 17) of its tap-8 1440p -> 2160p upscale
+    (``DRIFT``, ``fused-seg``, ``upscale``), each a ``JincResizer`` built
+    with the operator cache when not given: the kernel against its plain
+    form (a float64 einsum on the card) at F = 1 and 3, every sample within
+    one float32 ulp, the samples that differ at all counted; its CUDA-event
+    median at one frame beside its bound, the blocks' bytes at 3.35 TB/s;
+    then one one-frame call of each resizer with ``band_strips.launches``
+    and the counter ``strips_band_launches`` read before and after (3 each,
+    one a plane). Returns the row at the gather cell's luma launch: ``ms``,
+    ``plain_ms``, ``bound_ms``, ``bound_by``, ``max_ulp``, ``max_abs_err``,
+    ``differing`` (over every check) and ``launches``."""
     import numpy as np
     import torch
 
@@ -718,18 +713,21 @@ def band_strips_row(card: str, deep=None, drift=None) -> dict:
     dev = torch.device(DEVICE)
     fmt = yuv420p(8)
     resizers = {}
-    for name, geo, r in (("gather", DEEP_APERIODIC, deep), ("fused-seg", DEEP_DRIFT, drift)):
+    for name, geo, tap, r in (("gather", DEEP_APERIODIC, DEEP_TAP, deep),
+                              ("fused-seg", DEEP_DRIFT, DEEP_TAP, drift),
+                              ("fused-seg", DRIFT, TAP, upscale)):  # fmt: skip
         sw, sh, dw, dh = geo
         clip = Clip.from_frames([random_frame(fmt, sw, sh, seed=2400)])
         if r is None:
-            r = JincResizer(fmt, sw, sh, JincConfig(dw, dh, tap=DEEP_TAP), frame0=clip.frames[0],
+            r = JincResizer(fmt, sw, sh, JincConfig(dw, dh, tap=tap), frame0=clip.frames[0],
                             device=dev)  # fmt: skip
         assert set(r.engines.values()) == {name}, r.engines
-        resizers[f"{sw}x{sh}->{dw}x{dh} tap{DEEP_TAP}"] = (r, clip)
-    (aper, (deep_r, _)), (drifted, (drift_r, _)) = resizers.items()
+        resizers[f"{sw}x{sh}->{dw}x{dh} tap{tap}"] = (r, clip)
+    (aper, (deep_r, _)), (drifted, (drift_r, _)), (up, (up_r, _)) = resizers.items()
     cell_luma = f"{aper} luma"
     planes = {cell_luma: deep_r._applier_luma, f"{aper} chroma": deep_r._applier_chroma,
-              f"{drifted} luma": drift_r._applier_luma}  # fmt: skip
+              f"{drifted} luma": drift_r._applier_luma, f"{up} luma": up_r._applier_luma,
+              f"{up} chroma": up_r._applier_chroma}  # fmt: skip
     rng = np.random.default_rng(2401)
     row = {"max_ulp": 0.0, "differing": 0, "max_abs_err": 0.0}
     for name, app in planes.items():
@@ -1431,6 +1429,11 @@ def main() -> int:
             covered[kind] += 1
             max_err[kind] = max(max_err[kind], err)
         if key == "drift":
+            # The chroma plane of the benchmark's 1440p -> 2160p upscale (fs 17).
+            err = check_interior("seg", f"{sw // 2}x{sh // 2}->{dw // 2}x{dh // 2} tap8 chroma",
+                                 pr.op_chroma, 32, rng)  # fmt: skip
+            covered["seg"] += 1
+            max_err["seg"] = max(max_err["seg"], err)
             err = check_interior("seg", f"{sw}x{sh}->{dw}x{dh} tap8 luma", pr.op_luma, 8, rng,
                                  2, "wsplit3")  # fmt: skip
             covered["seg_wsplit3"] += 1
@@ -2712,9 +2715,10 @@ def main() -> int:
     # The class-grouped gather kernel on the gather cell's planes and the
     # tap-8 aperiodic luma plane, and one call's counters.
     grouped_row = gather_grouped_row(card, deep_aper_r, aper_r._applier_luma)
-    # The band-strips kernel on the gather deployment's planes and the
-    # tap-16 1440p -> 1080p luma plane, and one call's launches of each.
-    band_row = band_strips_row(card, deep_aper_r, deep_drift_r)
+    # The band-strips kernel on the gather deployment's planes, the tap-16
+    # 1440p -> 1080p luma plane and the tap-8 1440p -> 2160p planes, and one
+    # call's launches of each.
+    band_row = band_strips_row(card, deep_aper_r, deep_drift_r, paths["drift"][0])
 
     print(f"[4] phases 1-4 took {time.perf_counter() - t_start:.1f} s")
 

@@ -110,6 +110,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import metrics
 from ..operator import PlaneOperator
 from ..phase import SegAxisPlan, SegPhasePlan
 
@@ -432,10 +433,10 @@ def seg_interior(si: SegInterior, src_f: torch.Tensor) -> torch.Tensor:
     """Segment-periodic interior of ``src_f`` (F, H, W) float32.
 
     On a CPU tensor this is ``seg_interior_plain``. On a CUDA tensor it
-    launches ``csrc/seg_interior.cu`` (counted in ``seg_interior.launches``
-    and, by ``si.precision``, in ``seg_interior.mode_launches``; the bf16
-    and wsplit3 modes launch its tensor-core kernel) or raises; it never
-    falls back.
+    launches ``csrc/seg_interior.cu`` (counted in ``seg_interior.launches``,
+    by ``si.precision`` in ``seg_interior.mode_launches`` and in the counter
+    ``seg_launches``, after the launch; the bf16 and wsplit3 modes launch
+    its tensor-core kernel) or raises; it never falls back.
     """
     if src_f.device.type == "cpu":
         return seg_interior_plain(si, src_f)
@@ -484,6 +485,7 @@ def seg_interior(si: SegInterior, src_f: torch.Tensor) -> torch.Tensor:
     _build.check(rc, "jt_seg_interior")
     seg_interior.launches += 1
     seg_interior.mode_launches[si.precision] += 1
+    metrics.count("seg_launches")
     return out
 
 

@@ -26,6 +26,9 @@ that ran the class-grouped kernel, after each such launch). What the gather
 and fused-seg engines' border strips do: ``strips_band_launches`` (launches
 of ``kernels.band_strips.band_strips`` on the card, one a plane call,
 counted after each; its plain form on the CPU launches nothing). What the
+fused-seg engine does: ``seg_launches`` (launches of the seg interior kernel,
+``kernels.seg.seg_interior``, on the card in any mode, one a plane call,
+counted after each; its plain form on the CPU launches nothing). What the
 engines hold: ``engine_bytes`` (bytes of the device tables that each
 ``JincResizer._init_engines`` left in its appliers and device operators --
 dictionaries, padded blocks, weight splits, strip blocks, index tables --
@@ -72,6 +75,7 @@ _COUNTERS = {
     "gather_launches": 0,
     "gather_grouped_launches": 0,
     "strips_band_launches": 0,
+    "seg_launches": 0,
     "engine_bytes": 0,
 }
 

@@ -4,11 +4,11 @@ engines, and its two forms.
 Where the rule concatenates, the paste form of the same plane (its lines
 over the whole canvas) must give the same canvas bit for bit, from the
 same interior, strips and source; a plane whose exception line lies
-outside its interior rectangle must paste. The benchmark's four
+outside its interior rectangle must paste. The benchmark's
 configurations, at the CPU stand-ins their files give (``standin``), keep
 the engine and the form every plane took before the rule was shared:
 concatenate on the fused and gather planes, paste on the tap-16 fused-seg
-planes.
+planes; the tap-8 fused-seg upscale concatenates.
 """
 
 import json
@@ -34,6 +34,7 @@ FORMS = {
     "jinc36_1080p_to_2160p_yuv420p8": True,
     "jinc_tap16_1440p_to_1080p_yuv420p10": False,
     "jinc_tap16_2160p_to_768p_yuv420p8": True,
+    "jinc256_1440p_to_2160p_yuv420p10": True,
 }
 GATHER = "jinc_tap16_2160p_to_768p_yuv420p8"
 

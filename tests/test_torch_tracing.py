@@ -113,7 +113,7 @@ def test_count_takes_only_the_set_up_keys():
     assert set(before) == {"operator_s", "engine_s", "operator_cache_loads",
                            "operator_cache_builds", "exception_launches",
                            "exception_lines", "gather_launches", "gather_grouped_launches",
-                           "strips_band_launches", "engine_bytes"}  # fmt: skip
+                           "strips_band_launches", "seg_launches", "engine_bytes"}  # fmt: skip
     with pytest.raises(KeyError):
         metrics.count("frames", 1)
     got = metrics.counters()
